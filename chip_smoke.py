@@ -2,15 +2,26 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from klt_tpu_torch/csrc, holds each against its
-plain torch version on the card, then drives the port's main path (the
-reference's example3 flow: select features on frame 0, track them in
-sequential mode, write the feature table) at 320x240 with 150 features
-and at 640x480 with 2000 features, checks the tracks against the known
-motion of the synthetic frames, and times kernels and sequences.  Every
-check raises on failure; the exit code is then non-zero and no result
-line is printed.  Without a CUDA device the script fails: it never runs
-on the CPU.
+Builds the CUDA kernels from klt_tpu_torch/csrc (one nvcc per source, in
+parallel), holds each against its plain torch version on the card, then
+drives the port's main paths:
+
+* tracking (the reference's example3 flow: select features on frame 0,
+  track them in sequential mode, write the feature table) at 320x240 with
+  150 features and at 640x480 with 2000 features;
+* tracking with lost-feature replacement every frame (example3's REPLACE
+  flow): at 320x240 with 150 features over 10 frames, through KLTracker
+  and track_sequence_replace, and at the traffic configuration's size,
+  640x480 with 500 features over 551 frames (images_traffic in the
+  reference), with kernels, with batched pyramids (precomp) and through
+  KLTracker;
+
+checks the tracks against the known motion of the synthetic frames and
+against the plain versions on the CPU, checks that the replacement loop
+never waits for the host, and times kernels and sequences.  Every check
+raises on failure; the exit code is then non-zero and no result line is
+printed.  Without a CUDA device the script fails: it never runs on the
+CPU.
 
 The frames are synthetic: the 240x320 scene crop in
 tests/fixtures/smoothed_img0.f32 (upsampled 2x for 640x480), translated
@@ -35,6 +46,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -42,15 +54,26 @@ import torch
 import klt_tpu_torch as klt
 from klt_tpu_torch import cuda
 from klt_tpu_torch.config import pyramid_shapes
+from klt_tpu_torch.cuda.corner_response import corner_response_cuda
 from klt_tpu_torch.cuda.lk_level import lk_level_cuda
-from klt_tpu_torch.cuda.pyramid import build_pyramid_stacks_cuda
+from klt_tpu_torch.cuda.pyramid import (build_pyramid_stacks_batched_cuda,
+                                        build_pyramid_stacks_cuda)
+from klt_tpu_torch.cuda.replace import replace_lost_cuda_
 from klt_tpu_torch.io.pnm import read_pgm
 from klt_tpu_torch.ops.lk import lk_level_plain
-from klt_tpu_torch.ops.pyramid import build_pyramid_stacks_plain
-from klt_tpu_torch.runtime.pipeline import track_sequence
+from klt_tpu_torch.ops.pyramid import (build_pyramid_stacks_batched_plain,
+                                       build_pyramid_stacks_plain)
+from klt_tpu_torch.ops.replace import replace_lost_plain_
+from klt_tpu_torch.ops.selection import corner_response_plain
+from klt_tpu_torch.runtime.pipeline import (PRECOMP_FRAMES, track_sequence,
+                                            track_sequence_replace)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(HERE, "tests", "fixtures", "smoothed_img0.f32")
+# images_traffic, the reference's traffic sequence: 551 frames of 640x480
+TRAFFIC_FRAMES = 551
+# the least young features a frame's known-motion bounds are taken over
+MIN_YOUNG = 20
 
 
 # ------------------------------------------------------------------ #
@@ -141,10 +164,19 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def sequence_fps(frames, feats, cfg, plain: bool, reps: int) -> list[float]:
-    """Frames/s of track_sequence, host clock around synchronised runs,
-    after one warm-up run."""
-    run = lambda: track_sequence(frames, *feats, cfg, plain=plain)
+@contextmanager
+def phase(tag: str):
+    """Prints how many seconds the phase took."""
+    t0 = time.perf_counter()
+    yield
+    print(f"[{tag}] phase took {time.perf_counter() - t0:.2f} s", flush=True)
+
+
+def sequence_fps(frames, feats, cfg, plain: bool, reps: int,
+                 seq=track_sequence, **kw) -> list[float]:
+    """Frames/s of a sequence entry point, host clock around synchronised
+    runs, after one warm-up run."""
+    run = lambda: seq(frames, *feats, cfg, plain=plain, **kw)
     run()
     torch.cuda.synchronize()
     out = []
@@ -370,6 +402,406 @@ def phase_times(card, frames_by_size, cfg, n_feats, times):
         times[size] = {"pyramid": (a_ms, a_plain), "lk_level": (b_ms, b_plain)}
 
 
+def phase_corner_response(frames_by_size, cfg, errs) -> None:
+    """Kernel D against its plain version on kernel A's level-0 gradients."""
+    for frames in frames_by_size:
+        img = torch.from_numpy(frames[1]).cuda()
+        _, gx, gy = build_pyramid_stacks_cuda(img, cfg)[0]
+        win = (cfg.window_width, cfg.window_height)
+        got = corner_response_cuda(gx, gy, *win)
+        ref = corner_response_plain(gx, gy, *win)
+        torch.cuda.synchronize()
+        check(torch.isfinite(got).all().item(), "non-finite response")
+        err = (got - ref).abs().max().item()
+        ints = torch.equal(got.to(torch.int32), ref.to(torch.int32))
+        errs.append(err)
+        print(f"[7 kernel D] {frames.shape[2]}x{frames.shape[1]}: max "
+              f"|kernel - plain| {err:.3g}, truncated int maps equal: {ints}; "
+              f"response max {got.max().item():.1f}")
+        check(err == 0 and ints, "kernel D differs from its plain version")
+
+
+def phase_batched_pyramid(batches, cfg, errs) -> None:
+    """Kernel E against its plain version and, image by image, kernel A."""
+    for frames in batches:
+        imgs = torch.from_numpy(frames).cuda()
+        got = build_pyramid_stacks_batched_cuda(imgs, cfg)
+        ref = build_pyramid_stacks_batched_plain(imgs, cfg)
+        single = [build_pyramid_stacks_cuda(im, cfg) for im in imgs]
+        torch.cuda.synchronize()
+        err = max((a - b).abs().max().item() for a, b in zip(got, ref))
+        same_a = all(torch.equal(g[i], s[lvl]) for i, s in enumerate(single)
+                     for lvl, g in enumerate(got))
+        errs.append(err)
+        print(f"[8 kernel E] {len(frames)} frames of {frames.shape[2]}x"
+              f"{frames.shape[1]}, stacks {[tuple(g.shape) for g in got]}: "
+              f"max |kernel - plain| {err:.3g}; every image bit-equal to "
+              f"kernel A: {same_a}")
+        check(err == 0 and same_a and
+              all(torch.isfinite(g).all().item() for g in got),
+              "kernel E differs from its plain version or from kernel A")
+
+
+def lost_state(frames, n_feats, cfg, n_steps):
+    """A KLTracker run on the card without replacement for n_steps frames:
+    the state with its lost slots, and the last frame's response."""
+    tr = klt.KLTracker(cfg, device="cuda")
+    fl = klt.FeatureList.create(n_feats)
+    tr.select_good_features(frames[0], fl)
+    for i in range(1, n_steps + 1):
+        tr.track_features(frames[i - 1], frames[i], fl)
+    _, gx, gy = tr._pyr_last[0]
+    return fl, corner_response_cuda(gx, gy, cfg.window_width,
+                                    cfg.window_height)
+
+
+def phase_replace_kernel(frames_by_size, n_feats, cfg, errs) -> None:
+    """Kernel R against its plain version on tracked states with lost
+    slots."""
+    for frames, n in zip(frames_by_size, n_feats):
+        fl, resp = lost_state(frames, n, cfg, 5)
+        outs = []
+        for fn in (replace_lost_cuda_, replace_lost_plain_):
+            x, y, val = (torch.from_numpy(a.copy()).cuda()
+                         for a in (fl.x, fl.y, fl.val))
+            fn(resp, x, y, val, cfg)
+            outs.append((x, y, val))
+        torch.cuda.synchronize()
+        (x, y, val), ref = outs
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(outs[0], ref))
+        same = all(torch.equal(a, b) for a, b in zip(outs[0], ref))
+        lost = fl.val < 0
+        v = val.cpu().numpy()
+        errs.append(err)
+        print(f"[9 kernel R] {frames.shape[2]}x{frames.shape[1]}, {n} slots, "
+              f"{int(lost.sum())} lost: {int((lost & (v > 0)).sum())} "
+              f"refilled, {int((v == klt.NOT_FOUND).sum())} NOT_FOUND; "
+              f"x, y, val equal to the plain version: {same}")
+        check(same and err == 0, "kernel R differs from its plain version")
+        check((lost & (v > 0)).any(), "kernel R refilled no slot")
+        check(not ((v < 0) & (v != klt.NOT_FOUND)).any(),
+              "a slot left lost is not NOT_FOUND")
+
+
+def tracker_replace_loop(frames, fl, cfg, table=None):
+    """KLTracker on the card, per frame track_features then
+    replace_lost_features (example3's REPLACE flow); fl is updated in place.
+    Returns (per-frame [T-1, N] val rows, the number of frames on which
+    features were lost, seconds)."""
+    tracker = klt.KLTracker(cfg, device="cuda")
+    rows, with_lost = [], 0
+    t0 = time.perf_counter()
+    for i in range(1, frames.shape[0]):
+        tracker.track_features(frames[i - 1], frames[i], fl)
+        with_lost += int((fl.val < 0).any())
+        tracker.replace_lost_features(frames[i], fl)
+        rows.append(fl.copy())
+        if table is not None:
+            table.store_list(fl, i)
+    return rows, with_lost, time.perf_counter() - t0
+
+
+def status_agreement(vs, rows) -> np.ndarray:
+    """Per-frame share of slots with the same val in a [T-1, N] table and
+    a KLTracker run's rows."""
+    return np.array([(vs[t] == r.val).mean() for t, r in enumerate(rows)])
+
+
+def run_replace_flagship(frames, n_feats, cfg, tag) -> int:
+    """The example3 REPLACE flow at 320x240 through KLTracker (table and an
+    overlay written), then track_sequence_replace on the same frames.
+    Returns the frames on which KLTracker replaced."""
+    fl = klt.FeatureList.create(n_feats)
+    klt.KLTracker(cfg, device="cuda").select_good_features(frames[0], fl)
+    start = fl.copy()
+    t_len = frames.shape[0]
+    table = klt.FeatureTable.create(t_len, n_feats)
+    table.store_list(fl, 0)
+    rows, with_lost, secs = tracker_replace_loop(frames, fl, cfg, table)
+
+    feats = [torch.from_numpy(a).cuda() for a in
+             (start.x, start.y, start.val)]
+    xs, ys, vs = (a.cpu().numpy() for a in track_sequence_replace(
+        torch.from_numpy(frames).cuda(), *feats, cfg))
+    check(xs.shape == (t_len - 1, n_feats) and np.isfinite(xs).all() and
+          np.isfinite(ys).all(), "bad track_sequence_replace table")
+    agree = status_agreement(vs, rows)
+    exact = np.mean([np.array_equal(vs[t], r.val) and
+                     np.array_equal(xs[t], r.x) for t, r in enumerate(rows)])
+    cpu = [a.numpy() for a in track_sequence_replace(
+        torch.from_numpy(frames),
+        *[torch.from_numpy(a) for a in (start.x, start.y, start.val)], cfg)]
+    card_cpu = all(np.array_equal(a, b) for a, b in zip((xs, ys, vs), cpu))
+    refilled = (vs > 0).sum(axis=1)
+    print(f"[{tag}] {frames.shape[2]}x{frames.shape[1]}, {t_len} frames, "
+          f"{n_feats} features: KLTracker loop {secs:.3f} s; replaced per "
+          f"frame {refilled.tolist()}; track_sequence_replace vs KLTracker "
+          f"status agreement min {agree.min():.4f} (frames identical: "
+          f"{exact:.2f}); card bit-equal to the CPU plain run: {card_cpu}")
+    check(agree.min() >= 0.97, "track_sequence_replace and KLTracker disagree")
+    check(card_cpu, "card run differs from the plain CPU run")
+    check(refilled.sum() > 0, "no feature was replaced")
+
+    with tempfile.TemporaryDirectory() as d:
+        klt.write_feature_table(table, os.path.join(d, "features.txt"),
+                                "%5.1f")
+        klt.write_feature_table(table, os.path.join(d, "features.ft"))
+        back = klt.read_feature_table(os.path.join(d, "features.ft"))
+        check(np.array_equal(back.val, table.val), "table round trip")
+        ppm = os.path.join(d, f"feat{t_len - 1}.ppm")
+        klt.write_feature_list_ppm(fl, frames[-1], ppm)
+        with open(ppm, "rb") as f:
+            data = f.read()
+        want = frames.shape[1] * frames.shape[2] * 3
+        check(data.startswith(f"P6\n{frames.shape[2]} {frames.shape[1]}\n"
+                              "255\n".encode()) and
+              len(data) - data.index(b"255\n") - 4 == want, "bad overlay")
+        print(f"[{tag}] wrote the feature table and feat{t_len - 1}.ppm "
+              f"({len(data)} bytes, {fl.count_remaining()} features drawn)")
+    return with_lost
+
+
+def known_motion_errors(xs, ys, vs, start, max_age=100):
+    """Per frame k, the error of every TRACKED feature younger than
+    max_age frames against shift(k) - shift(birth), birth being frame 0
+    for the selected features and the frame a slot was refilled on for
+    replaced ones.  Returns (per-frame error arrays, older errors)."""
+    n_rows, n = vs.shape
+    bx, by = start.x.astype(np.float64), start.y.astype(np.float64)
+    born = np.zeros(n, np.int64)
+    per_frame, older = [], []
+    for t in range(n_rows):
+        k = t + 1
+        tx, ty = shift(k)
+        ok = vs[t] == klt.TRACKED
+        sx = np.array([shift(b)[0] for b in born])
+        sy = np.array([shift(b)[1] for b in born])
+        err = np.maximum(np.abs(xs[t] - (bx + tx - sx)),
+                         np.abs(ys[t] - (by + ty - sy)))
+        young = ok & (k - born < max_age)
+        per_frame.append(err[young])
+        older.append(err[ok & ~young])
+        new = vs[t] > 0
+        born[new] = k
+        bx[new], by[new] = xs[t][new], ys[t][new]
+    return per_frame, np.concatenate(older) if older else np.zeros(0)
+
+
+def run_replace_traffic(frames, n_feats, cfg, tag, n_cpu) -> int:
+    """The traffic configuration's replace run: track_sequence_replace
+    with kernels and with precomp, KLTracker, the CPU plain run over the
+    first n_cpu frames, replacement counts and the known motion.  Returns
+    the frames on which KLTracker replaced."""
+    t_len = frames.shape[0]
+    n_cpu = min(n_cpu, t_len - 1)
+    fl = klt.FeatureList.create(n_feats)
+    klt.KLTracker(cfg, device="cuda").select_good_features(frames[0], fl)
+    start = fl.copy()
+    n_sel = start.count_remaining()
+    dev_frames = torch.from_numpy(frames).cuda()
+    feats = [torch.from_numpy(a).cuda() for a in
+             (start.x, start.y, start.val)]
+    t0 = time.perf_counter()
+    out = track_sequence_replace(dev_frames, *feats, cfg)
+    torch.cuda.synchronize()
+    t_kern = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pre = track_sequence_replace(dev_frames, *feats, cfg, precomp=True)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    same_pre = all(torch.equal(a, b) for a, b in zip(out, pre))
+    xs, ys, vs = (a.cpu().numpy() for a in out)
+    check(np.isfinite(xs).all() and np.isfinite(ys).all() and
+          xs.shape == (t_len - 1, n_feats), "bad track_sequence_replace table")
+
+    rows, with_lost, t_tr = tracker_replace_loop(frames, start.copy(), cfg)
+    agree = status_agreement(vs, rows)
+
+    cpu = [a.numpy() for a in track_sequence_replace(
+        torch.from_numpy(frames[:n_cpu + 1]),
+        *[torch.from_numpy(a) for a in (start.x, start.y, start.val)], cfg)]
+    card_cpu = all(np.array_equal(a[:n_cpu], b)
+                   for a, b in zip((xs, ys, vs), cpu))
+
+    refilled = (vs > 0).sum(axis=1)
+    alive = (vs >= 0).sum(axis=1)
+    print(f"[{tag}] {frames.shape[2]}x{frames.shape[1]}, {t_len} frames, "
+          f"{n_sel} of {n_feats} requested features selected: "
+          f"track_sequence_replace {t_kern:.3f} s, with precomp {t_pre:.3f} s "
+          f"(bit-equal: {same_pre}), KLTracker loop {t_tr:.3f} s")
+    print(f"[{tag}] replaced per frame: {refilled.tolist()}")
+    print(f"[{tag}] frames with replacements {int((refilled > 0).sum())} of "
+          f"{t_len - 1}; features alive per frame min {alive.min()}, "
+          f"median {np.median(alive):.0f}; track_sequence_replace vs "
+          f"KLTracker status agreement min {agree.min():.4f}, median "
+          f"{np.median(agree):.4f}; card bit-equal to the CPU plain run "
+          f"over {n_cpu} frames: {card_cpu}")
+    check(same_pre, "precomp=True differs from precomp=False")
+    check(card_cpu, "card run differs from the plain CPU run")
+    check(agree.min() >= 0.97,
+          "track_sequence_replace and KLTracker disagree on a frame")
+    check((refilled > 0).sum() >= (t_len - 1) / 2,
+          "replacement filled slots on under half of the frames")
+
+    # Bounds per frame where at least MIN_YOUNG features are young: after
+    # frame 100 only the few replaced features are, and they sit on the
+    # border band's last rows (the interior's corners are all held), so a
+    # frame's median is then one or two correlated features.  Every young
+    # observation of the run is also bounded, pooled.
+    per_frame, older = known_motion_errors(xs, ys, vs, start)
+    sizes = np.array([e.size for e in per_frame])
+    meds = np.array([np.median(e) if e.size else 0.0 for e in per_frame])
+    fracs = np.array([(e <= 1.0).mean() if e.size else 1.0
+                      for e in per_frame])
+    big = sizes >= MIN_YOUNG
+    pooled = np.concatenate(per_frame)
+    print(f"[{tag}] known motion, features younger than 100 frames: "
+          f"{pooled.size} observations, median {np.median(pooled):.4f} px, "
+          f"within 1 px {(pooled <= 1.0).mean():.4f}; over the {big.sum()} "
+          f"frames with >= {MIN_YOUNG} young features: worst median "
+          f"{meds[big].max():.4f} px, worst share within 1 px "
+          f"{fracs[big].min():.4f}; over all frames (down to "
+          f"{sizes.min()} young features): worst median {meds.max():.4f} px "
+          f"(frame {int(meds.argmax()) + 1}, {sizes[meds.argmax()]} "
+          f"features), worst share within 1 px {fracs.min():.4f}")
+    print(f"[{tag}] older features (reported, not bounded): {older.size} "
+          f"observations, median "
+          f"{np.median(older) if older.size else 0.0:.4f} px, within 1 px "
+          f"{(older <= 1.0).mean() if older.size else 1.0:.4f}")
+    check(np.median(pooled) <= 0.5 and (pooled <= 1.0).mean() >= 0.90,
+          "young features' errors above the bounds")
+    check(meds[big].max() <= 0.5, "a frame's median error is above 0.5 px")
+    check(fracs[big].min() >= 0.90,
+          "under 90% of a frame's tracks within 1 px")
+    return with_lost
+
+
+def phase_no_sync(frames, n_feats, cfg) -> None:
+    """track_sequence_replace's frame loop with kernels, frames and
+    features on the card, under torch's sync debug mode "error": any
+    host synchronisation inside raises."""
+    fl = klt.FeatureList.create(n_feats)
+    klt.KLTracker(cfg).select_good_features(frames[0], fl)
+    dev_frames = torch.from_numpy(frames).cuda()
+    feats = [torch.from_numpy(a).cuda() for a in (fl.x, fl.y, fl.val)]
+    track_sequence_replace(dev_frames, *feats, cfg, precomp=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for pre in (False, True):
+            track_sequence_replace(dev_frames, *feats, cfg, precomp=pre)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"[12 no sync] track_sequence_replace over {len(frames)} frames "
+          f"of {frames.shape[2]}x{frames.shape[1]}, with and without "
+          f"precomp, ran under sync debug mode \"error\": no host sync")
+
+
+def phase_replace_times(card, frames, n_feats, cfg, times) -> None:
+    size = f"{frames.shape[2]}x{frames.shape[1]}"
+    fl = klt.FeatureList.create(n_feats)
+    klt.KLTracker(cfg).select_good_features(frames[0], fl)
+    dev_frames = torch.from_numpy(frames).cuda()
+    feats = [torch.from_numpy(a).cuda() for a in (fl.x, fl.y, fl.val)]
+    n_plain = min(101, len(frames))
+    runs = lambda v: [round(f, 1) for f in v]
+    k_fps = sequence_fps(dev_frames, feats, cfg, False, 3,
+                         seq=track_sequence_replace)
+    p_fps = sequence_fps(dev_frames, feats, cfg, False, 3,
+                         seq=track_sequence_replace, precomp=True)
+    c_fps = sequence_fps(dev_frames[:n_plain], feats, cfg, True, 1,
+                         seq=track_sequence_replace)
+    print(f"[13 times] {card} | track_sequence_replace {size}, "
+          f"{len(frames)} frames, {int((fl.val >= 0).sum())} features: "
+          f"kernels {np.median(k_fps):.1f} frames/s (runs {runs(k_fps)}), "
+          f"precomp {np.median(p_fps):.1f} frames/s (runs {runs(p_fps)}), "
+          f"plain torch on the card {np.median(c_fps):.1f} frames/s over "
+          f"{n_plain} frames (runs {runs(c_fps)})", flush=True)
+
+    win = (cfg.window_width, cfg.window_height)
+    _, gx, gy = build_pyramid_stacks_cuda(dev_frames[1], cfg)[0]
+    d_ms = cuda_ms(lambda: corner_response_cuda(gx, gy, *win), 200)
+    d_plain = cuda_ms(lambda: corner_response_plain(gx, gy, *win), 20)
+    batch = dev_frames[1:1 + PRECOMP_FRAMES]
+    e_ms = cuda_ms(lambda: build_pyramid_stacks_batched_cuda(batch, cfg), 20)
+    e_plain = cuda_ms(lambda: build_pyramid_stacks_batched_plain(batch, cfg),
+                      2)
+    a_ms = cuda_ms(lambda: build_pyramid_stacks_cuda(batch[0], cfg), 200)
+    lost, resp = lost_state(frames, n_feats, cfg, 5)
+    state = [torch.from_numpy(a).cuda() for a in (lost.x, lost.y, lost.val)]
+    fresh = lambda: [a.clone() for a in state]
+    clone_ms = cuda_ms(fresh, 200)
+    r_ms = cuda_ms(lambda: replace_lost_cuda_(resp, *fresh(), cfg), 100)
+    r_plain = cuda_ms(lambda: replace_lost_plain_(resp, *fresh(), cfg), 5)
+    r0_ms = cuda_ms(lambda: replace_lost_cuda_(resp, *feats, cfg), 200)
+    n_lost = int((lost.val < 0).sum())
+    print(f"[13 times] {card} | {size}: kernel D {d_ms * 1e3:.1f} us per "
+          f"launch (plain {d_plain * 1e3:.1f} us); kernel E "
+          f"{e_ms * 1e3:.1f} us per launch of {len(batch)} frames = "
+          f"{e_ms * 1e3 / len(batch):.2f} us per frame (plain "
+          f"{e_plain * 1e3 / len(batch):.1f} us per frame; kernel A "
+          f"{a_ms * 1e3:.1f} us per frame); kernel R with {n_lost} of "
+          f"{n_feats} slots lost {r_ms * 1e3:.1f} us per launch (plain "
+          f"{r_plain * 1e3:.1f} us), both including {clone_ms * 1e3:.1f} us "
+          f"of input copies; with no slot lost {r0_ms * 1e3:.1f} us",
+          flush=True)
+    times.update({"corner_response": (d_ms, d_plain),
+                  "pyramid_batched": (e_ms, e_plain),
+                  "replace_lost": (r_ms, r_plain)})
+
+
+def phase_profile(frames, n_feats, cfg) -> None:
+    """torch.profiler over track_sequence_replace with kernels: device
+    busy share of the wall time, and each kernel's share of device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fl = klt.FeatureList.create(n_feats)
+    klt.KLTracker(cfg).select_good_features(frames[0], fl)
+    dev_frames = torch.from_numpy(frames).cuda()
+    feats = [torch.from_numpy(a).cuda() for a in (fl.x, fl.y, fl.val)]
+    track_sequence_replace(dev_frames, *feats, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        track_sequence_replace(dev_frames, *feats, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if us > 0 and "CUDA" in str(ev.device_type):
+            dev_us[ev.key] = dev_us.get(ev.key, 0.0) + us
+    total = sum(dev_us.values())
+    steps = len(frames) - 1
+    if total <= 0:
+        print("[14 profile] the profiler recorded no device time: device "
+              "busy share not measured")
+        return
+    groups = {"kernel R (replace_lost)": "replace_lost",
+              "kernel D (hsum_products, vsum_eigen)": ("hsum_products",
+                                                       "vsum_eigen"),
+              "kernel B (lk_level_kernel)": "lk_level_kernel",
+              "kernel A (hpass, vpass)": ("hpass", "vpass")}
+    shares, covered = [], 0.0
+    for name, keys in groups.items():
+        keys = keys if isinstance(keys, tuple) else (keys,)
+        us = sum(v for k, v in dev_us.items() if any(s in k for s in keys))
+        covered += us
+        shares.append(f"{name} {us / total:.3f} ({us / steps:.1f} us/frame)")
+    print(f"[14 profile] track_sequence_replace, {steps} steps of "
+          f"{frames.shape[2]}x{frames.shape[1]} (profiler on): wall "
+          f"{wall * 1e6 / steps:.1f} us per frame, device busy "
+          f"{total / (wall * 1e6):.3f} of the wall time; share of device "
+          f"time: " + "; ".join(shares) + f"; other (torch glue) "
+          f"{1 - covered / total:.3f}")
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
+    for k, v in top:
+        print(f"[14 profile]   {v / steps:9.1f} us/frame  {k[:90]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -378,50 +810,111 @@ def main() -> int:
 
     klt.set_verbosity(0)
     card = card_line()
-    phase_build(card)
+    with phase("1 build"):
+        phase_build(card)
 
     cfg = klt.TrackingConfig(sequential_mode=True)
     lighting = klt.TrackingConfig(sequential_mode=True,
                                   lighting_insensitive=True)
-    qvga = synthetic_frames(10)
-    vga = synthetic_frames(100, scale=2)
+    n_traffic = TRAFFIC_FRAMES
+    with phase("inputs"):
+        qvga = synthetic_frames(10)
+        traffic = synthetic_frames(n_traffic, scale=2)
+        vga = traffic[:100]
     print("[inputs] synthetic frames: fixture scene translated by "
           "(3.2 sin 0.3k, 2.1 sin 0.23k) px, bilinear, u8; "
-          f"{len(qvga)} x 320x240 and {len(vga)} x 640x480 (scene "
+          f"{len(qvga)} x 320x240 and {len(traffic)} x 640x480 (scene "
           "upsampled 2x)", flush=True)
-    errs = {"pyramid": [], "lk_level": []}
-    phase_pyramid((qvga, vga), cfg, errs["pyramid"])
-    phase_lk((qvga, vga), (cfg, lighting), (150, 2000), errs["lk_level"])
+    errs = {k.symbol: [] for k in cuda.KERNELS}
+    with phase("2 kernel A"):
+        phase_pyramid((qvga, vga), cfg, errs[cuda.PYRAMID.symbol])
+    with phase("3 kernel B"):
+        phase_lk((qvga, vga), (cfg, lighting), (150, 2000),
+                 errs[cuda.LK_LEVEL.symbol])
+    with phase("7 kernel D"):
+        phase_corner_response((qvga, vga), cfg,
+                              errs[cuda.CORNER_RESPONSE.symbol])
+    with phase("8 kernel E"):
+        phase_batched_pyramid((qvga[:10], traffic[:PRECOMP_FRAMES]), cfg,
+                              errs[cuda.PYRAMID_BATCHED.symbol])
+    with phase("9 kernel R"):
+        phase_replace_kernel((qvga, vga), (150, 500), cfg,
+                             errs[cuda.REPLACE_LOST.symbol])
 
+    # main path 1: tracking (example3)
     cuda.reset_launch_counts()
     real = provided_frames()
     if real is not None:
         print("[4 flagship] images_provided frames from KLT_IMAGES_PROVIDED")
-    run_main_path(qvga if real is None else real, 150, cfg, "4 flagship",
-                  known_motion=real is None)
-    run_main_path(vga, 2000, cfg, "5 real size", known_motion=True)
-    launches = {k.symbol: k.launches for k in cuda.KERNELS}
+    with phase("4 flagship"):
+        run_main_path(qvga if real is None else real, 150, cfg, "4 flagship",
+                      known_motion=real is None)
+    with phase("5 real size"):
+        run_main_path(vga, 2000, cfg, "5 real size", known_motion=True)
+    track_launches = {k.symbol: k.launches for k in cuda.KERNELS}
     # KLTracker and track_sequence each build every frame's pyramid once
     # and run one LK launch per level that holds the window
     want_a = 2 * (len(qvga) + len(vga))
     want_b = 2 * sum((len(f) - 1) * expected_lk_launches(f.shape[1:], cfg)
                      for f in (qvga, vga))
-    print(f"[4-5 launches] {launches} (expected pyramid {want_a}, "
-          f"lk_level {want_b})")
-    check(cuda.PYRAMID.launches == want_a and
-          cuda.LK_LEVEL.launches == want_b,
+    print(f"[4-5 launches] {track_launches} (expected pyramid {want_a}, "
+          f"lk_level {want_b}, no other)")
+    check(track_launches[cuda.PYRAMID.symbol] == want_a and
+          track_launches[cuda.LK_LEVEL.symbol] == want_b and
+          sum(track_launches.values()) == want_a + want_b,
           "main path launch counts differ from the expected")
 
+    # main path 2: tracking with replacement (example3 REPLACE, traffic)
+    cuda.reset_launch_counts()
+    with phase("10 replace flagship"):
+        lost_q = run_replace_flagship(qvga, 150, cfg, "10 replace flagship")
+    with phase("11 replace traffic"):
+        lost_t = run_replace_traffic(traffic, 500, cfg, "11 replace traffic",
+                                     n_cpu=100)
+    replace_launches = {k.symbol: k.launches for k in cuda.KERNELS}
+    # flagship: KLTracker + track_sequence_replace; traffic: kernels,
+    # precomp, KLTracker; KLTracker computes the response (D) only on
+    # frames with a lost feature and replaces on the host
+    steps_q, steps_t = len(qvga) - 1, n_traffic - 1
+    lk_q = expected_lk_launches(qvga.shape[1:], cfg)
+    lk_t = expected_lk_launches(traffic.shape[1:], cfg)
+    want = {
+        cuda.PYRAMID.symbol: 2 * len(qvga) + 2 * n_traffic + 1,
+        cuda.LK_LEVEL.symbol: 2 * steps_q * lk_q + 3 * steps_t * lk_t,
+        cuda.CORNER_RESPONSE.symbol: steps_q + lost_q + 2 * steps_t + lost_t,
+        cuda.PYRAMID_BATCHED.symbol: -(-steps_t // PRECOMP_FRAMES),
+        cuda.REPLACE_LOST.symbol: steps_q + 2 * steps_t,
+    }
+    print(f"[10-11 launches] {replace_launches} (expected {want})")
+    check(replace_launches == want,
+          "replace path launch counts differ from the expected")
+
+    with phase("12 no sync"):
+        phase_no_sync(traffic[:PRECOMP_FRAMES + 2], 500, cfg)
+
     times = {}
-    phase_times(card, (qvga, vga), cfg, (150, 2000), times)
+    with phase("6 times"):
+        phase_times(card, (qvga, vga), cfg, (150, 2000), times)
+    with phase("13 times"):
+        phase_replace_times(card, traffic, 500, cfg, times)
+    with phase("14 profile"):
+        phase_profile(traffic[:PRECOMP_FRAMES + 1], 500, cfg)
 
     report = {"kernels": []}
-    for k, name in ((cuda.PYRAMID, "pyramid"), (cuda.LK_LEVEL, "lk_level")):
-        ms, plain_ms = times["320x240"][name]
+    names = {cuda.PYRAMID: "pyramid", cuda.LK_LEVEL: "lk_level",
+             cuda.CORNER_RESPONSE: "corner_response",
+             cuda.PYRAMID_BATCHED: "pyramid_batched",
+             cuda.REPLACE_LOST: "replace_lost"}
+    for k in cuda.KERNELS:
+        name = names[k]
+        ms, plain_ms = times[name] if name in times \
+            else times["320x240"][name]
         report["kernels"].append({
             "name": name, "route": "cuda", "source": k.source,
-            "replaces": k.replaces, "launches": launches[k.symbol],
-            "max_abs_err": max(errs[name]), "ms": ms, "plain_ms": plain_ms})
+            "replaces": k.replaces,
+            "launches": track_launches[k.symbol] + replace_launches[k.symbol],
+            "max_abs_err": max(errs[k.symbol]), "ms": ms,
+            "plain_ms": plain_ms})
     print(card)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 CUDA kernels for NVIDIA Hopper (H100).
 
 The port of `klt_tpu` (JAX/XLA/Pallas on a TPU), module for module at the
-same relative paths.  The pyramid and the LK level loop run as CUDA
+same relative paths.  The pyramid (one frame or a batch), the LK level
+loop, the corner response and lost-feature replacement run as CUDA
 kernels for tensors on a CUDA device (klt_tpu_torch/csrc, built with nvcc
 at first use) and as plain torch for tensors on the CPU.
 
@@ -15,6 +16,7 @@ Quick start::
     fl = klt.FeatureList.create(150)
     tracker.select_good_features(img0, fl)     # uint8 [H, W] numpy
     tracker.track_features(img0, img1, fl)
+    tracker.replace_lost_features(img1, fl)
 """
 
 from .config import (TrackingConfig, TRACKED, NOT_FOUND, SMALL_DET,
@@ -25,6 +27,7 @@ from .io.pnm import read_pgm, write_pgm, read_ppm, write_ppm
 from .io.features_io import (write_feature_list, write_feature_history,
                              write_feature_table, read_feature_list,
                              read_feature_history, read_feature_table)
+from .utils.viz import feature_overlay, write_feature_list_ppm
 
 __version__ = "0.1.0"
 
@@ -36,4 +39,5 @@ __all__ = [
     "read_pgm", "write_pgm", "read_ppm", "write_ppm",
     "write_feature_list", "write_feature_history", "write_feature_table",
     "read_feature_list", "read_feature_history", "read_feature_table",
+    "feature_overlay", "write_feature_list_ppm",
 ]

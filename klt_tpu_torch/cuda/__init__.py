@@ -2,7 +2,8 @@
 
 The sources in klt_tpu_torch/csrc/ are compiled by nvcc into one shared
 library with a plain C interface, `build/klt_tpu_torch/libklt_kernels.so`,
-at first use (and again whenever a source is newer than the library).
+at first use (and again whenever a source is newer than the library): one
+nvcc process per source, all started together, then one link.
 Each C entry enqueues its kernels on the stream it is given and returns
 `cudaGetLastError()`; a `Kernel` raises when that is not cudaSuccess and
 otherwise counts one launch, so a run can show which kernels its main
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import os
 import shutil
+import subprocess
 import threading
 import time
 
@@ -26,11 +28,11 @@ import torch
 from .._build import BUILD_DIR, compile_shared, is_stale, repo_path
 
 SOURCES = [repo_path("klt_tpu_torch", "csrc", name)
-           for name in ("pyramid.cu", "lk_level.cu")]
+           for name in ("pyramid.cu", "lk_level.cu", "corner_response.cu",
+                        "replace.cu")]
 LIB = os.path.join(BUILD_DIR, "libklt_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC"]
+              "-O3", "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _lib = None
@@ -43,6 +45,36 @@ def _nvcc() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
+def _build() -> str:
+    """Compile every source to an object file in parallel, then link the
+    library; returns what nvcc printed (ptxas' register report)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    jobs = []
+    for src in SOURCES:
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}."
+                           f"{os.getpid()}.o")
+        cmd = [_nvcc()] + NVCC_FLAGS + ["-c", src, "-o", obj]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}:\n{out}")
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        log.append(compile_shared([_nvcc(), "-shared"] +
+                                  [obj for _, obj, _ in jobs], LIB))
+    finally:
+        for _, obj, _ in jobs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    return "".join(log)
+
+
 def load_library() -> ctypes.CDLL:
     """Build (if stale) and load libklt_kernels.so."""
     global _lib, build_log, build_seconds
@@ -53,7 +85,7 @@ def load_library() -> ctypes.CDLL:
             return _lib
         if is_stale(LIB, SOURCES):
             t0 = time.perf_counter()
-            build_log = compile_shared([_nvcc()] + NVCC_FLAGS + SOURCES, LIB)
+            build_log = _build()
             build_seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(LIB)
         lib.klt_cuda_error_string.argtypes = [ctypes.c_int]
@@ -111,7 +143,32 @@ LK_LEVEL = Kernel(
     source="klt_tpu_torch/csrc/lk_level.cu",
     replaces="klt_tpu/pallas/lk2.py:55")
 
-KERNELS = (PYRAMID, LK_LEVEL)
+PYRAMID_BATCHED = Kernel(
+    "klt_build_pyramid_batched",
+    # imgs, img_is_u8, batch, rows, cols, nlev, ss, 4 x (taps, ntaps),
+    # level outputs (host array of device pointers), scratch, stream
+    [_P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P, _I, _P, _I,
+     ctypes.POINTER(_P), _P, _P],
+    source="klt_tpu_torch/csrc/pyramid.cu",
+    replaces="klt_tpu/pallas/pyramid.py:247")
+
+CORNER_RESPONSE = Kernel(
+    "klt_corner_response",
+    # gradx, grady, rows, cols, window w/h, out, scratch, stream
+    [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    source="klt_tpu_torch/csrc/corner_response.cu",
+    replaces="klt_tpu/pallas/selection.py:28")
+
+# Not a TPU kernel: the XLA while_loop of klt_tpu's device replacement.
+REPLACE_LOST = Kernel(
+    "klt_replace_lost",
+    # resp, rows, cols, x, y, val, n, borderx, bordery, step, floor,
+    # stamp, map scratch, stream
+    [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    source="klt_tpu_torch/csrc/replace.cu",
+    replaces="klt_tpu/ops/replace.py:95")
+
+KERNELS = (PYRAMID, LK_LEVEL, CORNER_RESPONSE, PYRAMID_BATCHED, REPLACE_LOST)
 
 
 def reset_launch_counts() -> None:

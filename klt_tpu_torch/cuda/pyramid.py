@@ -1,6 +1,8 @@
-"""Wrapper of kernel A (csrc/pyramid.cu): the whole pyramid of one frame.
+"""Wrappers of kernels A and E (csrc/pyramid.cu): the whole pyramid of one
+frame, and of a batch of frames in one launch sequence.
 
-The plain torch version is `ops.pyramid.build_pyramid_stacks_plain`.
+The plain torch versions are `ops.pyramid.build_pyramid_stacks_plain` and
+`ops.pyramid.build_pyramid_stacks_batched_plain`.
 """
 
 from __future__ import annotations
@@ -12,15 +14,10 @@ import torch
 
 from ..config import TrackingConfig, MAX_KERNEL_WIDTH, pyramid_shapes
 from ..kernels import gaussian_kernels
-from . import PYRAMID, check_cuda_tensor
+from . import PYRAMID, PYRAMID_BATCHED, check_cuda_tensor
 
 
-def build_pyramid_stacks_cuda(img: torch.Tensor, cfg: TrackingConfig
-                              ) -> list[torch.Tensor]:
-    """uint8/f32 [H, W] CUDA frame -> finest-first list of f32
-    [3, H_l, W_l] stacks (intensity, gradx, grady), one kernel call."""
-    check_cuda_tensor(img, "img", (torch.uint8, torch.float32), 2)
-    h, w = img.shape
+def _shapes_and_taps(h: int, w: int, cfg: TrackingConfig):
     shapes = pyramid_shapes(w, h, cfg)
     if min(min(s) for s in shapes) < 1:
         raise ValueError(f"a {w}x{h} frame has an empty pyramid level "
@@ -31,18 +28,56 @@ def build_pyramid_stacks_cuda(img: torch.Tensor, cfg: TrackingConfig
         gaussian_kernels(cfg.pyramid_sigma)[0])]
     if max(len(t) for t in taps) > MAX_KERNEL_WIDTH:
         raise ValueError("tap width above MAX_KERNEL_WIDTH")
+    tap_args = []
+    for t in taps:
+        tap_args += [t.ctypes.data, len(t)]
+    # the numpy arrays must outlive the call that reads their pointers
+    return shapes, taps, tap_args
 
+
+def build_pyramid_stacks_cuda(img: torch.Tensor, cfg: TrackingConfig
+                              ) -> list[torch.Tensor]:
+    """uint8/f32 [H, W] CUDA frame -> finest-first list of f32
+    [3, H_l, W_l] stacks (intensity, gradx, grady), one kernel call."""
+    check_cuda_tensor(img, "img", (torch.uint8, torch.float32), 2)
+    h, w = img.shape
+    shapes, _taps, tap_args = _shapes_and_taps(h, w, cfg)
     dev = img.device
     outs = [torch.empty((3, r, c), dtype=torch.float32, device=dev)
             for c, r in shapes]
     scratch = torch.empty((3, h, w), dtype=torch.float32, device=dev)
     out_ptrs = (ctypes.c_void_p * len(outs))(*[o.data_ptr() for o in outs])
-    tap_args = []
-    for t in taps:
-        tap_args += [t.ctypes.data, len(t)]
     with torch.cuda.device(dev):
         PYRAMID(img.data_ptr(), int(img.dtype == torch.uint8), h, w,
                 cfg.n_pyramid_levels, cfg.subsampling, *tap_args,
                 out_ptrs, scratch.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
+    return outs
+
+
+# The grid's z dimension holds image * 3 maps, at most 65535.
+MAX_BATCH = 65535 // 3
+
+
+def build_pyramid_stacks_batched_cuda(imgs: torch.Tensor, cfg: TrackingConfig
+                                      ) -> list[torch.Tensor]:
+    """uint8/f32 [B, H, W] CUDA frames -> finest-first list of f32
+    [B, 3, H_l, W_l] stacks, one kernel call; each image's stacks are
+    bit-equal to kernel A's.  Memory grows with B: the caller chunks."""
+    check_cuda_tensor(imgs, "imgs", (torch.uint8, torch.float32), 3)
+    b, h, w = imgs.shape
+    if not 1 <= b <= MAX_BATCH:
+        raise ValueError(f"batch of {b} frames; kernel E takes 1 to "
+                         f"{MAX_BATCH}")
+    shapes, _taps, tap_args = _shapes_and_taps(h, w, cfg)
+    dev = imgs.device
+    outs = [torch.empty((b, 3, r, c), dtype=torch.float32, device=dev)
+            for c, r in shapes]
+    scratch = torch.empty((b, 3, h, w), dtype=torch.float32, device=dev)
+    out_ptrs = (ctypes.c_void_p * len(outs))(*[o.data_ptr() for o in outs])
+    with torch.cuda.device(dev):
+        PYRAMID_BATCHED(imgs.data_ptr(), int(imgs.dtype == torch.uint8), b,
+                        h, w, cfg.n_pyramid_levels, cfg.subsampling,
+                        *tap_args, out_ptrs, scratch.data_ptr(),
+                        torch.cuda.current_stream(dev).cuda_stream)
     return outs

@@ -1,0 +1,40 @@
+"""Wrapper of kernel R (csrc/replace.cu): greedy lost-feature replacement
+from a response map, in place.
+
+The plain torch version is `ops.replace.replace_lost_plain_`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import TrackingConfig
+from ..ops.selection import _candidate_borders
+from . import REPLACE_LOST, check_cuda_tensor
+
+
+def replace_lost_cuda_(resp: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                       val: torch.Tensor, cfg: TrackingConfig) -> None:
+    """Fill the lost slots (val < 0) of x, y, val from the f32 [H, W]
+    response, one kernel call, on the stream: nothing is read back."""
+    check_cuda_tensor(resp, "resp", torch.float32, 2)
+    check_cuda_tensor(x, "x", torch.float32, 1)
+    check_cuda_tensor(y, "y", torch.float32, 1)
+    check_cuda_tensor(val, "val", torch.int32, 1)
+    n = x.shape[0]
+    if y.shape[0] != n or val.shape[0] != n:
+        raise ValueError(f"x, y, val hold {n}, {y.shape[0]}, "
+                         f"{val.shape[0]} features")
+    devs = {t.device for t in (resp, x, y, val)}
+    if len(devs) != 1:
+        raise ValueError(f"inputs lie on several devices: {devs}")
+    h, w = resp.shape
+    borderx, bordery, step = _candidate_borders(cfg)
+    dev = resp.device
+    scratch = torch.empty((h, w), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        REPLACE_LOST(resp.data_ptr(), h, w, x.data_ptr(), y.data_ptr(),
+                     val.data_ptr(), n, borderx, bordery, step,
+                     max(1, int(cfg.min_eigenvalue)),
+                     max(int(cfg.mindist) - 1, 0), scratch.data_ptr(),
+                     torch.cuda.current_stream(dev).cuda_stream)

@@ -36,6 +36,7 @@ import torch
 
 from ..config import (TrackingConfig, TRACKED, SMALL_DET, MAX_ITERATIONS,
                       OOB, LARGE_RESIDUE)
+from .ieee import sqrt_rn
 from .interp import sample_stack_windows
 
 _EPS = float(np.float32(1.001))  # rounding margin (src/V1/trackFeatures.c:409)
@@ -75,7 +76,7 @@ def _gain_bias_diff(g1, g2, area):
     (src/V1/trackFeatures.c:133-169)."""
     mean1 = _div(_window_sum(g1 * g1), area)
     mean2 = _div(_window_sum(g2 * g2), area)
-    alpha = torch.sqrt(mean1 / mean2)
+    alpha = sqrt_rn(mean1 / mean2)
     m1 = _div(_window_sum(g1), area)
     m2 = _div(_window_sum(g2), area)
     beta = m1 - alpha * m2
@@ -89,7 +90,7 @@ def _gain_grad_sum(gx1w, gy1w, gx2w, gy2w, g1, g2, area):
     for behavioural parity."""
     mean1 = _div(_window_sum(g1), area)
     mean2 = _div(_window_sum(g2), area)
-    alpha = torch.sqrt(mean1 / mean2)[:, None]
+    alpha = sqrt_rn(mean1 / mean2)[:, None]
     return gx1w + gx2w * alpha, gy1w + gy2w * alpha
 
 

@@ -10,7 +10,9 @@ LK level loop reads.
 
 `build_pyramid_stacks` is kernel A's wrapper: a CUDA frame goes to the
 pyramid kernel (csrc/pyramid.cu), a CPU frame to the plain version
-below.  Stacks stay on the frame's device.
+below.  `build_pyramid_stacks_batched` is kernel E's: a [B, H, W] batch
+of frames in one launch sequence, bit-equal per image to kernel A.
+Stacks stay on the frames' device.
 """
 
 from __future__ import annotations
@@ -57,6 +59,29 @@ def build_pyramid_stacks(img: torch.Tensor, cfg: TrackingConfig
     if img.device.type != "cpu":
         raise ValueError(f"no pyramid path for device {img.device}")
     return build_pyramid_stacks_plain(img, cfg)
+
+
+def build_pyramid_stacks_batched_plain(imgs: torch.Tensor,
+                                      cfg: TrackingConfig
+                                      ) -> list[torch.Tensor]:
+    """Plain torch version of kernel E, on any device: uint8/f32
+    [B, H, W] -> finest-first list of f32 [B, 3, H_l, W_l] stacks."""
+    per_image = [build_pyramid_stacks_plain(im, cfg) for im in imgs]
+    return [torch.stack([st[lvl] for st in per_image])
+            for lvl in range(cfg.n_pyramid_levels)]
+
+
+def build_pyramid_stacks_batched(imgs: torch.Tensor, cfg: TrackingConfig
+                                 ) -> list[torch.Tensor]:
+    """Finest-first [B, 3, H_l, W_l] stacks of uint8/f32 [B, H, W]
+    frames.  CUDA: one call of the batched pyramid kernel.  CPU: the
+    plain version."""
+    if imgs.device.type == "cuda":
+        from ..cuda.pyramid import build_pyramid_stacks_batched_cuda
+        return build_pyramid_stacks_batched_cuda(imgs, cfg)
+    if imgs.device.type != "cpu":
+        raise ValueError(f"no pyramid path for device {imgs.device}")
+    return build_pyramid_stacks_batched_plain(imgs, cfg)
 
 
 def build_image_pyramids(img: torch.Tensor, cfg: TrackingConfig):

@@ -1,4 +1,4 @@
-"""Device-resident sequence tracker.
+"""Device-resident sequence trackers.
 
 A Python frame loop over a [T, H, W] frame tensor: each frame's pyramid
 is built on the frames' device and kept there as the next step's first
@@ -6,46 +6,157 @@ pyramid, so nothing but the per-frame feature tables is produced, and
 with the CUDA kernels no step waits for the host.  Pyramid levels travel
 as stacked [3, H_l, W_l] tensors, the pyramid kernel's output.
 
-`plain=True` runs the plain torch versions of both kernels on any
-device — the reference the kernels are held against on the card.
+* `track_sequence`: tracking only (klt_tpu's `track_sequence`);
+* `track_sequence_replace`: tracking, then lost-feature replacement from
+  the new frame's level-0 gradients, every frame (the reference's example3
+  REPLACE loop, src/V3/example3GPU.c:34-88);
+* `track_sequence_stream`: tracking of an iterable of frames of any
+  length in chunks, carrying the last pyramid on the device.
+
+`plain=True` runs the plain torch versions of every kernel on any device —
+the reference the kernels are held against on the card.  `precomp=True`
+builds the pyramids of up to PRECOMP_FRAMES frames in one batched-pyramid
+launch ahead of their steps (klt_tpu's KLT_TPU_PRECOMP_PYR=1), with
+results bit-equal to the default's.
 """
 
 from __future__ import annotations
 
+import itertools
+
 import torch
 
 from ..config import TrackingConfig
-from ..ops.pyramid import build_pyramid_stacks, build_pyramid_stacks_plain
+from ..ops.pyramid import (build_pyramid_stacks, build_pyramid_stacks_plain,
+                           build_pyramid_stacks_batched,
+                           build_pyramid_stacks_batched_plain)
 from ..ops.lk import track_features_pyramid_stacks
+from ..ops.replace import replace_lost_
+from ..ops.selection import corner_response, corner_response_plain
+
+# Frames per batched-pyramid launch with precomp: bounds the stacks held
+# at once (64 VGA frames of 2-level stacks are about 250 MB).
+PRECOMP_FRAMES = 64
 
 
-def track_sequence(frames: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
-                   val: torch.Tensor, cfg: TrackingConfig,
-                   plain: bool = False):
-    """Track features through a whole sequence.
+def _frame_stacks(frames: torch.Tensor, cfg: TrackingConfig, plain: bool,
+                  precomp: bool, per_launch: int | None = None):
+    """Each frame's finest-first stacks, in order: one pyramid build per
+    frame, or with precomp one batched build per `per_launch` frames
+    (default PRECOMP_FRAMES), made just before the first of them is
+    needed."""
+    per_launch = per_launch or PRECOMP_FRAMES
+    if not precomp:
+        build = build_pyramid_stacks_plain if plain else build_pyramid_stacks
+        for frame in frames:
+            yield build(frame, cfg)
+        return
+    build = (build_pyramid_stacks_batched_plain if plain
+             else build_pyramid_stacks_batched)
+    for t0 in range(0, frames.shape[0], per_launch):
+        stacks = build(frames[t0:t0 + per_launch], cfg)
+        for i in range(stacks[0].shape[0]):
+            yield [s[i] for s in stacks]
 
-    frames: uint8/f32 [T, H, W]; x, y f32 [N]; val i32 [N], all on one
-    device.  Returns (xs, ys, vals) of shape [T-1, N]: the state after
-    tracking into each frame t (t = 1..T-1).
-    """
+
+def _run(frames, x, y, val, cfg: TrackingConfig, plain: bool,
+         precomp: bool, replace: bool):
     if frames.dim() != 3:
         raise ValueError(f"frames must be [T, H, W], got "
                          f"{tuple(frames.shape)}")
-    build = build_pyramid_stacks_plain if plain else build_pyramid_stacks
     t_len, n = frames.shape[0], x.shape[0]
     xs = torch.empty((max(t_len - 1, 0), n), dtype=torch.float32,
                      device=frames.device)
     ys = torch.empty_like(xs)
     vals = torch.empty((max(t_len - 1, 0), n), dtype=torch.int32,
                        device=frames.device)
+    if t_len == 0:
+        return xs, ys, vals
+    build = build_pyramid_stacks_plain if plain else build_pyramid_stacks
+    respond = corner_response_plain if plain else corner_response
     st1 = build(frames[0], cfg)
-    for t in range(1, t_len):
-        st2 = build(frames[t], cfg)
+    for t, st2 in enumerate(_frame_stacks(frames[1:], cfg, plain, precomp)):
         x, y, val = track_features_pyramid_stacks(st1, st2, x, y, val, cfg,
                                                   plain=plain)
-        xs[t - 1], ys[t - 1], vals[t - 1] = x, y, val
+        xs[t], ys[t], vals[t] = x, y, val
+        if replace:
+            # the table rows are the state carried on: replacement fills
+            # them in place from the new frame's level-0 gradients
+            x, y, val = xs[t], ys[t], vals[t]
+            resp = respond(st2[0][1], st2[0][2], cfg.window_width,
+                           cfg.window_height)
+            replace_lost_(resp, x, y, val, cfg, plain=plain)
         st1 = st2
     return xs, ys, vals
+
+
+def track_sequence(frames: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                   val: torch.Tensor, cfg: TrackingConfig,
+                   plain: bool = False, precomp: bool = False):
+    """Track features through a whole sequence.
+
+    frames: uint8/f32 [T, H, W]; x, y f32 [N]; val i32 [N], all on one
+    device.  Returns (xs, ys, vals) of shape [T-1, N]: the state after
+    tracking into each frame t (t = 1..T-1).
+    """
+    return _run(frames, x, y, val, cfg, plain, precomp, replace=False)
+
+
+def track_sequence_replace(frames: torch.Tensor, x: torch.Tensor,
+                           y: torch.Tensor, val: torch.Tensor,
+                           cfg: TrackingConfig, plain: bool = False,
+                           precomp: bool = False):
+    """Whole-sequence tracking with lost-feature replacement after every
+    frame, on the device (ops/replace.py: the greedy masked argmax, no
+    host round trip with the kernels).
+
+    The device analogue of the reference's example3 REPLACE loop
+    (src/V3/example3GPU.c:34-88: KLTTrackFeatures then
+    KLTReplaceLostFeatures every frame).  frames: uint8/f32 [T, H, W];
+    x, y f32 [N]; val i32 [N], all on one device.  Returns (xs, ys, vals)
+    of shape [T-1, N]: the state after tracking into frame t and
+    replacing.
+    """
+    return _run(frames, x, y, val, cfg, plain, precomp, replace=True)
+
+
+def track_sequence_stream(frames_iter, x, y, val, cfg: TrackingConfig,
+                          chunk: int = 64, precomp: bool = False):
+    """Track an arbitrarily long sequence in O(chunk) device memory.
+
+    frames_iter: iterable of uint8/f32 [H, W] frames (numpy or tensors),
+    the first frame included; x, y f32 [N] and val i32 [N], tensors on
+    the device to run on (numpy arrays run on the CPU).  Each chunk of
+    frames is uploaded in one copy; the last pyramid stays on the device
+    from chunk to chunk, the unbounded version of the reference's
+    sequential mode (src/V1/trackFeatures.c:1285-1294).  With precomp,
+    each chunk's pyramids come from one batched launch.
+
+    Yields (t, x, y, val) numpy snapshots after each chunk, t being the
+    index of the last frame tracked into.
+    """
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    dev = x.device if isinstance(x, torch.Tensor) else torch.device("cpu")
+    x, y, val = (torch.as_tensor(a, dtype=dt).to(dev)
+                 for a, dt in ((x, torch.float32), (y, torch.float32),
+                               (val, torch.int32)))
+    it = iter(frames_iter)
+    st1 = build_pyramid_stacks(torch.as_tensor(next(it)).to(dev), cfg)
+    t = 0
+    while True:
+        block = list(itertools.islice(it, chunk))
+        if not block:
+            return
+        frames = torch.stack([torch.as_tensor(f) for f in block]).to(dev)
+        for st2 in _frame_stacks(frames, cfg, False, precomp, chunk):
+            x, y, val = track_features_pyramid_stacks(st1, st2, x, y, val,
+                                                      cfg)
+            st1 = st2
+        if precomp:  # let go of the rest of the chunk's stacks
+            st1 = [s.clone() for s in st1]
+        t += len(block)
+        yield t, x.cpu().numpy(), y.cpu().numpy(), val.cpu().numpy()
 
 
 def track_pair_carry(pyr1_state, img2: torch.Tensor, feat,

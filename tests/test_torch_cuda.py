@@ -1,4 +1,5 @@
-"""Kernels A and B held against their plain torch versions on a CUDA card.
+"""Kernels A, B, D, E and R held against their plain torch versions on a
+CUDA card.
 
 Every test here needs the card and skips without one.  The file imports
 neither jax nor klt_tpu nor conftest, so on a machine with a card and no
@@ -6,7 +7,7 @@ jax it runs alone:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Both kernels accumulate in the plain versions' f32 order and are built
+Every kernel accumulates in its plain version's f32 order and is built
 with -fmad=false, so every comparison asks for bit equality.
 """
 
@@ -21,7 +22,13 @@ from chip_smoke import synthetic_frames
 from klt_tpu_torch.ops.lk import lk_level, lk_level_plain
 from klt_tpu_torch.ops.pyramid import (build_pyramid_stacks,
                                        build_pyramid_stacks_plain)
-from klt_tpu_torch.runtime.pipeline import track_sequence
+from klt_tpu_torch.ops.pyramid import (build_pyramid_stacks_batched,
+                                       build_pyramid_stacks_batched_plain)
+from klt_tpu_torch.ops.replace import replace_lost_, replace_lost_plain_
+from klt_tpu_torch.ops.selection import corner_response, corner_response_plain
+from klt_tpu_torch.runtime.pipeline import (track_sequence,
+                                            track_sequence_replace,
+                                            track_sequence_stream)
 
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "fixtures", "smoothed_img0.f32")
@@ -168,3 +175,196 @@ def test_tracker_on_card_equals_cpu(dev):
     for a, b in zip((out[0].x, out[0].y, out[0].val),
                     (out[1].x, out[1].y, out[1].val)):
         np.testing.assert_array_equal(a, b)
+
+
+def replace_frames(n, scale=1):
+    """Synthetic frames with a flat patch from frame 3 on, so that
+    features are lost and replaced."""
+    fr = synthetic_frames(n, scale=scale)
+    fr[3:, 60 * scale:120 * scale, 100 * scale:180 * scale] = 128
+    return fr
+
+
+@pytest.mark.parametrize("scale,window", [
+    (1, (7, 7)), (2, (7, 7)), (1, (9, 5)), (1, (3, 11))])
+def test_corner_response_kernel_equals_plain(scale, window, dev):
+    from klt_tpu_torch import cuda
+    cfg = kt.TrackingConfig()
+    img = torch.from_numpy(replace_frames(4, scale)[3]).to(dev)
+    _, gx, gy = build_pyramid_stacks(img, cfg)[0]
+    before = cuda.CORNER_RESPONSE.launches
+    got = corner_response(gx, gy, *window)
+    assert cuda.CORNER_RESPONSE.launches == before + 1
+    ref = corner_response_plain(gx, gy, *window)
+    assert_equal_all([got, got.to(torch.int32)],
+                     [ref, ref.to(torch.int32)])
+    cpu = corner_response_plain(gx.cpu(), gy.cpu(), *window)
+    assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.parametrize("hw", [(33, 47), (2, 3), (240, 320)])
+def test_corner_response_kernel_odd_sizes(hw, dev):
+    rng = np.random.RandomState(hw[0])
+    gx, gy = (torch.from_numpy(rng.normal(0, 30, hw).astype(np.float32))
+              .to(dev) for _ in range(2))
+    assert torch.equal(corner_response(gx, gy, 7, 7),
+                       corner_response_plain(gx, gy, 7, 7))
+
+
+@pytest.mark.parametrize("b,hw,kw", [
+    (1, (240, 320), {}), (10, (240, 320), {}), (5, (33, 47), {}),
+    (3, (480, 640), {}), (4, (64, 80), {"search_range": 30,
+                                        "smooth_sigma_fact": 0.5})])
+def test_batched_pyramid_kernel_equals_kernel_a(b, hw, kw, dev):
+    from klt_tpu_torch import cuda
+    cfg = kt.TrackingConfig(**kw)
+    scale = 2 if hw[0] > 240 else 1
+    imgs = torch.from_numpy(np.ascontiguousarray(
+        replace_frames(b, scale)[:, :hw[0], :hw[1]])).to(dev)
+    before = cuda.PYRAMID_BATCHED.launches
+    got = build_pyramid_stacks_batched(imgs, cfg)
+    assert cuda.PYRAMID_BATCHED.launches == before + 1
+    assert [tuple(g.shape[:2]) for g in got] == [(b, 3)] * len(got)
+    for i in range(b):
+        assert_equal_all([g[i] for g in got], build_pyramid_stacks(imgs[i],
+                                                                   cfg))
+    assert_equal_all(got, build_pyramid_stacks_batched_plain(imgs, cfg))
+    assert_equal_all(build_pyramid_stacks_batched(imgs.float(), cfg), got)
+
+
+def lost_case(kw, scale, dev):
+    """A tracked state with lost slots and the new frame's response."""
+    cfg = kt.TrackingConfig(sequential_mode=True, **kw)
+    frames = replace_frames(4, scale)
+    fl = kt.FeatureList.create(150 if scale == 1 else 500)
+    tr = kt.KLTracker(cfg, dev)
+    tr.select_good_features(frames[2], fl)
+    tr.track_features(frames[2], frames[3], fl)
+    _, gx, gy = tr._pyr_last[0]
+    resp = corner_response(gx, gy, cfg.window_width, cfg.window_height)
+    return cfg, resp, fl
+
+
+@pytest.mark.parametrize("scale,kw", [
+    (1, {}), (2, {}), (1, {"mindist": 1}),
+    (1, {"mindist": 5, "n_skipped_pixels": 1}),
+    (2, {"min_eigenvalue": 500}), (1, {"mindist": 40})])
+def test_replace_kernel_equals_plain(scale, kw, dev):
+    from klt_tpu_torch import cuda
+    cfg, resp, fl = lost_case(kw, scale, dev)
+    assert (fl.val < 0).any()
+    outs = []
+    for where, fn in ((dev, replace_lost_), (dev, replace_lost_plain_),
+                      ("cpu", replace_lost_plain_)):
+        x, y, val = (torch.from_numpy(a.copy()).to(where)
+                     for a in (fl.x, fl.y, fl.val))
+        before = cuda.REPLACE_LOST.launches
+        fn(resp.to(where), x, y, val, cfg)
+        assert cuda.REPLACE_LOST.launches == before + (fn is replace_lost_)
+        outs.append([x.cpu(), y.cpu(), val.cpu()])
+    assert_equal_all(outs[0], outs[1])
+    assert_equal_all(outs[0], outs[2])
+    val = outs[0][2].numpy()
+    assert ((fl.val < 0) & (val > 0)).any()
+    if kw.get("mindist") == 40:  # candidates run out
+        assert ((fl.val < 0) & (val == kt.NOT_FOUND)).any()
+    assert not ((val < 0) & (val != kt.NOT_FOUND)).any()
+
+
+def test_replace_kernel_with_no_lost_slot_changes_nothing(dev):
+    cfg, resp, fl = lost_case({}, 1, dev)
+    live = fl.val >= 0
+    state = [torch.from_numpy(np.where(live, a, b).astype(a.dtype)).to(dev)
+             for a, b in ((fl.x, 50.0), (fl.y, 60.0), (fl.val, 7))]
+    before = [a.clone() for a in state]
+    replace_lost_(resp, *state, cfg)
+    assert_equal_all(state, before)
+
+
+def replace_inputs(dev, n_frames=8, scale=1, n=150):
+    cfg = kt.TrackingConfig(sequential_mode=True)
+    frames = replace_frames(n_frames, scale)
+    fl = kt.FeatureList.create(n)
+    kt.KLTracker(cfg).select_good_features(frames[0], fl)
+    feats = [torch.from_numpy(a) for a in (fl.x, fl.y, fl.val)]
+    return cfg, torch.from_numpy(frames), feats
+
+
+def test_track_sequence_replace_kernels_equal_plain(dev):
+    """Kernels on the card, plain on the card and plain on the CPU, with
+    and without precomp: bit-equal tables; one launch of A, of D and of R
+    per frame and of B per level (E once with precomp)."""
+    from klt_tpu_torch import cuda
+    cfg, f, feats = replace_inputs(dev)
+    fd, featd = f.to(dev), [a.to(dev) for a in feats]
+    cuda.reset_launch_counts()
+    got = track_sequence_replace(fd, *featd, cfg)
+    assert (cuda.PYRAMID.launches, cuda.CORNER_RESPONSE.launches,
+            cuda.REPLACE_LOST.launches, cuda.LK_LEVEL.launches) == \
+        (8, 7, 7, 7 * cfg.n_pyramid_levels)
+    cuda.reset_launch_counts()
+    pre = track_sequence_replace(fd, *featd, cfg, precomp=True)
+    assert (cuda.PYRAMID.launches, cuda.PYRAMID_BATCHED.launches) == (1, 1)
+    assert_equal_all(pre, got)
+    assert_equal_all(got, track_sequence_replace(fd, *featd, cfg,
+                                                 plain=True))
+    assert_equal_all([g.cpu() for g in got],
+                     track_sequence_replace(f, *feats, cfg))
+    assert (got[2][2:] > 0).any()  # replaced after the patch appeared
+
+
+def test_replace_loop_never_syncs(dev):
+    cfg, f, feats = replace_inputs(dev)
+    fd, featd = f.to(dev), [a.to(dev) for a in feats]
+    track_sequence_replace(fd, *featd, cfg, precomp=True)  # build, warm up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for pre in (False, True):
+            track_sequence_replace(fd, *featd, cfg, precomp=pre)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_tracker_replace_on_card_equals_cpu(dev):
+    frames = replace_frames(6)
+    out = []
+    for device in (dev, "cpu"):
+        tr = kt.KLTracker(kt.TrackingConfig(sequential_mode=True), device)
+        fl = kt.FeatureList.create(150)
+        tr.select_good_features(frames[0], fl)
+        for i in range(1, 6):
+            tr.track_features(frames[i - 1], frames[i], fl)
+            tr.replace_lost_features(frames[i], fl)
+        out.append(fl)
+    for a, b in zip((out[0].x, out[0].y, out[0].val),
+                    (out[1].x, out[1].y, out[1].val)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_device_response_selection_on_card_equals_cpu(dev, monkeypatch):
+    monkeypatch.setenv("KLT_TPU_EXACT_SELECT", "0")
+    frames = replace_frames(1)
+    for kw in ({}, {"smooth_before_selecting": False}):
+        out = []
+        for device in (dev, "cpu"):
+            fl = kt.FeatureList.create(300)
+            kt.KLTracker(kt.TrackingConfig(**kw), device) \
+                .select_good_features(frames[0], fl)
+            out.append(fl)
+        np.testing.assert_array_equal(out[0].x, out[1].x)
+        np.testing.assert_array_equal(out[0].val, out[1].val)
+
+
+def test_stream_on_card_equals_track_sequence(dev):
+    cfg, f, feats = replace_inputs(dev, n_frames=11)
+    featd = [a.to(dev) for a in feats]
+    whole = track_sequence(f.to(dev), *featd, cfg)
+    for pre in (False, True):
+        snaps = list(track_sequence_stream(iter(f.numpy()), *featd, cfg,
+                                           chunk=4, precomp=pre))
+        assert [s[0] for s in snaps] == [4, 8, 10]
+        for t, *state in snaps:
+            for a, w in zip(state, whole):
+                np.testing.assert_array_equal(a, w[t - 1].cpu().numpy())

@@ -193,3 +193,20 @@ def test_window_sampling_matches_klt_tpu():
     assert 0 < keep.sum() < 50
     np.testing.assert_allclose(ours[:, keep], ref[:, keep], rtol=1e-6,
                                atol=1e-4)
+
+
+def test_plain_sqrt_is_correctly_rounded():
+    """The plain versions take square roots from ops/ieee.py: the IEEE
+    operation, which the kernels and the C reference compute.  torch.sqrt
+    on the CPU can land an ulp off (a vectorised approximation): that made
+    the plain lighting-insensitive LK and the plain corner response on the
+    CPU differ from the kernels on the card.  numpy's float32 sqrt is the
+    IEEE operation and serves as the oracle."""
+    from klt_tpu_torch.ops.ieee import sqrt_rn
+    rng = np.random.RandomState(0)
+    x = np.concatenate([rng.uniform(0, 4, 200_000),
+                        10.0 ** rng.uniform(-30, 30, 200_000),
+                        rng.uniform(1e6, 1e9, 200_000)]).astype(np.float32)
+    got = sqrt_rn(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32),
+                                  np.sqrt(x).view(np.uint32))

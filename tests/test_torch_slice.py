@@ -104,11 +104,15 @@ def test_tracker_equals_track_sequence_and_pair_steps(frames):
 
 
 def test_tracker_refuses_affine_config_and_has_no_replacement(frames):
+    """With the affine check asked for (not ported), the tracker neither
+    tracks nor replaces."""
     tr = kt.KLTracker(kt.TrackingConfig(affine_consistency_check=2))
     fl = select(frames[0], 8)
     with pytest.raises(NotImplementedError, match="queue 1, item 7"):
         tr.track_features(frames[0], frames[1], fl)
-    assert not hasattr(kt.KLTracker, "replace_lost_features")
+    fl.val[:2] = kt.OOB
+    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+        tr.replace_lost_features(frames[1], fl)
 
 
 def test_tracker_rejects_a_frame_of_another_size(frames):
@@ -125,7 +129,8 @@ def test_port_runs_without_jax():
         "sys.modules['jax'] = None\n"
         "import numpy as np, torch\n"
         "import klt_tpu_torch as kt\n"
-        "from klt_tpu_torch.runtime.pipeline import track_sequence\n"
+        "from klt_tpu_torch.runtime.pipeline import (track_sequence,\n"
+        "    track_sequence_replace)\n"
         "from chip_smoke import synthetic_frames\n"
         "kt.set_verbosity(0)\n"
         "fr = synthetic_frames(3)\n"
@@ -134,7 +139,10 @@ def test_port_runs_without_jax():
         "tr = kt.KLTracker(cfg)\n"
         "tr.select_good_features(fr[0], fl)\n"
         "tr.track_features(fr[0], fr[1], fl)\n"
+        "tr.replace_lost_features(fr[1], fl)\n"
         "xs, ys, vs = track_sequence(torch.from_numpy(fr),\n"
+        "    *[torch.from_numpy(a) for a in (fl.x, fl.y, fl.val)], cfg)\n"
+        "track_sequence_replace(torch.from_numpy(fr),\n"
         "    *[torch.from_numpy(a) for a in (fl.x, fl.y, fl.val)], cfg)\n"
         "assert not any(m == 'klt_tpu' or m.startswith(('klt_tpu.', 'jax.'))\n"
         "               for m in sys.modules)\n"
