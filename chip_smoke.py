@@ -15,10 +15,15 @@ drives the port's main paths:
   640x480 with 500 features over 551 frames (images_traffic in the
   reference), with kernels, with batched pyramids (precomp) and through
   KLTracker;
+* batched multi-sequence tracking (track_sequences_batched: one
+  batched-pyramid launch per step, one kernel C launch per level for all
+  sequences): 32 different sequences of 320x240 with 150 features each
+  and 3 of 640x480 with 4096 features requested, over 10 frames;
 
 checks the tracks against the known motion of the synthetic frames and
 against the plain versions on the CPU, checks that the replacement loop
-never waits for the host, and times kernels and sequences.  Every check
+and the batched loop never wait for the host, and times kernels and
+sequences.  Every check
 raises on failure; the exit code is then non-zero and no result line is
 printed.  Without a CUDA device the script fails: it never runs on the
 CPU.
@@ -55,16 +60,17 @@ import klt_tpu_torch as klt
 from klt_tpu_torch import cuda
 from klt_tpu_torch.config import pyramid_shapes
 from klt_tpu_torch.cuda.corner_response import corner_response_cuda
-from klt_tpu_torch.cuda.lk_level import lk_level_cuda
+from klt_tpu_torch.cuda.lk_level import lk_level_batched_cuda, lk_level_cuda
 from klt_tpu_torch.cuda.pyramid import (build_pyramid_stacks_batched_cuda,
                                         build_pyramid_stacks_cuda)
 from klt_tpu_torch.cuda.replace import replace_lost_cuda_
 from klt_tpu_torch.io.pnm import read_pgm
-from klt_tpu_torch.ops.lk import lk_level_plain
+from klt_tpu_torch.ops.lk import lk_level_batched_plain, lk_level_plain
 from klt_tpu_torch.ops.pyramid import (build_pyramid_stacks_batched_plain,
                                        build_pyramid_stacks_plain)
 from klt_tpu_torch.ops.replace import replace_lost_plain_
 from klt_tpu_torch.ops.selection import corner_response_plain
+from klt_tpu_torch.parallel import track_sequences_batched
 from klt_tpu_torch.runtime.pipeline import (PRECOMP_FRAMES, track_sequence,
                                             track_sequence_replace)
 
@@ -74,6 +80,11 @@ FIXTURE = os.path.join(HERE, "tests", "fixtures", "smoothed_img0.f32")
 TRAFFIC_FRAMES = 551
 # the least young features a frame's known-motion bounds are taken over
 MIN_YOUNG = 20
+# batched tracking: (sequences, frames) of klt_tpu's bench rows
+# flagship_batched_b32 (320x240, 150 features) and batched_3seq_4096feat
+# (640x480, 4096 features requested)
+BATCHED_FLAGSHIP = (32, 10)
+BATCHED_REAL = (3, 10)
 
 
 # ------------------------------------------------------------------ #
@@ -101,20 +112,51 @@ def bilinear_warp(img: np.ndarray, src_x: np.ndarray,
             + (1 - fx) * fy * im[y0 + 1, x0] + fx * fy * im[y0 + 1, x0 + 1])
 
 
-def synthetic_frames(n_frames: int, scale: int = 1) -> np.ndarray:
-    """uint8 [T, 240*scale, 320*scale]: frame k is the fixture scene
-    (upsampled by `scale`) translated by shift(k)."""
+def lane_shift(b: int, k: int) -> tuple[float, float]:
+    """Known (tx, ty) displacement of frame k of batched sequence b from
+    its frame 0: each lane has its own amplitude and phase, within +-4 px
+    so features stay in view."""
+    ax = 2.0 + 2.0 * ((0.37 * b) % 1.0)
+    ay = 1.5 + 2.5 * ((0.61 * b) % 1.0)
+    ph = 0.9 * b
+    return (ax * (math.sin(0.3 * k + ph) - math.sin(ph)) / 2,
+            ay * (math.sin(0.23 * k + ph) - math.sin(ph)) / 2)
+
+
+def _scene(scale: int):
+    """The fixture scene upsampled by `scale` (f64), and its pixel grid."""
     base = np.fromfile(FIXTURE, dtype=np.float32).reshape(240, 320)
     h, w = 240 * scale, 320 * scale
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
     if scale != 1:
         base = bilinear_warp(base, xx / scale, yy / scale)
-    frames = np.empty((n_frames, h, w), np.uint8)
-    for k in range(n_frames):
-        tx, ty = shift(k)
-        frames[k] = np.clip(np.rint(bilinear_warp(base, xx - tx, yy - ty)),
-                            0, 255).astype(np.uint8)
-    return frames
+    return base, xx, yy
+
+
+def _warp_u8(img, xx, yy, t) -> np.ndarray:
+    return np.clip(np.rint(bilinear_warp(img, xx - t[0], yy - t[1])), 0,
+                   255).astype(np.uint8)
+
+
+def synthetic_frames(n_frames: int, scale: int = 1) -> np.ndarray:
+    """uint8 [T, 240*scale, 320*scale]: frame k is the fixture scene
+    (upsampled by `scale`) translated by shift(k)."""
+    base, xx, yy = _scene(scale)
+    return np.stack([_warp_u8(base, xx, yy, shift(k))
+                     for k in range(n_frames)])
+
+
+def batched_frames(n_seq: int, n_frames: int, scale: int = 1) -> np.ndarray:
+    """uint8 [B, T, 240*scale, 320*scale] of B different sequences: lane
+    b is the fixture scene flipped by b % 4 (none, x, y, both), frame k
+    of it translated by lane_shift(b, k)."""
+    base, xx, yy = _scene(scale)
+    out = np.empty((n_seq, n_frames) + base.shape, np.uint8)
+    for b in range(n_seq):
+        img = base[::-1 if b & 2 else 1, ::-1 if b & 1 else 1]
+        for k in range(n_frames):
+            out[b, k] = _warp_u8(img, xx, yy, lane_shift(b, k))
+    return out
 
 
 def provided_frames():
@@ -752,20 +794,17 @@ def phase_replace_times(card, frames, n_feats, cfg, times) -> None:
                   "replace_lost": (r_ms, r_plain)})
 
 
-def phase_profile(frames, n_feats, cfg) -> None:
-    """torch.profiler over track_sequence_replace with kernels: device
-    busy share of the wall time, and each kernel's share of device time."""
+def profile_device(run, steps: int, tag: str, label: str, groups) -> None:
+    """torch.profiler over run() (after one warm-up run): device busy
+    share of the wall time, and each group of kernels' share of device
+    time; groups maps a name to the kernel-name substrings it covers."""
     from torch.profiler import ProfilerActivity, profile
-    fl = klt.FeatureList.create(n_feats)
-    klt.KLTracker(cfg).select_good_features(frames[0], fl)
-    dev_frames = torch.from_numpy(frames).cuda()
-    feats = [torch.from_numpy(a).cuda() for a in (fl.x, fl.y, fl.val)]
-    track_sequence_replace(dev_frames, *feats, cfg)
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        track_sequence_replace(dev_frames, *feats, cfg)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev_us = {}
@@ -775,31 +814,298 @@ def phase_profile(frames, n_feats, cfg) -> None:
         if us > 0 and "CUDA" in str(ev.device_type):
             dev_us[ev.key] = dev_us.get(ev.key, 0.0) + us
     total = sum(dev_us.values())
-    steps = len(frames) - 1
     if total <= 0:
-        print("[14 profile] the profiler recorded no device time: device "
+        print(f"[{tag}] the profiler recorded no device time: device "
               "busy share not measured")
         return
-    groups = {"kernel R (replace_lost)": "replace_lost",
-              "kernel D (hsum_products, vsum_eigen)": ("hsum_products",
-                                                       "vsum_eigen"),
-              "kernel B (lk_level_kernel)": "lk_level_kernel",
-              "kernel A (hpass, vpass)": ("hpass", "vpass")}
     shares, covered = [], 0.0
     for name, keys in groups.items():
         keys = keys if isinstance(keys, tuple) else (keys,)
         us = sum(v for k, v in dev_us.items() if any(s in k for s in keys))
         covered += us
-        shares.append(f"{name} {us / total:.3f} ({us / steps:.1f} us/frame)")
-    print(f"[14 profile] track_sequence_replace, {steps} steps of "
-          f"{frames.shape[2]}x{frames.shape[1]} (profiler on): wall "
-          f"{wall * 1e6 / steps:.1f} us per frame, device busy "
+        shares.append(f"{name} {us / total:.3f} ({us / steps:.1f} us/step)")
+    print(f"[{tag}] {label}, {steps} steps (profiler on): wall "
+          f"{wall * 1e6 / steps:.1f} us per step, device busy "
           f"{total / (wall * 1e6):.3f} of the wall time; share of device "
           f"time: " + "; ".join(shares) + f"; other (torch glue) "
           f"{1 - covered / total:.3f}")
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
     for k, v in top:
-        print(f"[14 profile]   {v / steps:9.1f} us/frame  {k[:90]}")
+        print(f"[{tag}]   {v / steps:9.1f} us/step  {k[:90]}")
+
+
+def phase_profile(frames, n_feats, cfg) -> None:
+    """torch.profiler over track_sequence_replace with kernels."""
+    fl = klt.FeatureList.create(n_feats)
+    klt.KLTracker(cfg).select_good_features(frames[0], fl)
+    dev_frames = torch.from_numpy(frames).cuda()
+    feats = [torch.from_numpy(a).cuda() for a in (fl.x, fl.y, fl.val)]
+    profile_device(
+        lambda: track_sequence_replace(dev_frames, *feats, cfg),
+        len(frames) - 1, "14 profile",
+        f"track_sequence_replace of {frames.shape[2]}x{frames.shape[1]}",
+        {"kernel R (replace_lost)": "replace_lost",
+         "kernel D (hsum_products, vsum_eigen)": ("hsum_products",
+                                                  "vsum_eigen"),
+         "kernel B (lk_level_kernel)": "lk_level_kernel",
+         "kernel A (hpass, vpass)": ("hpass", "vpass")})
+
+
+# ------------------------------------------------------------------ #
+# batched multi-sequence phases                                        #
+# ------------------------------------------------------------------ #
+
+def batched_features(frames, n_feats: int, cfg):
+    """Features selected on each sequence's frame 0: numpy x, y f32 and
+    val i32 [B, n_feats]; slots selection leaves empty hold val -1."""
+    b = frames.shape[0]
+    x = np.zeros((b, n_feats), np.float32)
+    y = np.zeros((b, n_feats), np.float32)
+    val = np.full((b, n_feats), -1, np.int32)
+    for i in range(b):
+        fl = klt.FeatureList.create(n_feats)
+        klt.KLTracker(cfg).select_good_features(frames[i, 0], fl)
+        x[i], y[i], val[i] = fl.x, fl.y, fl.val
+    return x, y, val
+
+
+def batched_level_inputs(feats, cfg, r):
+    """Kernel C inputs at level r, [B, N] on the card: positions scaled
+    down by repeated division, guess = start."""
+    x, y = (torch.from_numpy(a).cuda() for a in feats[:2])
+    s = float(np.float32(cfg.subsampling))
+    for _ in range(r):
+        x, y = x / s, y / s
+    return x, y, x.clone(), y.clone(), torch.from_numpy(feats[2] >= 0).cuda()
+
+
+def frame_pair_stacks(frames, cfg):
+    """Kernel E stacks [B, 3, H_l, W_l] of every sequence's frames 0 and
+    1."""
+    return [build_pyramid_stacks_batched_cuda(
+        torch.from_numpy(np.ascontiguousarray(frames[:, k])).cuda(), cfg)
+        for k in (0, 1)]
+
+
+def phase_batched_lk(cases, cfgs, errs) -> None:
+    """Kernel C against its plain version on the card, and lane by lane
+    against kernel B on its own sequence, at both levels."""
+    for frames, feats in cases:
+        size = (f"{frames.shape[0]} x {frames.shape[3]}x{frames.shape[2]} x "
+                f"{feats[0].shape[1]}")
+        for cfg in cfgs:
+            st1, st2 = frame_pair_stacks(frames, cfg)
+            for r in range(cfg.n_pyramid_levels):
+                inputs = batched_level_inputs(feats, cfg, r)
+                got = lk_level_batched_cuda(st1[r], st2[r], *inputs, cfg,
+                                            r == 0)
+                ref = lk_level_batched_plain(st1[r], st2[r], *inputs, cfg,
+                                             r == 0)
+                lanes = [lk_level_cuda(st1[r][b], st2[r][b],
+                                       *[a[b] for a in inputs], cfg, r == 0)
+                         for b in range(frames.shape[0])]
+                torch.cuda.synchronize()
+                err = max((a.double() - b.double()).abs().max().item()
+                          for a, b in zip(got, ref))
+                same = all(torch.equal(a, b) for a, b in zip(got, ref))
+                same_b = all(torch.equal(g[b], lane[i])
+                             for b, lane in enumerate(lanes)
+                             for i, g in enumerate(got))
+                act = inputs[4]
+                errs.append(err)
+                tag = "lighting" if cfg.lighting_insensitive else "default"
+                print(f"[15 kernel C] {size} {tag} level {r}: "
+                      f"{int(act.sum())} live lanes, max |kernel - plain| "
+                      f"{err:.3g} (bit-equal: {same}); every lane equal to "
+                      f"kernel B on its sequence: {same_b}; statuses "
+                      f"{sorted(set(got[2][act].tolist()))}")
+                check(err == 0 and same, "kernel C differs from its plain "
+                      "version")
+                check(same_b, "kernel C differs from kernel B on a lane")
+
+
+def batched_launches_expected(shape, cfg) -> dict:
+    """Kernel launches of one track_sequences_batched run and one with
+    precomp on [B, T, H, W] frames: kernel E once per frame index (with
+    precomp once per chunk), kernel C once per level and step."""
+    b, t_len, h, w = shape
+    per_launch = max(1, PRECOMP_FRAMES // b)
+    want = {k.symbol: 0 for k in cuda.KERNELS}
+    want[cuda.PYRAMID_BATCHED.symbol] = t_len + -(-t_len // per_launch)
+    want[cuda.LK_LEVEL_BATCHED.symbol] = 2 * (t_len - 1) * \
+        expected_lk_launches((h, w), cfg)
+    return want
+
+
+def run_batched(frames, feats, cfg, tag, n_cpu: int) -> dict:
+    """The batched main path: track_sequences_batched with kernels and
+    with precomp (launches counted), then checks: every lane bit-equal to
+    track_sequence on the card, the first n_cpu lanes bit-equal to the
+    plain run on the CPU, padded lanes untouched, the known motion per
+    lane, the TRACKED share.  Returns the main path's launch counts."""
+    b, t_len = frames.shape[:2]
+    dev_frames = torch.from_numpy(frames).cuda()
+    featd = [torch.from_numpy(a).cuda() for a in feats]
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = track_sequences_batched(dev_frames, *featd, cfg)
+    torch.cuda.synchronize()
+    t_kern = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pre = track_sequences_batched(dev_frames, *featd, cfg, precomp=True)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    launches = {k.symbol: k.launches for k in cuda.KERNELS}
+    want = batched_launches_expected(frames.shape, cfg)
+    print(f"[{tag}] launches {launches} (expected {want})")
+    check(launches == want, "batched path launch counts differ from the "
+          "expected")
+
+    same_pre = all(torch.equal(a, c) for a, c in zip(out, pre))
+    xs, ys, vs = (a.cpu().numpy() for a in out)
+    check(xs.shape == (t_len - 1,) + feats[0].shape and
+          np.isfinite(xs).all() and np.isfinite(ys).all(),
+          "bad track_sequences_batched table")
+    lanes_equal = all(
+        all(torch.equal(o[:, i], one)
+            for o, one in zip(out, track_sequence(
+                dev_frames[i], *[a[i] for a in featd], cfg)))
+        for i in range(b))
+    cpu = track_sequences_batched(
+        torch.from_numpy(frames[:n_cpu]),
+        *[torch.from_numpy(a[:n_cpu]) for a in feats], cfg)
+    card_cpu = all(np.array_equal(a[:, :n_cpu], c.numpy())
+                   for a, c in zip((xs, ys, vs), cpu))
+    sel = feats[2] >= 0
+    untouched = bool((vs[:, ~sel] == -1).all())
+    n_sel = sel.sum(axis=1)
+    print(f"[{tag}] {b} sequences of {frames.shape[3]}x{frames.shape[2]}, "
+          f"{t_len} frames, {feats[0].shape[1]} features requested, "
+          f"selected per sequence min {n_sel.min()} max {n_sel.max()} "
+          f"(total {n_sel.sum()}): track_sequences_batched {t_kern:.3f} s, "
+          f"with precomp {t_pre:.3f} s (bit-equal: {same_pre}); every lane "
+          f"bit-equal to track_sequence on the card: {lanes_equal}; the "
+          f"first {n_cpu} lanes bit-equal to the plain CPU run: {card_cpu}; "
+          f"padded slots untouched: {untouched}")
+    check(same_pre, "precomp=True differs from precomp=False")
+    check(lanes_equal, "a batched lane differs from track_sequence")
+    check(card_cpu, "card run differs from the plain CPU run")
+    check(untouched, "a padded slot changed")
+
+    final = (vs[-1] == klt.TRACKED)[sel].mean()
+    lane_final = [(vs[-1, i] == klt.TRACKED)[sel[i]].mean()
+                  for i in range(b)]
+    print(f"[{tag}] still TRACKED at frame {t_len - 1}: {final:.4f} "
+          f"(per sequence min {min(lane_final):.4f})")
+    check(final >= 0.90, f"only {final} still tracked")
+
+    worst_1, worst_med, worst_frac = 0.0, 0.0, 1.0
+    for i in range(b):
+        x0, y0 = feats[0][i], feats[1][i]
+        for k in range(1, t_len):
+            tx, ty = lane_shift(i, k)
+            ok = sel[i] & (vs[k - 1, i] == klt.TRACKED)
+            err = np.maximum(np.abs(xs[k - 1, i][ok] - x0[ok] - tx),
+                             np.abs(ys[k - 1, i][ok] - y0[ok] - ty))
+            med = float(np.median(err))
+            if k == 1:
+                worst_1 = max(worst_1, med)
+            worst_med = max(worst_med, med)
+            worst_frac = min(worst_frac, float((err <= 1.0).mean()))
+    print(f"[{tag}] error against each sequence's known motion: worst "
+          f"frame-1 median {worst_1:.4f} px, worst frame median "
+          f"{worst_med:.4f} px, worst share within 1 px {worst_frac:.4f}")
+    check(worst_1 <= 0.15, "a frame-1 median error above 0.15 px")
+    check(worst_med <= 0.5, "a frame's median error is above 0.5 px")
+    check(worst_frac >= 0.90, "under 90% of a frame's tracks within 1 px")
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        track_sequences_batched(dev_frames, *featd, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"[{tag}] track_sequences_batched ran under sync debug mode "
+          f"\"error\": no host sync")
+    return launches
+
+
+def batched_fps(run, n_frames: int, reps: int) -> list[float]:
+    """Aggregate frames/s (frames tracked into, all sequences) of run(),
+    host clock around synchronised runs, after one warm-up run."""
+    run()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        out.append(n_frames / (time.perf_counter() - t0))
+    return out
+
+
+def phase_batched_times(card, cases, cfg, times) -> None:
+    for frames, feats, reps in cases:
+        b, t_len = frames.shape[:2]
+        size = f"{b} x {frames.shape[3]}x{frames.shape[2]}"
+        dev_frames = torch.from_numpy(frames).cuda()
+        featd = [torch.from_numpy(a).cuda() for a in feats]
+        n = b * (t_len - 1)
+        runs = lambda v: [round(f, 1) for f in v]
+        k_fps = batched_fps(lambda: track_sequences_batched(
+            dev_frames, *featd, cfg), n, reps)
+        p_fps = batched_fps(lambda: track_sequences_batched(
+            dev_frames, *featd, cfg, precomp=True), n, reps)
+        c_fps = batched_fps(lambda: track_sequences_batched(
+            dev_frames, *featd, cfg, plain=True), n, 2)
+        one_fps = batched_fps(lambda: [track_sequence(
+            dev_frames[i], *[a[i] for a in featd], cfg) for i in range(b)],
+            n, max(2, reps // 2))
+        print(f"[18 times] {card} | track_sequences_batched {size}, "
+              f"{t_len} frames, {feats[0].shape[1]} features requested, "
+              f"aggregate frames/s over all sequences: kernels "
+              f"{np.median(k_fps):.1f} (runs {runs(k_fps)}), precomp "
+              f"{np.median(p_fps):.1f} (runs {runs(p_fps)}), plain torch on "
+              f"the card {np.median(c_fps):.1f} (runs {runs(c_fps)}); the "
+              f"same {b} sequences one at a time through track_sequence "
+              f"{np.median(one_fps):.1f} (runs {runs(one_fps)})", flush=True)
+
+        st1, st2 = frame_pair_stacks(frames, cfg)
+        args = (st1[0], st2[0], *batched_level_inputs(feats, cfg, 0), cfg,
+                True)
+        c_ms = cuda_ms(lambda: lk_level_batched_cuda(*args), 200)
+        c_plain = cuda_ms(lambda: lk_level_batched_plain(*args), 5)
+        lanes = [(st1[0][i], st2[0][i], *[a[i] for a in args[2:7]], cfg,
+                  True) for i in range(b)]
+        b_ms = cuda_ms(lambda: [lk_level_cuda(*a) for a in lanes], 20)
+        lk_level_batched_cuda(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            lk_level_batched_cuda(*args)
+        host_us = (time.perf_counter() - t0) * 1e4
+        torch.cuda.synchronize()
+        print(f"[18 times] {card} | {size}: kernel C level 0, "
+              f"{int(args[6].sum())} live of {args[2].numel()} lanes "
+              f"{c_ms * 1e3:.1f} us per launch (plain {c_plain * 1e3:.1f} "
+              f"us); host enqueue {host_us:.1f} us per call; kernel B on "
+              f"the {b} sequences one at a time {b_ms * 1e3:.1f} us",
+              flush=True)
+        times.setdefault("lk_level_batched", (c_ms, c_plain))
+
+
+def phase_batched_profile(frames, feats, cfg) -> None:
+    dev_frames = torch.from_numpy(frames).cuda()
+    featd = [torch.from_numpy(a).cuda() for a in feats]
+    b, t_len = frames.shape[:2]
+    profile_device(
+        lambda: track_sequences_batched(dev_frames, *featd, cfg),
+        t_len - 1, "19 profile",
+        f"track_sequences_batched, {b} sequences of "
+        f"{frames.shape[3]}x{frames.shape[2]}",
+        {"kernel C (lk_level_batched_kernel)": "lk_level_batched_kernel",
+         "kernel E (hpass, vpass)": ("hpass", "vpass")})
 
 
 def main() -> int:
@@ -821,10 +1127,18 @@ def main() -> int:
         qvga = synthetic_frames(10)
         traffic = synthetic_frames(n_traffic, scale=2)
         vga = traffic[:100]
+        flag_b = batched_frames(*BATCHED_FLAGSHIP)
+        real_b = batched_frames(*BATCHED_REAL, scale=2)
+        flag_feats = batched_features(flag_b, 150, cfg)
+        real_feats = batched_features(real_b, 4096, cfg)
     print("[inputs] synthetic frames: fixture scene translated by "
           "(3.2 sin 0.3k, 2.1 sin 0.23k) px, bilinear, u8; "
           f"{len(qvga)} x 320x240 and {len(traffic)} x 640x480 (scene "
-          "upsampled 2x)", flush=True)
+          f"upsampled 2x); batched: {len(flag_b)} x {flag_b.shape[1]} x "
+          f"320x240 and {len(real_b)} x {real_b.shape[1]} x 640x480, "
+          "sequence b the scene flipped by b % 4 (none, x, y, both) and "
+          "moved along its own path (lane_shift), features selected on "
+          "each sequence's frame 0", flush=True)
     errs = {k.symbol: [] for k in cuda.KERNELS}
     with phase("2 kernel A"):
         phase_pyramid((qvga, vga), cfg, errs[cuda.PYRAMID.symbol])
@@ -840,6 +1154,10 @@ def main() -> int:
     with phase("9 kernel R"):
         phase_replace_kernel((qvga, vga), (150, 500), cfg,
                              errs[cuda.REPLACE_LOST.symbol])
+
+    with phase("15 kernel C"):
+        phase_batched_lk(((flag_b, flag_feats), (real_b, real_feats)),
+                         (cfg, lighting), errs[cuda.LK_LEVEL_BATCHED.symbol])
 
     # main path 1: tracking (example3)
     cuda.reset_launch_counts()
@@ -884,10 +1202,21 @@ def main() -> int:
         cuda.CORNER_RESPONSE.symbol: steps_q + lost_q + 2 * steps_t + lost_t,
         cuda.PYRAMID_BATCHED.symbol: -(-steps_t // PRECOMP_FRAMES),
         cuda.REPLACE_LOST.symbol: steps_q + 2 * steps_t,
+        cuda.LK_LEVEL_BATCHED.symbol: 0,
     }
     print(f"[10-11 launches] {replace_launches} (expected {want})")
     check(replace_launches == want,
           "replace path launch counts differ from the expected")
+
+    # main path 3: batched multi-sequence tracking; run_batched counts
+    # and checks each run's launches
+    with phase("16 batched flagship"):
+        l16 = run_batched(flag_b, flag_feats, cfg, "16 batched flagship",
+                          n_cpu=min(4, len(flag_b)))
+    with phase("17 batched real size"):
+        l17 = run_batched(real_b, real_feats, cfg, "17 batched real size",
+                          n_cpu=len(real_b))
+    batched_launches = {k: l16[k] + l17[k] for k in l16}
 
     with phase("12 no sync"):
         phase_no_sync(traffic[:PRECOMP_FRAMES + 2], 500, cfg)
@@ -899,12 +1228,18 @@ def main() -> int:
         phase_replace_times(card, traffic, 500, cfg, times)
     with phase("14 profile"):
         phase_profile(traffic[:PRECOMP_FRAMES + 1], 500, cfg)
+    with phase("18 times"):
+        phase_batched_times(card, ((flag_b, flag_feats, 10),
+                                   (real_b, real_feats, 5)), cfg, times)
+    with phase("19 profile"):
+        phase_batched_profile(flag_b, flag_feats, cfg)
 
     report = {"kernels": []}
     names = {cuda.PYRAMID: "pyramid", cuda.LK_LEVEL: "lk_level",
              cuda.CORNER_RESPONSE: "corner_response",
              cuda.PYRAMID_BATCHED: "pyramid_batched",
-             cuda.REPLACE_LOST: "replace_lost"}
+             cuda.REPLACE_LOST: "replace_lost",
+             cuda.LK_LEVEL_BATCHED: "lk_level_batched"}
     for k in cuda.KERNELS:
         name = names[k]
         ms, plain_ms = times[name] if name in times \
@@ -912,7 +1247,8 @@ def main() -> int:
         report["kernels"].append({
             "name": name, "route": "cuda", "source": k.source,
             "replaces": k.replaces,
-            "launches": track_launches[k.symbol] + replace_launches[k.symbol],
+            "launches": track_launches[k.symbol] + replace_launches[k.symbol]
+            + batched_launches[k.symbol],
             "max_abs_err": max(errs[k.symbol]), "ms": ms,
             "plain_ms": plain_ms})
     print(card)

@@ -168,7 +168,20 @@ REPLACE_LOST = Kernel(
     source="klt_tpu_torch/csrc/replace.cu",
     replaces="klt_tpu/ops/replace.py:95")
 
-KERNELS = (PYRAMID, LK_LEVEL, CORNER_RESPONSE, PYRAMID_BATCHED, REPLACE_LOST)
+LK_LEVEL_BATCHED = Kernel(
+    "klt_lk_level_batched",
+    # stack1, stack2, batch, rows, cols, x1, y1, x2, y2, active,
+    # features per sequence, window w/h, min_displacement,
+    # min_determinant, step_factor, max_iterations, lighting,
+    # want_residue, x2_out, y2_out, status, iters, residue, stream
+    [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I,
+     _I, _I, _F, _F, _F, _I, _I, _I,
+     _P, _P, _P, _P, _P, _P],
+    source="klt_tpu_torch/csrc/lk_level.cu",
+    replaces="klt_tpu/pallas/lk.py:60")
+
+KERNELS = (PYRAMID, LK_LEVEL, CORNER_RESPONSE, PYRAMID_BATCHED, REPLACE_LOST,
+           LK_LEVEL_BATCHED)
 
 
 def reset_launch_counts() -> None:

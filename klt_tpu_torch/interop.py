@@ -1,7 +1,8 @@
 """Carrying state across from the JAX package without importing it.
 
 The tests hand the same configuration, pyramids and features to
-`klt_tpu` and to this port as plain dicts and numpy arrays.
+`klt_tpu` and to this port as plain dicts and numpy arrays, for one
+sequence or for a batch of B.
 """
 
 from __future__ import annotations
@@ -29,13 +30,17 @@ def config_from_fields(d: dict) -> TrackingConfig:
 
 
 def stacks_from_numpy(stacks, device="cpu") -> list[torch.Tensor]:
-    """Finest-first [3, H_l, W_l] f32 stacks on `device`."""
+    """Finest-first f32 stacks on `device`, in the shape given: one
+    frame's [3, H_l, W_l], or B sequences' [B, 3, H_l, W_l] (klt_tpu's
+    `build_pyramid_stacks_batched`)."""
     return [torch.from_numpy(np.array(s, dtype=np.float32)).to(device)
             for s in stacks]
 
 
 def features_from_numpy(x, y, val, device="cpu"):
-    """(x f32 [N], y f32 [N], val i32 [N]) tensors on `device`."""
+    """(x f32, y f32, val i32) tensors on `device`, in the shape given:
+    one sequence's [N], or B sequences' [B, N] (klt_tpu's batched state,
+    e.g. `pad_features_for_mesh` output)."""
     return (torch.from_numpy(np.array(x, dtype=np.float32)).to(device),
             torch.from_numpy(np.array(y, dtype=np.float32)).to(device),
             torch.from_numpy(np.array(val, dtype=np.int32)).to(device))

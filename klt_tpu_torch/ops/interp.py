@@ -5,7 +5,8 @@ src/V1/trackFeatures.c:31-57).  Here all N features sample their whole
 window at once: coordinates are truncated toward zero (C `(int)` cast),
 each feature reads one integer-aligned (height+1, width+1) patch, and the
 bilinear blend runs as four shifted multiplies, in the same f32 order as
-the LK kernel (csrc/lk_level.cu).
+the LK kernels (csrc/lk_level.cu).  The lanes of B sequences sample the
+[B, 3, H, W] stacks through a per-lane sequence index.
 
 Boundary semantics: the CPU reference *asserts* in-bounds.  Patch starts
 are clamped to the image, which is exact for every in-bounds access and
@@ -43,19 +44,21 @@ def bilinear_sample(img: torch.Tensor, x: torch.Tensor,
 
 
 def sample_stack_windows(stack: torch.Tensor, x: torch.Tensor,
-                         y: torch.Tensor, width: int,
-                         height: int) -> torch.Tensor:
+                         y: torch.Tensor, width: int, height: int,
+                         seq: torch.Tensor | None = None) -> torch.Tensor:
     """Bilinear (width x height) windows around each center, for C images
     at once.
 
-    stack: [C, H, W] f32; x, y: [N] window centers.
-    Returns [C, N, height*width] samples at (x+i, y+j) for the row-major
-    integer window offsets.  The patch start is clamped to
-    [0, W-(width+1)] x [0, H-(height+1)] (klt_tpu's dynamic_slice first
-    wraps a negative start from the end; the tracker samples there only at
-    positions it classifies OOB, so no result depends on the difference).
+    stack: [C, H, W] f32 with x, y [N] window centers; or the stacks of B
+    sequences, [B, C, H, W], with seq [N] (int64) the sequence of each
+    lane.  Returns [C, N, height*width] samples at (x+i, y+j) for the
+    row-major integer window offsets.  The patch start is clamped to
+    [0, W-(width+1)] x [0, H-(height+1)] of the lane's own image
+    (klt_tpu's dynamic_slice first wraps a negative start from the end;
+    the tracker samples there only at positions it classifies OOB, so no
+    result depends on the difference).
     """
-    c, h_img, w_img = stack.shape
+    c, h_img, w_img = stack.shape[-3:]
     hw, hh = width // 2, height // 2
     xt = x.to(torch.int32)
     yt = y.to(torch.int32)
@@ -67,7 +70,10 @@ def sample_stack_windows(stack: torch.Tensor, x: torch.Tensor,
     dev = stack.device
     rows = y0[:, None, None] + torch.arange(height + 1, device=dev)[:, None]
     cols = x0[:, None, None] + torch.arange(width + 1, device=dev)[None, :]
-    p = stack[:, rows, cols]  # [C, N, height+1, width+1]
+    if seq is None:
+        p = stack[:, rows, cols]  # [C, N, height+1, width+1]
+    else:  # [N, height+1, width+1, C] -> [C, N, height+1, width+1]
+        p = stack[seq[:, None, None], :, rows, cols].permute(3, 0, 1, 2)
     p00 = p[..., :-1, :-1]
     p01 = p[..., :-1, 1:]
     p10 = p[..., 1:, :-1]

@@ -6,8 +6,11 @@ One pyramid level of all N features is `lk_level`, kernel B's wrapper: a
 CUDA level goes to the LK kernel (csrc/lk_level.cu, one thread per
 feature, the whole Newton loop in one launch, windows sampled straight
 from the level stacks in device memory), a CPU level to
-`lk_level_plain`, the same loop written with masked torch ops.  The
-coarse-to-fine level loop and the post-loop status checks stay in torch.
+`lk_level_plain`, the same loop written with masked torch ops.  B
+sequences' levels ([B, 3, H, W] stacks, [B, F] features) go to kernel C
+(the same lane code over all B * F lanes in one launch) or to
+`lk_level_batched_plain`.  The coarse-to-fine level loop and the
+post-loop status checks stay in torch, one loop for both layouts.
 
 Semantics preserved exactly (the check order of klt_tpu/ops/lk.py):
 * the do/while runs >= 1 iteration and <= max_iterations updates;
@@ -138,24 +141,17 @@ def _final_status(status, iters, x2f, y2f, residue, hw, hh, ncf, nrf,
     return status
 
 
-def lk_level_plain(stack1, stack2, x1, y1, x2, y2, active,
-                   cfg: TrackingConfig, want_residue: bool = True):
-    """Plain torch version of kernel B, on any device: the Newton loop of
-    one level for every feature, masked where the reference `break`s.
-
-    stack1/stack2 [3, H, W] f32; x1, y1 (first-image positions), x2, y2
-    (initial guesses) f32 [F]; active bool [F].  Returns (x2, y2, status,
-    iters, residue), each [F]; inactive lanes pass through with status
-    TRACKED, iters 0 and residue 0.  The residue (mean |difference| at the
-    final position) is computed only with want_residue, else 0.
-    """
+def _lk_lanes(stack1, stack2, seq, x1, y1, x2, y2, active,
+              cfg: TrackingConfig, want_residue: bool):
+    """The Newton loop of one level over flat lanes [N]: stacks [3, H, W]
+    with seq None, or [B, 3, H, W] with seq [N] the lanes' sequences."""
     w, h = cfg.window_width, cfg.window_height
     hw, hh = float(w // 2), float(h // 2)
     nr, nc = stack1.shape[-2], stack1.shape[-1]
     ncf, nrf = float(nc), float(nr)
     th = _f32(cfg.min_displacement)
 
-    g1, gx1w, gy1w = sample_stack_windows(stack1, x1, y1, w, h)
+    g1, gx1w, gy1w = sample_stack_windows(stack1, x1, y1, w, h, seq)
     oob1 = _window_oob(x1, y1, hw, hh, ncf, nrf)
 
     x2c, y2c = x2, y2
@@ -169,7 +165,7 @@ def lk_level_plain(stack1, stack2, x1, y1, x2, y2, active,
         status = torch.where(~done & oob, OOB, status)
         done = done | oob
 
-        g2, gx2w, gy2w = sample_stack_windows(stack2, x2c, y2c, w, h)
+        g2, gx2w, gy2w = sample_stack_windows(stack2, x2c, y2c, w, h, seq)
         dx, dy, small = _newton_step(g1, gx1w, gy1w, g2, gx2w, gy2w, cfg)
         status = torch.where(~done & small, SMALL_DET, status)
         done = done | small
@@ -182,7 +178,7 @@ def lk_level_plain(stack1, stack2, x1, y1, x2, y2, active,
 
     residue = torch.zeros_like(x2)
     if want_residue:
-        g2, _, _ = sample_stack_windows(stack2, x2c, y2c, w, h)
+        g2, _, _ = sample_stack_windows(stack2, x2c, y2c, w, h, seq)
         if cfg.lighting_insensitive:
             diff = _gain_bias_diff(g1, g2, float(w * h))
         else:
@@ -196,18 +192,57 @@ def lk_level_plain(stack1, stack2, x1, y1, x2, y2, active,
     return x2c, y2c, status, iters, residue
 
 
+def lk_level_plain(stack1, stack2, x1, y1, x2, y2, active,
+                   cfg: TrackingConfig, want_residue: bool = True):
+    """Plain torch version of kernel B, on any device: the Newton loop of
+    one level for every feature, masked where the reference `break`s.
+
+    stack1/stack2 [3, H, W] f32; x1, y1 (first-image positions), x2, y2
+    (initial guesses) f32 [F]; active bool [F].  Returns (x2, y2, status,
+    iters, residue), each [F]; inactive lanes pass through with status
+    TRACKED, iters 0 and residue 0.  The residue (mean |difference| at the
+    final position) is computed only with want_residue, else 0.
+    """
+    return _lk_lanes(stack1, stack2, None, x1, y1, x2, y2, active, cfg,
+                     want_residue)
+
+
+def lk_level_batched_plain(stack1, stack2, x1, y1, x2, y2, active,
+                           cfg: TrackingConfig, want_residue: bool = True):
+    """Plain torch version of kernel C, on any device: `lk_level_plain`
+    for B sequences at once.
+
+    stack1/stack2 [B, 3, H, W] f32; x1, y1, x2, y2 f32 [B, F]; active bool
+    [B, F].  Returns (x2, y2, status, iters, residue), each [B, F]; lane
+    (b, f) equals `lk_level_plain` on sequence b bit for bit.
+    """
+    b, f = x1.shape
+    seq = torch.arange(b, device=x1.device).repeat_interleave(f)
+    out = _lk_lanes(stack1, stack2, seq,
+                    *[t.reshape(b * f) for t in (x1, y1, x2, y2, active)],
+                    cfg, want_residue)
+    return tuple(t.reshape(b, f) for t in out)
+
+
+def _plain_level(stack):
+    """The plain version for [3, H, W] (B) or [B, 3, H, W] (C) stacks."""
+    return lk_level_batched_plain if stack.dim() == 4 else lk_level_plain
+
+
 def lk_level(stack1, stack2, x1, y1, x2, y2, active, cfg: TrackingConfig,
              want_residue: bool = True):
-    """Kernel B's wrapper (contract of `lk_level_plain`).  CUDA: one
-    launch of the LK kernel.  CPU: the plain version."""
+    """Kernels B and C's wrapper (contract of `lk_level_plain`, or with
+    [B, 3, H, W] stacks and [B, F] lanes of `lk_level_batched_plain`).
+    CUDA: one launch of kernel B, or of kernel C for B sequences.  CPU:
+    the plain version."""
     if stack1.device.type == "cuda":
-        from ..cuda.lk_level import lk_level_cuda
-        return lk_level_cuda(stack1, stack2, x1, y1, x2, y2, active, cfg,
-                             want_residue)
+        from ..cuda.lk_level import lk_level_batched_cuda, lk_level_cuda
+        fn = lk_level_batched_cuda if stack1.dim() == 4 else lk_level_cuda
+        return fn(stack1, stack2, x1, y1, x2, y2, active, cfg, want_residue)
     if stack1.device.type != "cpu":
         raise ValueError(f"no LK level path for device {stack1.device}")
-    return lk_level_plain(stack1, stack2, x1, y1, x2, y2, active, cfg,
-                          want_residue)
+    return _plain_level(stack1)(stack1, stack2, x1, y1, x2, y2, active, cfg,
+                                want_residue)
 
 
 def track_level(stack1, stack2, x1, y1, x2, y2, active,
@@ -217,10 +252,11 @@ def track_level(stack1, stack2, x1, y1, x2, y2, active,
     `_track_level_gather`).
 
     stack1/stack2: [3, H, W] f32 (intensity, gradx, grady) of the two
-    frames at this level.  Lanes with active=False pass through untouched
+    frames at this level, with lanes [F]; or B sequences' [B, 3, H, W]
+    with lanes [B, F].  Lanes with active=False pass through untouched
     with status TRACKED.  Returns (x2_out, y2_out, status, iters).
     plain=True runs the plain version on any device (the reference the
-    kernel is held against); otherwise `lk_level` picks by device.
+    kernels are held against); otherwise `lk_level` picks by device.
     """
     w, h = cfg.window_width, cfg.window_height
     nr, nc = stack1.shape[-2], stack1.shape[-1]
@@ -231,7 +267,7 @@ def track_level(stack1, stack2, x1, y1, x2, y2, active,
         status = torch.where(active, OOB, TRACKED).to(torch.int32)
         return x2, y2, status, torch.zeros_like(status)
 
-    level_fn = lk_level_plain if plain else lk_level
+    level_fn = _plain_level(stack1) if plain else lk_level
     x2f, y2f, status, iters, residue = level_fn(
         stack1, stack2, x1, y1, x2, y2, active, cfg, want_residue)
     status = _final_status(status, iters, x2f, y2f, residue,
@@ -261,14 +297,21 @@ def track_features_pyramid(pyr1, gradx1, grady1, pyr2, gradx2, grady2,
 def track_features_pyramid_stacks(stacks1, stacks2, x, y, val,
                                   cfg: TrackingConfig, plain: bool = False):
     """Same driver on finest-first [3, H_l, W_l] stacks (the pyramid
-    kernel's output layout).  plain=True runs every level through the
-    plain version (see `track_level`)."""
+    kernel's output layout) with features [N]; or on B sequences'
+    [B, 3, H_l, W_l] stacks (the batched pyramid kernel's) with features
+    [B, N], where every lane runs as it would in its sequence alone.
+    Every step below is elementwise over the lanes, so the one loop serves
+    both.  plain=True runs every level through the plain version (see
+    `track_level`)."""
     if len(stacks1) != cfg.n_pyramid_levels or \
             len(stacks2) != cfg.n_pyramid_levels:
         raise ValueError("stacks must hold n_pyramid_levels levels")
     if stacks1[0].shape != stacks2[0].shape:
         raise ValueError(f"frame pair mismatch: {tuple(stacks1[0].shape)} "
                          f"vs {tuple(stacks2[0].shape)}")
+    if stacks1[0].shape[:-3] != x.shape[:-1]:
+        raise ValueError(f"stacks {tuple(stacks1[0].shape)} do not fit "
+                         f"features {tuple(x.shape)}")
     s = _f32(cfg.subsampling)
     nlev = cfg.n_pyramid_levels
     nr0, nc0 = stacks1[0].shape[-2], stacks1[0].shape[-1]

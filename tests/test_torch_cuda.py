@@ -1,5 +1,5 @@
-"""Kernels A, B, D, E and R held against their plain torch versions on a
-CUDA card.
+"""Kernels A, B, C, D, E and R held against their plain torch versions on
+a CUDA card.
 
 Every test here needs the card and skips without one.  The file imports
 neither jax nor klt_tpu nor conftest, so on a machine with a card and no
@@ -18,14 +18,16 @@ import pytest
 import torch
 
 import klt_tpu_torch as kt
-from chip_smoke import synthetic_frames
-from klt_tpu_torch.ops.lk import lk_level, lk_level_plain
+from chip_smoke import batched_frames, synthetic_frames
+from klt_tpu_torch.ops.lk import (lk_level, lk_level_batched_plain,
+                                  lk_level_plain)
 from klt_tpu_torch.ops.pyramid import (build_pyramid_stacks,
                                        build_pyramid_stacks_plain)
 from klt_tpu_torch.ops.pyramid import (build_pyramid_stacks_batched,
                                        build_pyramid_stacks_batched_plain)
 from klt_tpu_torch.ops.replace import replace_lost_, replace_lost_plain_
 from klt_tpu_torch.ops.selection import corner_response, corner_response_plain
+from klt_tpu_torch.parallel import track_sequences_batched
 from klt_tpu_torch.runtime.pipeline import (track_sequence,
                                             track_sequence_replace,
                                             track_sequence_stream)
@@ -368,3 +370,110 @@ def test_stream_on_card_equals_track_sequence(dev):
         for t, *state in snaps:
             for a, w in zip(state, whole):
                 np.testing.assert_array_equal(a, w[t - 1].cpu().numpy())
+
+
+def batched_level_case(name, dev):
+    """Level stacks [B, 3, H_l, W_l] of B different frame pairs and
+    features [B, F] for kernel C: the cases of `level_case` on 3
+    sequences, and 32 sequences of 150 features (the batched flagship's
+    size)."""
+    b, n = (32, 150) if name == "b32" else (3, 256)
+    cfg, _, _, _, _ = level_case("default" if name == "b32" else name, dev)
+    frames = batched_frames(b, 2)
+    if name == "small_det":
+        frames[:, :, :, :100] = 128
+    if name == "oob":
+        frames[:, 1] = np.roll(frames[:, 1], 9, axis=2)
+    imgs = torch.from_numpy(frames.reshape(2 * b, *frames.shape[2:])).to(dev)
+    st = build_pyramid_stacks_batched(imgs, cfg)
+    st1, st2 = [s.view(b, 2, *s.shape[1:])[:, 0].contiguous() for s in st], \
+        [s.view(b, 2, *s.shape[1:])[:, 1].contiguous() for s in st]
+    rng = np.random.RandomState(6)
+    x = torch.from_numpy(rng.uniform(1, 318, (b, n)).astype(np.float32))
+    y = torch.from_numpy(rng.uniform(1, 238, (b, n)).astype(np.float32))
+    active = torch.from_numpy(rng.rand(b, n) > 0.1)
+    return cfg, st1, st2, x.to(dev), y.to(dev), active.to(dev)
+
+
+@pytest.mark.parametrize("name", ["default", "lighting", "oob", "small_det",
+                                  "max_iterations", "window_9x5", "b32"])
+def test_batched_lk_kernel_equals_plain_and_kernel_b(name, dev):
+    """Kernel C equals its plain version bit for bit, and its lane b
+    equals kernel B on sequence b."""
+    from klt_tpu_torch import cuda
+    cfg, st1, st2, x, y, active = batched_level_case(name, dev)
+    statuses = set()
+    for r in range(cfg.n_pyramid_levels):
+        s = float(cfg.subsampling ** r)
+        args = (x / s, y / s, x / s + 0.6, y / s - 0.4, active, cfg, r == 0)
+        before = (cuda.LK_LEVEL_BATCHED.launches, cuda.LK_LEVEL.launches)
+        got = lk_level(st1[r], st2[r], *args)
+        assert (cuda.LK_LEVEL_BATCHED.launches, cuda.LK_LEVEL.launches) == \
+            (before[0] + 1, before[1])
+        assert_equal_all(got, lk_level_batched_plain(st1[r], st2[r], *args))
+        for b in range(x.shape[0]):
+            one = [a[b].contiguous() for a in args[:5]] + list(args[5:])
+            assert_equal_all([g[b] for g in got],
+                             lk_level(st1[r][b], st2[r][b], *one))
+        statuses |= set(got[2][active].tolist())
+    assert len(statuses) > 1
+
+
+def test_batched_lk_kernel_rejects_bad_inputs(dev):
+    from klt_tpu_torch.cuda.lk_level import lk_level_batched_cuda
+    cfg, st1, st2, x, y, active = batched_level_case("default", dev)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        lk_level_batched_cuda(st1[0], st2[0], x.cpu(), y, x, y, active, cfg)
+    with pytest.raises(ValueError, match="features"):
+        lk_level_batched_cuda(st1[0], st2[0], x, y[:, :5].contiguous(), x, y,
+                              active, cfg)
+    with pytest.raises(ValueError, match="sequences"):
+        lk_level_batched_cuda(st1[0], st2[0], x[:2].contiguous(), y, x, y,
+                              active, cfg)
+    with pytest.raises(ValueError, match="stacks"):
+        lk_level_batched_cuda(st1[0], st2[1], x, y, x, y, active, cfg)
+    tiny = st1[0][:, :, :6, :6].contiguous()
+    with pytest.raises(ValueError, match="smaller than"):
+        lk_level_batched_cuda(tiny, tiny, x, y, x, y, active, cfg)
+
+
+@pytest.mark.parametrize("kw", [{}, {"lighting_insensitive": True}])
+def test_track_sequences_batched_kernels_equal_plain(kw, dev):
+    """B = 5 different sequences: kernels on the card equal the plain
+    versions on the card and on the CPU and, lane by lane,
+    track_sequence; one kernel E launch per frame (one in all with
+    precomp) and one kernel C launch per level and step, no kernel A or
+    B launch."""
+    from klt_tpu_torch import cuda
+    cfg = kt.TrackingConfig(sequential_mode=True, **kw)
+    frames = batched_frames(5, 5)
+    b, t = frames.shape[:2]
+    x, y, val = (np.full((b, 160), v, dt) for v, dt in
+                 ((0.0, np.float32), (0.0, np.float32), (-1, np.int32)))
+    for i in range(b):
+        fl = kt.FeatureList.create(150 - 10 * i)
+        kt.KLTracker(cfg).select_good_features(frames[i, 0], fl)
+        x[i, :len(fl.x)], y[i, :len(fl.x)], val[i, :len(fl.x)] = \
+            fl.x, fl.y, fl.val
+    f = torch.from_numpy(frames)
+    feats = [torch.from_numpy(a) for a in (x, y, val)]
+    fd, featd = f.to(dev), [a.to(dev) for a in feats]
+    cuda.reset_launch_counts()
+    got = track_sequences_batched(fd, *featd, cfg)
+    counts = {k.symbol: k.launches for k in cuda.KERNELS}
+    assert counts == {k.symbol: 0 for k in cuda.KERNELS} | {
+        cuda.PYRAMID_BATCHED.symbol: t,
+        cuda.LK_LEVEL_BATCHED.symbol: (t - 1) * cfg.n_pyramid_levels}
+    cuda.reset_launch_counts()
+    pre = track_sequences_batched(fd, *featd, cfg, precomp=True)
+    assert cuda.PYRAMID_BATCHED.launches == 1
+    assert_equal_all(pre, got)
+    assert_equal_all(got, track_sequences_batched(fd, *featd, cfg,
+                                                  plain=True))
+    assert_equal_all([g.cpu() for g in got],
+                     track_sequences_batched(f, *feats, cfg))
+    for i in range(b):
+        one = track_sequence(fd[i], *[a[i] for a in featd], cfg)
+        assert_equal_all([g[:, i] for g in got], one)
+    live = val >= 0
+    assert (got[2][-1].cpu().numpy()[live] == kt.TRACKED).mean() > 0.9

@@ -144,6 +144,11 @@ def test_port_runs_without_jax():
         "    *[torch.from_numpy(a) for a in (fl.x, fl.y, fl.val)], cfg)\n"
         "track_sequence_replace(torch.from_numpy(fr),\n"
         "    *[torch.from_numpy(a) for a in (fl.x, fl.y, fl.val)], cfg)\n"
+        "bx, by, bv = kt.track_sequences_batched(\n"
+        "    torch.from_numpy(fr[None]),\n"
+        "    *[torch.from_numpy(a[None]) for a in (fl.x, fl.y, fl.val)],\n"
+        "    cfg)\n"
+        "assert torch.equal(bx[:, 0], xs) and torch.equal(bv[:, 0], vs)\n"
         "assert not any(m == 'klt_tpu' or m.startswith(('klt_tpu.', 'jax.'))\n"
         "               for m in sys.modules)\n"
         "print('tracked', int((vs[-1] == 0).sum()))\n")
