@@ -16,9 +16,12 @@ drives the port's main paths:
   reference), with kernels, with batched pyramids (precomp) and through
   KLTracker;
 * batched multi-sequence tracking (track_sequences_batched: one
-  batched-pyramid launch per step, one kernel C launch per level for all
+  batched-pyramid launch and one kernel C launch per step for all
   sequences): 32 different sequences of 320x240 with 150 features each
   and 3 of 640x480 with 4096 features requested, over 10 frames;
+* level-by-level tracking (track_features_pyramid_levels: the torch level
+  loop over the level entries of kernels B and C, one launch per level),
+  held against the one-launch pyramid entries on the same frames;
 
 checks the tracks against the known motion of the synthetic frames and
 against the plain versions on the CPU, checks that the replacement loop
@@ -37,13 +40,17 @@ flagship phase tracks those frames instead; their motion is unknown, so
 that phase then checks them against the CPU run alone.
 
 Prints, before its last line, one JSON object with every kernel's
-launches on the main path, its error against the plain version and
-both times; the last line is
+launches on the main paths, its error against the plain version, its time
+on the card (device time of back-to-back launches), the plain version's,
+and the least time the card could take for the same work (bound_ms: the
+larger of the bytes moved over 3.35 TB/s and the operations over
+67 TFLOP/s f32, both counted from this run's inputs); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -60,12 +67,17 @@ import klt_tpu_torch as klt
 from klt_tpu_torch import cuda
 from klt_tpu_torch.config import pyramid_shapes
 from klt_tpu_torch.cuda.corner_response import corner_response_cuda
-from klt_tpu_torch.cuda.lk_level import lk_level_batched_cuda, lk_level_cuda
+from klt_tpu_torch.cuda.lk_level import (lk_level_batched_cuda, lk_level_cuda,
+                                         lk_pyramid_batched_cuda,
+                                         lk_pyramid_cuda)
 from klt_tpu_torch.cuda.pyramid import (build_pyramid_stacks_batched_cuda,
                                         build_pyramid_stacks_cuda)
 from klt_tpu_torch.cuda.replace import replace_lost_cuda_
 from klt_tpu_torch.io.pnm import read_pgm
-from klt_tpu_torch.ops.lk import lk_level_batched_plain, lk_level_plain
+from klt_tpu_torch.kernels import gaussian_kernels
+from klt_tpu_torch.ops.lk import (lk_level_batched_plain, lk_level_plain,
+                                  track_features_pyramid_levels,
+                                  track_features_pyramid_stacks)
 from klt_tpu_torch.ops.pyramid import (build_pyramid_stacks_batched_plain,
                                        build_pyramid_stacks_plain)
 from klt_tpu_torch.ops.replace import replace_lost_plain_
@@ -206,6 +218,119 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_times(fn, reps: int, launches: int = 1) -> tuple[float, float]:
+    """(device ms, host ms) per call of fn(), which enqueues `launches`
+    kernels.  Host: the clock around reps calls, nothing awaited.  Device:
+    CUDA events around reps calls enqueued while the card spins in a sleep
+    kernel long enough for the host to finish enqueueing, so the kernels
+    run back to back however long the host takes to launch one."""
+    reps = max(2, min(reps, 800 // launches))
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2.0e9 * (1.5 * host + 2e-3)))  # cycles, <= 2 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps, host * 1e3 / reps
+
+
+# ------------------------------------------------------------------ #
+# the least time the card could take                                   #
+# ------------------------------------------------------------------ #
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+F32_FLOPS = 67e12          # f32 outside the tensor cores
+SAMPLE_FLOPS = 7           # a bilinear sample: 4 products, 3 sums
+
+
+def bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the larger of the bytes over the
+    card's memory rate and the operations over its f32 peak."""
+    by, op = n_bytes / HBM_BYTES_PER_S * 1e3, n_flops / F32_FLOPS * 1e3
+    return (by, "bytes") if by >= op else (op, "operations")
+
+
+def pyramid_work(img, cfg, batch: int = 1) -> tuple[float, float]:
+    """(bytes, flops) of a pyramid build: the frame read once, every
+    level's 3 maps written once; per level a separable smoothing at the
+    source resolution and two separable gradient maps."""
+    h, w = img.shape[-2:]
+    taps = [len(gaussian_kernels(sig)[0]) for sig in
+            (cfg.smooth_sigma, cfg.grad_sigma, cfg.pyramid_sigma)]
+    n_bytes, n_flops, src = h * w * img.element_size(), 0, h * w
+    for lvl, (c, r) in enumerate(pyramid_shapes(w, h, cfg)):
+        n_bytes += 3 * r * c * 4
+        n_flops += 2 * 2 * taps[0 if lvl == 0 else 2] * src
+        n_flops += 2 * 2 * 2 * taps[1] * r * c
+        src = r * c
+    return batch * n_bytes, batch * n_flops
+
+
+def response_work(rows: int, cols: int, cfg) -> tuple[float, float]:
+    """(bytes, flops) of the corner response: two gradient maps read, one
+    response written; 3 products, 3 separable box sums and the eigenvalue
+    per pixel."""
+    box = 3 * (cfg.window_width - 1 + cfg.window_height - 1)
+    return 3 * rows * cols * 4, rows * cols * (3 + box + 12)
+
+
+def replace_work(rows: int, cols: int, n: int, picks: int
+                 ) -> tuple[float, float]:
+    """(bytes, flops) of the greedy replacement: the response map and the
+    feature state read once, the state written once; one comparison per
+    map cell for each pick this state needs."""
+    return rows * cols * 4 + 2 * 12 * n, max(picks, 1) * rows * cols
+
+
+def lk_level_work(act: int, iters: int, lanes: int, cfg,
+                  residue: bool) -> tuple[float, float]:
+    """(bytes, flops) of one LK level for `act` live lanes that ran
+    `iters` Newton iterations together: each live lane's (w+1)x(h+1)
+    3-channel footprint once in each frame, the lanes' state in and out;
+    per cell 3 first-image samples, per iteration 3 second-image samples,
+    3 differences and 5 products and sums, and the residue's sample."""
+    w, h = cfg.window_width, cfg.window_height
+    n_bytes = act * 2 * 3 * (w + 1) * (h + 1) * 4 + lanes * (17 + 20)
+    per_cell = act * 3 * SAMPLE_FLOPS + iters * (3 * SAMPLE_FLOPS + 13) + \
+        (act * (SAMPLE_FLOPS + 3) if residue else 0)
+    return n_bytes, w * h * per_cell
+
+
+def lk_pyramid_work(stacks1, stacks2, feats, cfg) -> tuple[float, float]:
+    """(bytes, flops) of one frame pair of LK on this state: every
+    level's work for the lanes that reach it and the iterations they run
+    (taken from the level loop on the card), and the lanes' x, y, val in
+    and out once."""
+    stats = []
+    track_features_pyramid_levels(stacks1, stacks2, *feats, cfg, stats=stats)
+    n_bytes, n_flops = 2 * 12 * feats[0].numel(), 0
+    for r, in_loop, iters in stats:
+        rows, cols = stacks1[r].shape[-2:]
+        if rows < cfg.window_height + 1 or cols < cfg.window_width + 1:
+            continue
+        by, fl = lk_level_work(int(in_loop.sum()), int(iters.sum()), 0, cfg,
+                               r == 0)
+        n_bytes, n_flops = n_bytes + by, n_flops + fl
+    return n_bytes, n_flops
+
+
+def launches_per_step(run, steps: int) -> dict:
+    """Each kernel's launches per step of run(), counted on one run."""
+    cuda.reset_launch_counts()
+    run()
+    torch.cuda.synchronize()
+    return {k.symbol: round(k.launches / steps, 3) for k in cuda.KERNELS}
+
+
 @contextmanager
 def phase(tag: str):
     """Prints how many seconds the phase took."""
@@ -244,9 +369,24 @@ def phase_build(card: str) -> None:
     else:
         print(f"[1 build] nvcc build of {len(cuda.SOURCES)} sources: "
               f"{cuda.build_seconds:.2f} s")
+    # ptxas' report, one line per kernel: registers, stack and spills
+    name = None
+    lk = ("lk_level_batched_kernel", "lk_pyramid_batched_kernel",
+          "lk_level_kernel", "lk_pyramid_kernel")
     for line in cuda.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[1 build] ptxas: {line.strip()}")
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            name = next((k for k in lk if k in mangled), mangled[-48:])
+            cells = mangled.split("ILi")[1].split("E")[0] \
+                if "ILi" in mangled else ""
+            name += f"<{cells}>" if cells else ""
+            frame = ""
+        elif "bytes stack frame" in line:
+            frame = line.strip()
+        elif "registers" in line and name:
+            print(f"[1 build] ptxas: {name}: "
+                  f"{line.split(':', 1)[1].strip()}; {frame}")
+            name = None
 
 
 def phase_pyramid(frames_by_size, cfg, errs) -> None:
@@ -406,17 +546,25 @@ def run_main_path(frames, n_feats, cfg, tag, known_motion: bool) -> None:
 
 
 def expected_lk_launches(shape, cfg) -> int:
-    """LK kernel launches per frame pair: one per level that holds a
-    window plus one."""
+    """Level-entry launches per frame pair of the level-by-level path: one
+    per level that holds a window plus one.  (The main paths launch one
+    pyramid entry per frame pair.)"""
     return sum(1 for c, r in pyramid_shapes(shape[1], shape[0], cfg)
                if r >= cfg.window_height + 1 and c >= cfg.window_width + 1)
 
 
-def phase_times(card, frames_by_size, cfg, n_feats, times):
+def lk_level_bound(out, active, cfg, residue: bool) -> tuple[float, str]:
+    """The bound of one level-entry launch from what it returned."""
+    return bound(*lk_level_work(int(active.sum()), int(out[3].sum()),
+                                active.numel(), cfg, residue))
+
+
+def phase_times(card, frames_by_size, cfg, n_feats, times, per_step):
     for frames, n in zip(frames_by_size, n_feats):
         size = f"{frames.shape[2]}x{frames.shape[1]}"
         fl = klt.FeatureList.create(n)
         klt.KLTracker(cfg).select_good_features(frames[0], fl)
+        n_sel = int((fl.val >= 0).sum())
         dev_frames = torch.from_numpy(frames).cuda()
         feats = [torch.from_numpy(a).cuda() for a in (fl.x, fl.y, fl.val)]
         reps = max(2, 200 // frames.shape[0])
@@ -424,24 +572,50 @@ def phase_times(card, frames_by_size, cfg, n_feats, times):
         p_fps = sequence_fps(dev_frames, feats, cfg, True, 2)
         runs = lambda v: [round(f, 1) for f in v]
         print(f"[6 times] {card} | track_sequence {size}, {frames.shape[0]} "
-              f"frames, {int((fl.val >= 0).sum())} features: kernels "
-              f"{np.median(k_fps):.1f} frames/s (runs {runs(k_fps)}), plain "
-              f"torch on the card {np.median(p_fps):.1f} frames/s (runs "
-              f"{runs(p_fps)})", flush=True)
+              f"frames, {n_sel} features: kernels "
+              f"{np.median(k_fps):.1f} frames/s = "
+              f"{1e6 / np.median(k_fps):.1f} us of wall per step (runs "
+              f"{runs(k_fps)}), plain torch on the card "
+              f"{np.median(p_fps):.1f} frames/s (runs {runs(p_fps)})",
+              flush=True)
+        per_step["track_sequence"] = launches_per_step(
+            lambda: track_sequence(dev_frames, *feats, cfg),
+            frames.shape[0] - 1)
 
         img = dev_frames[1]
-        a_ms = cuda_ms(lambda: build_pyramid_stacks_cuda(img, cfg), 200)
+        a_ms, a_host = kernel_times(
+            lambda: build_pyramid_stacks_cuda(img, cfg), 100, launches=8)
         a_plain = cuda_ms(lambda: build_pyramid_stacks_plain(img, cfg), 20)
+        a_bound = bound(*pyramid_work(img, cfg))
         st1 = build_pyramid_stacks_cuda(dev_frames[0], cfg)
         st2 = build_pyramid_stacks_cuda(img, cfg)
         args = (st1[0], st2[0], *level_inputs(fl, cfg, 0), cfg, True)
-        b_ms = cuda_ms(lambda: lk_level_cuda(*args), 200)
+        b_ms, b_host = kernel_times(lambda: lk_level_cuda(*args), 200)
         b_plain = cuda_ms(lambda: lk_level_plain(*args), 10)
-        print(f"[6 times] {card} | {size}: kernel A {a_ms * 1e3:.1f} us per "
-              f"launch (plain {a_plain * 1e3:.1f} us); kernel B level 0, "
-              f"{int((fl.val >= 0).sum())} features {b_ms * 1e3:.1f} us per "
-              f"launch (plain {b_plain * 1e3:.1f} us)", flush=True)
-        times[size] = {"pyramid": (a_ms, a_plain), "lk_level": (b_ms, b_plain)}
+        b_bound = lk_level_bound(lk_level_cuda(*args), args[6], cfg, True)
+        p_ms, p_host = kernel_times(
+            lambda: lk_pyramid_cuda(st1, st2, *feats, cfg), 200)
+        p_plain = cuda_ms(lambda: track_features_pyramid_stacks(
+            st1, st2, *feats, cfg, plain=True), 5)
+        p_bound = bound(*lk_pyramid_work(st1, st2, feats, cfg))
+        l_ms = cuda_ms(lambda: track_features_pyramid_levels(
+            st1, st2, *feats, cfg), 20)
+        us = lambda ms: f"{ms * 1e3:.1f}"
+        print(f"[6 times] {card} | {size}, device us per call (bound; host "
+              f"enqueue; plain version on the card): kernel A "
+              f"{us(a_ms)} ({us(a_bound[0])} by {a_bound[1]}; {us(a_host)}; "
+              f"{us(a_plain)}); kernel B level entry, level 0, {n_sel} "
+              f"features {us(b_ms)} ({us(b_bound[0])} by {b_bound[1]}; "
+              f"{us(b_host)}; {us(b_plain)}); kernel B pyramid entry, the "
+              f"frame pair {us(p_ms)} ({us(p_bound[0])} by {p_bound[1]}; "
+              f"{us(p_host)}; {us(p_plain)}); the same frame pair through "
+              f"the torch level loop over the level entries {us(l_ms)} us "
+              f"from the host's side", flush=True)
+        for name, ms, plain, bnd in (("pyramid", a_ms, a_plain, a_bound),
+                                     ("lk_level", b_ms, b_plain, b_bound),
+                                     ("lk_pyramid", p_ms, p_plain, p_bound)):
+            times[name] = {"ms": ms, "plain_ms": plain, "bound_ms": bnd[0],
+                           "bound_by": bnd[1]}
 
 
 def phase_corner_response(frames_by_size, cfg, errs) -> None:
@@ -741,7 +915,8 @@ def phase_no_sync(frames, n_feats, cfg) -> None:
           f"precomp, ran under sync debug mode \"error\": no host sync")
 
 
-def phase_replace_times(card, frames, n_feats, cfg, times) -> None:
+def phase_replace_times(card, frames, n_feats, cfg, times,
+                        per_step) -> None:
     size = f"{frames.shape[2]}x{frames.shape[1]}"
     fl = klt.FeatureList.create(n_feats)
     klt.KLTracker(cfg).select_good_features(frames[0], fl)
@@ -757,41 +932,64 @@ def phase_replace_times(card, frames, n_feats, cfg, times) -> None:
                          seq=track_sequence_replace)
     print(f"[13 times] {card} | track_sequence_replace {size}, "
           f"{len(frames)} frames, {int((fl.val >= 0).sum())} features: "
-          f"kernels {np.median(k_fps):.1f} frames/s (runs {runs(k_fps)}), "
+          f"kernels {np.median(k_fps):.1f} frames/s = "
+          f"{1e6 / np.median(k_fps):.1f} us of wall per step (runs "
+          f"{runs(k_fps)}), "
           f"precomp {np.median(p_fps):.1f} frames/s (runs {runs(p_fps)}), "
           f"plain torch on the card {np.median(c_fps):.1f} frames/s over "
           f"{n_plain} frames (runs {runs(c_fps)})", flush=True)
 
+    per_step["track_sequence_replace"] = launches_per_step(
+        lambda: track_sequence_replace(dev_frames, *feats, cfg),
+        len(frames) - 1)
+    per_step["track_sequence_replace, precomp"] = launches_per_step(
+        lambda: track_sequence_replace(dev_frames, *feats, cfg,
+                                       precomp=True), len(frames) - 1)
+
     win = (cfg.window_width, cfg.window_height)
+    rows, cols = frames.shape[1:]
     _, gx, gy = build_pyramid_stacks_cuda(dev_frames[1], cfg)[0]
-    d_ms = cuda_ms(lambda: corner_response_cuda(gx, gy, *win), 200)
+    d_ms, d_host = kernel_times(lambda: corner_response_cuda(gx, gy, *win),
+                                200, launches=2)
     d_plain = cuda_ms(lambda: corner_response_plain(gx, gy, *win), 20)
+    d_bound = bound(*response_work(rows, cols, cfg))
     batch = dev_frames[1:1 + PRECOMP_FRAMES]
-    e_ms = cuda_ms(lambda: build_pyramid_stacks_batched_cuda(batch, cfg), 20)
+    e_ms, e_host = kernel_times(
+        lambda: build_pyramid_stacks_batched_cuda(batch, cfg), 20, launches=8)
     e_plain = cuda_ms(lambda: build_pyramid_stacks_batched_plain(batch, cfg),
                       2)
-    a_ms = cuda_ms(lambda: build_pyramid_stacks_cuda(batch[0], cfg), 200)
+    e_bound = bound(*pyramid_work(batch, cfg, len(batch)))
+    a_ms, _ = kernel_times(lambda: build_pyramid_stacks_cuda(batch[0], cfg),
+                           100, launches=8)
     lost, resp = lost_state(frames, n_feats, cfg, 5)
     state = [torch.from_numpy(a).cuda() for a in (lost.x, lost.y, lost.val)]
     fresh = lambda: [a.clone() for a in state]
-    clone_ms = cuda_ms(fresh, 200)
-    r_ms = cuda_ms(lambda: replace_lost_cuda_(resp, *fresh(), cfg), 100)
+    clone_ms, _ = kernel_times(fresh, 100, launches=3)
+    r_ms, r_host = kernel_times(
+        lambda: replace_lost_cuda_(resp, *fresh(), cfg), 100, launches=8)
     r_plain = cuda_ms(lambda: replace_lost_plain_(resp, *fresh(), cfg), 5)
-    r0_ms = cuda_ms(lambda: replace_lost_cuda_(resp, *feats, cfg), 200)
+    r0_ms, _ = kernel_times(lambda: replace_lost_cuda_(resp, *feats, cfg),
+                            100, launches=4)
     n_lost = int((lost.val < 0).sum())
-    print(f"[13 times] {card} | {size}: kernel D {d_ms * 1e3:.1f} us per "
-          f"launch (plain {d_plain * 1e3:.1f} us); kernel E "
-          f"{e_ms * 1e3:.1f} us per launch of {len(batch)} frames = "
-          f"{e_ms * 1e3 / len(batch):.2f} us per frame (plain "
-          f"{e_plain * 1e3 / len(batch):.1f} us per frame; kernel A "
-          f"{a_ms * 1e3:.1f} us per frame); kernel R with {n_lost} of "
-          f"{n_feats} slots lost {r_ms * 1e3:.1f} us per launch (plain "
-          f"{r_plain * 1e3:.1f} us), both including {clone_ms * 1e3:.1f} us "
-          f"of input copies; with no slot lost {r0_ms * 1e3:.1f} us",
-          flush=True)
-    times.update({"corner_response": (d_ms, d_plain),
-                  "pyramid_batched": (e_ms, e_plain),
-                  "replace_lost": (r_ms, r_plain)})
+    r_bound = bound(*replace_work(rows, cols, n_feats, n_lost))
+    us = lambda ms: f"{ms * 1e3:.1f}"
+    print(f"[13 times] {card} | {size}, device us per call (bound; host "
+          f"enqueue; plain version on the card): kernel D {us(d_ms)} "
+          f"({us(d_bound[0])} by {d_bound[1]}; {us(d_host)}; {us(d_plain)}); "
+          f"kernel E {us(e_ms)} per launch of {len(batch)} frames = "
+          f"{e_ms * 1e3 / len(batch):.2f} per frame ({us(e_bound[0])} by "
+          f"{e_bound[1]}; {us(e_host)}; {us(e_plain)}; kernel A "
+          f"{us(a_ms)} per frame); kernel R with {n_lost} of {n_feats} "
+          f"slots lost {us(r_ms)} ({us(r_bound[0])} by {r_bound[1]}; "
+          f"{us(r_host)}; {us(r_plain)}), with {us(clone_ms)} of input "
+          f"copies in the kernel's and the plain version's time; with no "
+          f"slot lost {us(r0_ms)}", flush=True)
+    for name, ms, plain, bnd in (
+            ("corner_response", d_ms, d_plain, d_bound),
+            ("pyramid_batched", e_ms, e_plain, e_bound),
+            ("replace_lost", r_ms, r_plain, r_bound)):
+        times[name] = {"ms": ms, "plain_ms": plain, "bound_ms": bnd[0],
+                       "bound_by": bnd[1]}
 
 
 def profile_device(run, steps: int, tag: str, label: str, groups) -> None:
@@ -807,26 +1005,33 @@ def profile_device(run, steps: int, tag: str, label: str, groups) -> None:
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev_us = {}
+    dev_us, dev_n = {}, {}
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0))
         if us > 0 and "CUDA" in str(ev.device_type):
             dev_us[ev.key] = dev_us.get(ev.key, 0.0) + us
+            dev_n[ev.key] = dev_n.get(ev.key, 0) + ev.count
     total = sum(dev_us.values())
     if total <= 0:
         print(f"[{tag}] the profiler recorded no device time: device "
               "busy share not measured")
         return
-    shares, covered = [], 0.0
+    shares, covered, ours = [], 0.0, 0
     for name, keys in groups.items():
         keys = keys if isinstance(keys, tuple) else (keys,)
-        us = sum(v for k, v in dev_us.items() if any(s in k for s in keys))
+        mine = [k for k in dev_us if any(s in k for s in keys)]
+        us = sum(dev_us[k] for k in mine)
+        ours += sum(dev_n[k] for k in mine)
         covered += us
         shares.append(f"{name} {us / total:.3f} ({us / steps:.1f} us/step)")
     print(f"[{tag}] {label}, {steps} steps (profiler on): wall "
           f"{wall * 1e6 / steps:.1f} us per step, device busy "
-          f"{total / (wall * 1e6):.3f} of the wall time; share of device "
+          f"{total / (wall * 1e6):.3f} of the wall time "
+          f"({total / steps:.1f} us of device time per step); device "
+          f"launches per step {sum(dev_n.values()) / steps:.1f}, of which "
+          f"torch's own (copies, fills, glue) "
+          f"{(sum(dev_n.values()) - ours) / steps:.1f}; share of device "
           f"time: " + "; ".join(shares) + f"; other (torch glue) "
           f"{1 - covered / total:.3f}")
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
@@ -847,7 +1052,22 @@ def phase_profile(frames, n_feats, cfg) -> None:
         {"kernel R (replace_lost)": "replace_lost",
          "kernel D (hsum_products, vsum_eigen)": ("hsum_products",
                                                   "vsum_eigen"),
-         "kernel B (lk_level_kernel)": "lk_level_kernel",
+         "kernel B (lk_pyramid_kernel)": "lk_pyramid_kernel",
+         "kernel A (hpass, vpass)": ("hpass", "vpass")})
+
+
+def phase_profile_tracking(frames, n_feats, cfg) -> None:
+    """torch.profiler over track_sequence with kernels."""
+    fl = klt.FeatureList.create(n_feats)
+    klt.KLTracker(cfg).select_good_features(frames[0], fl)
+    dev_frames = torch.from_numpy(frames).cuda()
+    feats = [torch.from_numpy(a).cuda() for a in (fl.x, fl.y, fl.val)]
+    profile_device(
+        lambda: track_sequence(dev_frames, *feats, cfg),
+        len(frames) - 1, "14 profile",
+        f"track_sequence of {frames.shape[2]}x{frames.shape[1]}, "
+        f"{int((fl.val >= 0).sum())} features",
+        {"kernel B (lk_pyramid_kernel)": "lk_pyramid_kernel",
          "kernel A (hpass, vpass)": ("hpass", "vpass")})
 
 
@@ -927,13 +1147,12 @@ def phase_batched_lk(cases, cfgs, errs) -> None:
 def batched_launches_expected(shape, cfg) -> dict:
     """Kernel launches of one track_sequences_batched run and one with
     precomp on [B, T, H, W] frames: kernel E once per frame index (with
-    precomp once per chunk), kernel C once per level and step."""
-    b, t_len, h, w = shape
+    precomp once per chunk), kernel C's pyramid entry once per step."""
+    b, t_len = shape[:2]
     per_launch = max(1, PRECOMP_FRAMES // b)
     want = {k.symbol: 0 for k in cuda.KERNELS}
     want[cuda.PYRAMID_BATCHED.symbol] = t_len + -(-t_len // per_launch)
-    want[cuda.LK_LEVEL_BATCHED.symbol] = 2 * (t_len - 1) * \
-        expected_lk_launches((h, w), cfg)
+    want[cuda.LK_PYRAMID_BATCHED.symbol] = 2 * (t_len - 1)
     return want
 
 
@@ -1045,7 +1264,7 @@ def batched_fps(run, n_frames: int, reps: int) -> list[float]:
     return out
 
 
-def phase_batched_times(card, cases, cfg, times) -> None:
+def phase_batched_times(card, cases, cfg, times, per_step) -> None:
     for frames, feats, reps in cases:
         b, t_len = frames.shape[:2]
         size = f"{b} x {frames.shape[3]}x{frames.shape[2]}"
@@ -1065,34 +1284,52 @@ def phase_batched_times(card, cases, cfg, times) -> None:
         print(f"[18 times] {card} | track_sequences_batched {size}, "
               f"{t_len} frames, {feats[0].shape[1]} features requested, "
               f"aggregate frames/s over all sequences: kernels "
-              f"{np.median(k_fps):.1f} (runs {runs(k_fps)}), precomp "
+              f"{np.median(k_fps):.1f} = "
+              f"{1e6 * b / np.median(k_fps):.1f} us of wall per step (runs "
+              f"{runs(k_fps)}), precomp "
               f"{np.median(p_fps):.1f} (runs {runs(p_fps)}), plain torch on "
               f"the card {np.median(c_fps):.1f} (runs {runs(c_fps)}); the "
               f"same {b} sequences one at a time through track_sequence "
               f"{np.median(one_fps):.1f} (runs {runs(one_fps)})", flush=True)
 
+        per_step.setdefault("track_sequences_batched", launches_per_step(
+            lambda: track_sequences_batched(dev_frames, *featd, cfg),
+            t_len - 1))
+
         st1, st2 = frame_pair_stacks(frames, cfg)
         args = (st1[0], st2[0], *batched_level_inputs(feats, cfg, 0), cfg,
                 True)
-        c_ms = cuda_ms(lambda: lk_level_batched_cuda(*args), 200)
+        c_ms, c_host = kernel_times(lambda: lk_level_batched_cuda(*args), 200)
         c_plain = cuda_ms(lambda: lk_level_batched_plain(*args), 5)
-        lanes = [(st1[0][i], st2[0][i], *[a[i] for a in args[2:7]], cfg,
-                  True) for i in range(b)]
-        b_ms = cuda_ms(lambda: [lk_level_cuda(*a) for a in lanes], 20)
-        lk_level_batched_cuda(*args)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(100):
-            lk_level_batched_cuda(*args)
-        host_us = (time.perf_counter() - t0) * 1e4
-        torch.cuda.synchronize()
-        print(f"[18 times] {card} | {size}: kernel C level 0, "
-              f"{int(args[6].sum())} live of {args[2].numel()} lanes "
-              f"{c_ms * 1e3:.1f} us per launch (plain {c_plain * 1e3:.1f} "
-              f"us); host enqueue {host_us:.1f} us per call; kernel B on "
-              f"the {b} sequences one at a time {b_ms * 1e3:.1f} us",
-              flush=True)
-        times.setdefault("lk_level_batched", (c_ms, c_plain))
+        c_bound = lk_level_bound(lk_level_batched_cuda(*args), args[6], cfg,
+                                 True)
+        p_ms, p_host = kernel_times(
+            lambda: lk_pyramid_batched_cuda(st1, st2, *featd, cfg), 200)
+        p_plain = cuda_ms(lambda: track_features_pyramid_stacks(
+            st1, st2, *featd, cfg, plain=True), 3)
+        p_bound = bound(*lk_pyramid_work(st1, st2, featd, cfg))
+        l_ms = cuda_ms(lambda: track_features_pyramid_levels(
+            st1, st2, *featd, cfg), 20)
+        pairs = [([s[i] for s in st1], [s[i] for s in st2],
+                  *[a[i] for a in featd], cfg) for i in range(b)]
+        b_ms, _ = kernel_times(
+            lambda: [lk_pyramid_cuda(*a) for a in pairs], 10, launches=b)
+        us = lambda ms: f"{ms * 1e3:.1f}"
+        print(f"[18 times] {card} | {size}, {int(args[6].sum())} live of "
+              f"{args[2].numel()} lanes, device us per call (bound; host "
+              f"enqueue; plain version on the card): kernel C level entry, "
+              f"level 0 {us(c_ms)} ({us(c_bound[0])} by {c_bound[1]}; "
+              f"{us(c_host)}; {us(c_plain)}); kernel C pyramid entry, the "
+              f"frame pair {us(p_ms)} ({us(p_bound[0])} by {p_bound[1]}; "
+              f"{us(p_host)}; {us(p_plain)}); the same frame pair through "
+              f"the torch level loop over the level entries {us(l_ms)} us "
+              f"from the host's side; kernel B's pyramid entry on the {b} "
+              f"sequences one at a time {us(b_ms)}", flush=True)
+        for name, ms, plain, bnd in (
+                ("lk_level_batched", c_ms, c_plain, c_bound),
+                ("lk_pyramid_batched", p_ms, p_plain, p_bound)):
+            times.setdefault(name, {"ms": ms, "plain_ms": plain,
+                                    "bound_ms": bnd[0], "bound_by": bnd[1]})
 
 
 def phase_batched_profile(frames, feats, cfg) -> None:
@@ -1104,8 +1341,153 @@ def phase_batched_profile(frames, feats, cfg) -> None:
         t_len - 1, "19 profile",
         f"track_sequences_batched, {b} sequences of "
         f"{frames.shape[3]}x{frames.shape[2]}",
-        {"kernel C (lk_level_batched_kernel)": "lk_level_batched_kernel",
+        {"kernel C (lk_pyramid_batched_kernel)": "lk_pyramid_batched_kernel",
          "kernel E (hpass, vpass)": ("hpass", "vpass")})
+
+
+# ------------------------------------------------------------------ #
+# the LK pyramid entries, and the level-by-level path                  #
+# ------------------------------------------------------------------ #
+
+def edge_state(feats, shape, cfg, seed: int):
+    """A copy of numpy features (x, y, val) of any shape in which, of
+    every ten live lanes, about one is lost (val -1 .. -5), one sits on or
+    just past the border margin in x and one in y."""
+    x, y, val = (a.copy() for a in feats)
+    rng = np.random.RandomState(seed)
+    live = np.flatnonzero(val >= 0)
+    pick = rng.choice(live, max(6, 3 * (live.size // 10)), replace=False)
+    lost, at_x, at_y = np.array_split(pick, 3)
+    val.flat[lost] = -1 - rng.randint(0, 5, lost.size)
+    for arr, idx, size, border in ((x, at_x, shape[1], cfg.borderx),
+                                   (y, at_y, shape[0], cfg.bordery)):
+        arr.flat[idx] = rng.choice(
+            [border - 0.5, border + 0.25, size - 1 - border - 0.25,
+             size - 1 - border + 0.5, 2.0, size - 1.5],
+            idx.size).astype(np.float32)
+    return x, y, val
+
+
+def phase_lk_pyramid(single, batched, cfgs, errs_b, errs_c) -> None:
+    """The pyramid entries of kernels B and C (a whole frame pair in one
+    launch) against the torch level loop with the plain levels, on the
+    card: on the selected features and on a state with lost lanes and
+    lanes at the border; kernel C also lane by lane against kernel B."""
+    for frames, feats, is_batched in (
+            [(f, x, False) for f, x in single] +
+            [(f, x, True) for f, x in batched]):
+        hw = frames.shape[-2:]
+        size = (f"{frames.shape[0]} x " if is_batched else "") + \
+            f"{hw[1]}x{hw[0]} x {feats[0].shape[-1]}"
+        for tag, cfg in cfgs:
+            if is_batched:
+                st1, st2 = frame_pair_stacks(frames, cfg)
+            else:
+                st1, st2 = (build_pyramid_stacks_cuda(
+                    torch.from_numpy(f).cuda(), cfg) for f in frames[:2])
+            for state_tag, state in (("selected", feats),
+                                     ("lost and border lanes",
+                                      edge_state(feats, hw, cfg, 3))):
+                featd = [torch.from_numpy(a).cuda() for a in state]
+                fn = lk_pyramid_batched_cuda if is_batched else \
+                    lk_pyramid_cuda
+                got = fn(st1, st2, *featd, cfg)
+                ref = track_features_pyramid_stacks(st1, st2, *featd, cfg,
+                                                    plain=True)
+                same_b = True
+                if is_batched:
+                    same_b = all(torch.equal(g[i], one)
+                                 for i in range(frames.shape[0])
+                                 for g, one in zip(got, lk_pyramid_cuda(
+                                     [s[i] for s in st1], [s[i] for s in st2],
+                                     *[a[i] for a in featd], cfg)))
+                torch.cuda.synchronize()
+                err = max((a.double() - b.double()).abs().max().item()
+                          for a, b in zip(got[:2], ref[:2]))
+                same = all(torch.equal(a, b) for a, b in zip(got, ref))
+                (errs_c if is_batched else errs_b).append(err)
+                live = featd[2] >= 0
+                codes, counts = np.unique(got[2][live].cpu().numpy(),
+                                          return_counts=True)
+                name = "C" if is_batched else "B"
+                print(f"[20 kernel {name} pyramid entry] {size} {tag}, "
+                      f"{state_tag}: {int(live.sum())} live lanes, max "
+                      f"|kernel - plain| {err:.3g} px, x, y, val bit-equal: "
+                      f"{same}" + (f"; every lane equal to kernel B on its "
+                                   f"sequence: {same_b}" if is_batched else
+                                   "") + f"; statuses "
+                      f"{dict(zip(codes.tolist(), counts.tolist()))}")
+                check(err == 0 and same, f"kernel {name}'s pyramid entry "
+                      "differs from the level loop with the plain levels")
+                check(same_b, "kernel C's pyramid entry differs from kernel "
+                      "B's on a lane")
+                check(torch.equal(got[2][~live], featd[2][~live]) and
+                      torch.equal(got[0][~live], featd[0][~live]),
+                      "a lost lane did not pass through")
+
+
+def run_level_path(frames, n_feats, frames_b, feats_b, cfg, tag,
+                   per_step) -> dict:
+    """Level-by-level tracking: per frame pair the torch level loop
+    (track_features_pyramid_levels) over the level entries of kernel B,
+    and of kernel C for the batched frames, one launch per level.  Every
+    step must equal the one-launch paths (track_sequence,
+    track_sequences_batched) bit for bit.  Returns the launch counts."""
+    fl = klt.FeatureList.create(n_feats)
+    klt.KLTracker(cfg).select_good_features(frames[0], fl)
+    dev_frames = torch.from_numpy(frames).cuda()
+    state = [torch.from_numpy(a).cuda() for a in (fl.x, fl.y, fl.val)]
+    want = track_sequence(dev_frames, *state, cfg)
+    dev_b = torch.from_numpy(frames_b).cuda()
+    state_b = [torch.from_numpy(a).cuda() for a in feats_b]
+    want_b = track_sequences_batched(dev_b, *state_b, cfg)
+    torch.cuda.synchronize()
+
+    cuda.reset_launch_counts()
+    same = True
+    st1 = build_pyramid_stacks_cuda(dev_frames[0], cfg)
+    for t in range(1, len(frames)):
+        st2 = build_pyramid_stacks_cuda(dev_frames[t], cfg)
+        state = track_features_pyramid_levels(st1, st2, *state, cfg)
+        same &= all(torch.equal(a, w[t - 1]) for a, w in zip(state, want))
+        st1 = st2
+    per_step["level by level, one sequence"] = {
+        k.symbol: round(k.launches / (len(frames) - 1), 3)
+        for k in cuda.KERNELS}
+    same_b = True
+    build = lambda t: build_pyramid_stacks_batched_cuda(
+        dev_b[:, t].contiguous(), cfg)
+    st1 = build(0)
+    for t in range(1, frames_b.shape[1]):
+        st2 = build(t)
+        state_b = track_features_pyramid_levels(st1, st2, *state_b, cfg)
+        same_b &= all(torch.equal(a, w[t - 1])
+                      for a, w in zip(state_b, want_b))
+        st1 = st2
+    torch.cuda.synchronize()
+    launches = {k.symbol: k.launches for k in cuda.KERNELS}
+    per_step["level by level, batched"] = {
+        k: round(n / (frames_b.shape[1] - 1), 3) if "batched" in k else 0.0
+        for k, n in launches.items()}
+    want_n = {k.symbol: 0 for k in cuda.KERNELS}
+    want_n[cuda.PYRAMID.symbol] = len(frames)
+    want_n[cuda.LK_LEVEL.symbol] = (len(frames) - 1) * \
+        expected_lk_launches(frames.shape[1:], cfg)
+    want_n[cuda.PYRAMID_BATCHED.symbol] = frames_b.shape[1]
+    want_n[cuda.LK_LEVEL_BATCHED.symbol] = (frames_b.shape[1] - 1) * \
+        expected_lk_launches(frames_b.shape[2:], cfg)
+    print(f"[{tag}] {len(frames)} frames of {frames.shape[2]}x"
+          f"{frames.shape[1]}, {int((fl.val >= 0).sum())} features, level "
+          f"by level: every step bit-equal to track_sequence: {same}; "
+          f"{frames_b.shape[0]} sequences of {frames_b.shape[1]} frames of "
+          f"{frames_b.shape[3]}x{frames_b.shape[2]}: every step bit-equal "
+          f"to track_sequences_batched: {same_b}; launches {launches} "
+          f"(expected {want_n})")
+    check(same and same_b, "the level entries under the torch level loop "
+          "differ from the pyramid entries")
+    check(launches == want_n, "level path launch counts differ from the "
+          "expected")
+    return launches
 
 
 def main() -> int:
@@ -1158,6 +1540,20 @@ def main() -> int:
     with phase("15 kernel C"):
         phase_batched_lk(((flag_b, flag_feats), (real_b, real_feats)),
                          (cfg, lighting), errs[cuda.LK_LEVEL_BATCHED.symbol])
+    with phase("20 LK pyramid entries"):
+        single = []
+        for frames, n in ((qvga, 150), (vga, 2000)):
+            fl = klt.FeatureList.create(n)
+            klt.KLTracker(cfg).select_good_features(frames[0], fl)
+            single.append((frames, (fl.x, fl.y, fl.val)))
+        one_level = dataclasses.replace(cfg, n_pyramid_levels=1)
+        phase_lk_pyramid(
+            single,
+            [(flag_b[:, :2], flag_feats), (real_b[:, :2], real_feats)],
+            (("default", cfg), ("lighting", lighting),
+             ("one level", one_level)),
+            errs[cuda.LK_PYRAMID.symbol],
+            errs[cuda.LK_PYRAMID_BATCHED.symbol])
 
     # main path 1: tracking (example3)
     cuda.reset_launch_counts()
@@ -1171,14 +1567,13 @@ def main() -> int:
         run_main_path(vga, 2000, cfg, "5 real size", known_motion=True)
     track_launches = {k.symbol: k.launches for k in cuda.KERNELS}
     # KLTracker and track_sequence each build every frame's pyramid once
-    # and run one LK launch per level that holds the window
+    # and run one LK launch, the pyramid entry, per frame pair
     want_a = 2 * (len(qvga) + len(vga))
-    want_b = 2 * sum((len(f) - 1) * expected_lk_launches(f.shape[1:], cfg)
-                     for f in (qvga, vga))
+    want_b = 2 * sum(len(f) - 1 for f in (qvga, vga))
     print(f"[4-5 launches] {track_launches} (expected pyramid {want_a}, "
-          f"lk_level {want_b}, no other)")
+          f"lk_pyramid {want_b}, no other)")
     check(track_launches[cuda.PYRAMID.symbol] == want_a and
-          track_launches[cuda.LK_LEVEL.symbol] == want_b and
+          track_launches[cuda.LK_PYRAMID.symbol] == want_b and
           sum(track_launches.values()) == want_a + want_b,
           "main path launch counts differ from the expected")
 
@@ -1194,15 +1589,12 @@ def main() -> int:
     # precomp, KLTracker; KLTracker computes the response (D) only on
     # frames with a lost feature and replaces on the host
     steps_q, steps_t = len(qvga) - 1, n_traffic - 1
-    lk_q = expected_lk_launches(qvga.shape[1:], cfg)
-    lk_t = expected_lk_launches(traffic.shape[1:], cfg)
-    want = {
+    want = {k.symbol: 0 for k in cuda.KERNELS} | {
         cuda.PYRAMID.symbol: 2 * len(qvga) + 2 * n_traffic + 1,
-        cuda.LK_LEVEL.symbol: 2 * steps_q * lk_q + 3 * steps_t * lk_t,
+        cuda.LK_PYRAMID.symbol: 2 * steps_q + 3 * steps_t,
         cuda.CORNER_RESPONSE.symbol: steps_q + lost_q + 2 * steps_t + lost_t,
         cuda.PYRAMID_BATCHED.symbol: -(-steps_t // PRECOMP_FRAMES),
         cuda.REPLACE_LOST.symbol: steps_q + 2 * steps_t,
-        cuda.LK_LEVEL_BATCHED.symbol: 0,
     }
     print(f"[10-11 launches] {replace_launches} (expected {want})")
     check(replace_launches == want,
@@ -1218,39 +1610,55 @@ def main() -> int:
                           n_cpu=len(real_b))
     batched_launches = {k: l16[k] + l17[k] for k in l16}
 
+    # path 4: level by level, the level entries under the torch level loop
+    per_step = {}
+    with phase("21 level path"):
+        level_launches = run_level_path(vga[:20], 2000, flag_b, flag_feats,
+                                        cfg, "21 level path", per_step)
+
     with phase("12 no sync"):
         phase_no_sync(traffic[:PRECOMP_FRAMES + 2], 500, cfg)
 
     times = {}
     with phase("6 times"):
-        phase_times(card, (qvga, vga), cfg, (150, 2000), times)
+        phase_times(card, (qvga, vga), cfg, (150, 2000), times, per_step)
     with phase("13 times"):
-        phase_replace_times(card, traffic, 500, cfg, times)
+        phase_replace_times(card, traffic, 500, cfg, times, per_step)
     with phase("14 profile"):
+        phase_profile_tracking(vga, 2000, cfg)
         phase_profile(traffic[:PRECOMP_FRAMES + 1], 500, cfg)
     with phase("18 times"):
         phase_batched_times(card, ((flag_b, flag_feats, 10),
-                                   (real_b, real_feats, 5)), cfg, times)
+                                   (real_b, real_feats, 5)), cfg, times,
+                            per_step)
     with phase("19 profile"):
         phase_batched_profile(flag_b, flag_feats, cfg)
 
+    # A and B's entries at 640x480 with 2000 features requested, D, E and
+    # R at the traffic run's 640x480 with 500, C's entries at 32 x 320x240
+    # x 150.  No single PyTorch call computes any of these functions (a
+    # chain of separable passes with decimation, a Newton loop that ends by
+    # the data, a fused product, box sum and eigenvalue, a greedy loop), so
+    # library_ms is null throughout.
     report = {"kernels": []}
     names = {cuda.PYRAMID: "pyramid", cuda.LK_LEVEL: "lk_level",
+             cuda.LK_PYRAMID: "lk_pyramid",
              cuda.CORNER_RESPONSE: "corner_response",
              cuda.PYRAMID_BATCHED: "pyramid_batched",
              cuda.REPLACE_LOST: "replace_lost",
-             cuda.LK_LEVEL_BATCHED: "lk_level_batched"}
+             cuda.LK_LEVEL_BATCHED: "lk_level_batched",
+             cuda.LK_PYRAMID_BATCHED: "lk_pyramid_batched"}
     for k in cuda.KERNELS:
         name = names[k]
-        ms, plain_ms = times[name] if name in times \
-            else times["320x240"][name]
         report["kernels"].append({
             "name": name, "route": "cuda", "source": k.source,
             "replaces": k.replaces,
             "launches": track_launches[k.symbol] + replace_launches[k.symbol]
-            + batched_launches[k.symbol],
-            "max_abs_err": max(errs[k.symbol]), "ms": ms,
-            "plain_ms": plain_ms})
+            + batched_launches[k.symbol] + level_launches[k.symbol],
+            "max_abs_err": max(errs[k.symbol]), **times[name],
+            "library_ms": None,
+            "launches_per_step": {path: counts[k.symbol]
+                                  for path, counts in per_step.items()}})
     print(card)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,195 @@
+"""Times of the LK kernels inside the sequence entry points, on one GPU.
+
+    python3 -m klt_tpu_torch.bench_lk [--tag NAME] [--reps N]
+                                      [--wrapper-only]
+
+run from the root of a checkout (it takes its synthetic frames from
+chip_smoke.py).  For each cell it prints one JSON line: frames/s and wall
+per step of the entry point (host clock around synchronised runs, median
+of --reps), and from one torch.profiler run the device time per step of
+the LK kernels and of everything else, the device launches per step, and
+the device-busy share of the wall time.
+
+A last JSON line gives the host's cost of enqueueing one frame pair at
+640x480 (clock around a tight loop of calls, nothing awaited): the LK
+pyramid wrapper and its parts, kernel A's wrapper and a table-row copy;
+--wrapper-only prints that line alone.  A revision without the pyramid
+wrapper skips it.
+
+The script uses only entry points that every revision of the port has
+(track_sequence, track_sequence_replace, track_sequences_batched), so two
+revisions can be compared on one card within one command: unpack the
+other revision into a git-ignored directory, copy this file into its
+klt_tpu_torch/, and run the two in turns (other, this, this, other), e.g.
+
+    git archive <rev> | tar -x -C build/parent
+    cp klt_tpu_torch/bench_lk.py build/parent/klt_tpu_torch/
+    for d in build/parent . . build/parent; do
+        (cd $d && python3 -m klt_tpu_torch.bench_lk --tag $d); done
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+import klt_tpu_torch as klt
+from chip_smoke import batched_frames, synthetic_frames
+from klt_tpu_torch.parallel import track_sequences_batched
+from klt_tpu_torch.runtime.pipeline import (track_sequence,
+                                            track_sequence_replace)
+
+
+def select(frame, n, cfg):
+    fl = klt.FeatureList.create(n)
+    klt.KLTracker(cfg).select_good_features(frame, fl)
+    return fl.x, fl.y, fl.val
+
+
+def profile(run, steps: int) -> dict:
+    """Device time and launches per step of run(), LK kernels apart."""
+    from torch.profiler import ProfilerActivity, profile as prof_ctx
+    with prof_ctx(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    lk_us = all_us = 0.0
+    lk_n = all_n = 0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if us <= 0 or "CUDA" not in str(ev.device_type):
+            continue
+        all_us += us
+        all_n += ev.count
+        if "lk_" in ev.key:
+            lk_us += us
+            lk_n += ev.count
+    return {"lk_device_us_per_step": lk_us / steps,
+            "lk_launches_per_step": lk_n / steps,
+            "other_device_us_per_step": (all_us - lk_us) / steps,
+            "other_launches_per_step": (all_n - lk_n) / steps,
+            "device_busy_share_profiled": all_us / (wall * 1e6),
+            "wall_us_per_step_profiled": wall * 1e6 / steps}
+
+
+def measure(name: str, run, steps: int, frames_per_step: int, reps: int,
+            tag: str, card: str) -> None:
+    run()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = float(np.median(walls))
+    out = {"tag": tag, "card": card, "cell": name,
+           "frames_per_s": steps * frames_per_step / wall,
+           "wall_us_per_step": wall * 1e6 / steps,
+           "runs_frames_per_s": [round(steps * frames_per_step / w, 1)
+                                 for w in walls]}
+    out.update(profile(run, steps))
+    print(json.dumps(out), flush=True)
+
+
+def wrapper_costs(cfg, tag: str, card: str) -> None:
+    """Host us per call of the wrappers a `track_sequence` step runs."""
+    try:
+        from klt_tpu_torch.cuda.lk_level import (_check_pyramid,
+                                                 lk_pyramid_cuda)
+    except ImportError:
+        return
+    from klt_tpu_torch.cuda.pyramid import build_pyramid_stacks_cuda
+    frames = synthetic_frames(2, scale=2)
+    f = torch.from_numpy(frames).cuda()
+    feats = [torch.from_numpy(a).cuda() for a in select(frames[0], 2000, cfg)]
+    st1, st2 = (build_pyramid_stacks_cuda(f[i], cfg) for i in (0, 1))
+    table = torch.empty((4,) + feats[0].shape, device="cuda")
+
+    def copy_row():
+        table[1] = feats[0]
+
+    def host_us(fn, n=2000):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        us = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        return round(us, 2)
+
+    print(json.dumps({"tag": tag, "card": card, "host_us_per_call": {
+        "lk_pyramid_cuda": host_us(
+            lambda: lk_pyramid_cuda(st1, st2, *feats, cfg)),
+        "its checks": host_us(
+            lambda: _check_pyramid(st1, st2, *feats, cfg, False)),
+        "its three empty_like": host_us(
+            lambda: [torch.empty_like(a) for a in feats]),
+        "its current_stream": host_us(
+            lambda: torch.cuda.current_stream().cuda_stream),
+        "build_pyramid_stacks_cuda": host_us(
+            lambda: build_pyramid_stacks_cuda(f[1], cfg), 1000),
+        "table row copy": host_us(copy_row)}}), flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tag", default="this")
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--wrapper-only", action="store_true")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("bench_lk: no CUDA device", file=sys.stderr)
+        return 1
+    klt.set_verbosity(0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    cfg = klt.TrackingConfig(sequential_mode=True)
+    dev = lambda arrs: [torch.from_numpy(a).cuda() for a in arrs]
+    if args.wrapper_only:
+        wrapper_costs(cfg, args.tag, card)
+        return 0
+
+    qvga = synthetic_frames(10)
+    vga = synthetic_frames(101, scale=2)
+    for name, frames, n, seq in (
+            ("track_sequence 320x240 x 150", qvga, 150, track_sequence),
+            ("track_sequence 640x480 x 2000 requested", vga, 2000,
+             track_sequence),
+            ("track_sequence_replace 640x480 x 500", vga, 500,
+             track_sequence_replace)):
+        f = torch.from_numpy(frames).cuda()
+        feats = dev(select(frames[0], n, cfg))
+        measure(f"{name}, {int((feats[2] >= 0).sum())} live", lambda: seq(
+            f, *feats, cfg), len(frames) - 1, 1, args.reps, args.tag, card)
+
+    for name, (b, t), scale, n in (
+            ("track_sequences_batched 32 x 320x240 x 150", (32, 10), 1, 150),
+            ("track_sequences_batched 3 x 640x480 x 4096 requested", (3, 10),
+             2, 4096)):
+        frames = batched_frames(b, t, scale=scale)
+        feats = [np.stack(a) for a in zip(*[select(frames[i, 0], n, cfg)
+                                            for i in range(b)])]
+        f = torch.from_numpy(frames).cuda()
+        featd = dev(feats)
+        measure(f"{name}, {int((feats[2] >= 0).sum())} live",
+                lambda: track_sequences_batched(f, *featd, cfg), t - 1, b,
+                args.reps, args.tag, card)
+    wrapper_costs(cfg, args.tag, card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

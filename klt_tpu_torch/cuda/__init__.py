@@ -90,6 +90,11 @@ def load_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(LIB)
         lib.klt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.klt_cuda_error_string.restype = ctypes.c_char_p
+        lib.klt_lk_max_levels.argtypes = []
+        lib.klt_lk_max_levels.restype = ctypes.c_int
+        if lib.klt_lk_max_levels() != LK_MAX_LEVELS:
+            raise RuntimeError("LK_MAX_LEVELS differs from the library's "
+                               "KLT_MAX_LEVELS")
         for k in KERNELS:
             fn = getattr(lib, k.symbol)
             fn.argtypes = k.argtypes
@@ -108,12 +113,15 @@ class Kernel:
         self.source = source
         self.replaces = replaces
         self.launches = 0
+        self._fn = None  # the bound C function, once the library is loaded
 
     def __call__(self, *args) -> None:
-        lib = load_library()
-        rc = getattr(lib, self.symbol)(*args)
+        fn = self._fn
+        if fn is None:
+            fn = self._fn = getattr(load_library(), self.symbol)
+        rc = fn(*args)
         if rc != 0:
-            msg = lib.klt_cuda_error_string(rc).decode()
+            msg = load_library().klt_cuda_error_string(rc).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {rc} ({msg})")
         self.launches += 1
 
@@ -121,6 +129,7 @@ class Kernel:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 
 PYRAMID = Kernel(
     "klt_build_pyramid",
@@ -180,8 +189,42 @@ LK_LEVEL_BATCHED = Kernel(
     source="klt_tpu_torch/csrc/lk_level.cu",
     replaces="klt_tpu/pallas/lk.py:60")
 
+# The whole coarse-to-fine loop of a frame pair in one launch: kernel B
+# (one sequence) and kernel C (B sequences) with the level loop that
+# klt_tpu leaves to XLA around its kernels.
+_LK_CFG = [_I, _I, _F, _F, _F, _I, _I]  # window w/h, min_displacement,
+#                      min_determinant, step_factor, max_iterations, lighting
+_LK_FRAME = [_F] * 6   # subsampling, max_residue, border x/y, limit x/y
+
+LK_PYRAMID = Kernel(
+    "klt_lk_pyramid",
+    # per-level host arrays: stacks1, stacks2 (device pointers), rows,
+    # cols; nlev, x, y, val, n, the level and frame constants,
+    # x_out, y_out, val_out, stream
+    [ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_I),
+     ctypes.POINTER(_I), _I, _P, _P, _P, _I] + _LK_CFG + _LK_FRAME +
+    [_P, _P, _P, _P],
+    source="klt_tpu_torch/csrc/lk_level.cu",
+    replaces="klt_tpu/pallas/lk2.py:55")
+
+LK_PYRAMID_BATCHED = Kernel(
+    "klt_lk_pyramid_batched",
+    # per-level host arrays: stacks1, stacks2, stride1, stride2 (floats
+    # from one sequence to the next), rows, cols; nlev, batch, x, y, val,
+    # features per sequence, the level and frame constants,
+    # x_out, y_out, val_out, stream
+    [ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_LL),
+     ctypes.POINTER(_LL), ctypes.POINTER(_I), ctypes.POINTER(_I), _I, _I,
+     _P, _P, _P, _I] + _LK_CFG + _LK_FRAME + [_P, _P, _P, _P],
+    source="klt_tpu_torch/csrc/lk_level.cu",
+    replaces="klt_tpu/pallas/lk.py:60")
+
 KERNELS = (PYRAMID, LK_LEVEL, CORNER_RESPONSE, PYRAMID_BATCHED, REPLACE_LOST,
-           LK_LEVEL_BATCHED)
+           LK_LEVEL_BATCHED, LK_PYRAMID, LK_PYRAMID_BATCHED)
+
+# The most pyramid levels a pyramid entry takes (KLT_MAX_LEVELS of
+# csrc/lk_level.cu; the library's klt_lk_max_levels() returns it).
+LK_MAX_LEVELS = 8
 
 
 def reset_launch_counts() -> None:

@@ -1,16 +1,27 @@
 """Batched pyramidal Lucas-Kanade tracking.
 
 The reference's per-feature Newton loops (_trackFeature
-src/V1/trackFeatures.c:381-486, driver KLTTrackFeatures :1234-1529).
-One pyramid level of all N features is `lk_level`, kernel B's wrapper: a
-CUDA level goes to the LK kernel (csrc/lk_level.cu, one thread per
-feature, the whole Newton loop in one launch, windows sampled straight
-from the level stacks in device memory), a CPU level to
-`lk_level_plain`, the same loop written with masked torch ops.  B
-sequences' levels ([B, 3, H, W] stacks, [B, F] features) go to kernel C
-(the same lane code over all B * F lanes in one launch) or to
-`lk_level_batched_plain`.  The coarse-to-fine level loop and the
-post-loop status checks stay in torch, one loop for both layouts.
+src/V1/trackFeatures.c:381-486, called from KLTTrackFeatures :1234-1529),
+on the kernels of csrc/lk_level.cu: kernel B replaces klt_tpu's
+pallas/lk2.py, kernel C its pallas/lk.py (the batched tier's
+[B, 3, H, W] stacks and [B, F] features).  On an H100 LK is bound by latency, the
+dependent Newton chain of a feature and the launches around it, not by
+bytes or operations, so the kernels give a feature a warp and the frame
+pair one launch.
+
+* A frame pair: `track_features_pyramid_stacks`.  On CUDA tensors it is
+  one launch of a pyramid entry (cuda/lk_level.py::lk_pyramid_cuda for
+  [3, H, W] stacks, lk_pyramid_batched_cuda for [B, 3, H, W]): the
+  division chain, the coarse-to-fine loop, each level's Newton loop and
+  status checks and the final border classification all run in the
+  kernel.  On the CPU, or with plain=True, it is
+  `track_features_pyramid_levels`, the same steps as a torch loop over the
+  levels: the plain version of the pyramid entries.
+* A level: `lk_level` (and `track_level`, which adds the status checks).
+  A CUDA level is one launch of a level entry (lk_level_cuda,
+  lk_level_batched_cuda), a CPU level `lk_level_plain` /
+  `lk_level_batched_plain`, the same Newton loop written with masked
+  torch ops.
 
 Semantics preserved exactly (the check order of klt_tpu/ops/lk.py):
 * the do/while runs >= 1 iteration and <= max_iterations updates;
@@ -27,9 +38,9 @@ Semantics preserved exactly (the check order of klt_tpu/ops/lk.py):
   gain estimates (src/V1/trackFeatures.c:133-220, including the
   mislabeled accumulators).
 
-Window sums accumulate sequentially over the window in row-major order,
-as the C loops do, in both the kernel and the plain version, so the two
-agree bit for bit on the same device inputs.
+Window sums run in the order of the kernels' warp (`_window_sum`), in the
+kernels and in the plain versions alike, so the two agree bit for bit on
+the same inputs, on the card and between the card and the CPU.
 """
 
 from __future__ import annotations
@@ -65,13 +76,28 @@ def _window_oob(x, y, hw, hh, nc, nr):
             (y - hh < 0.0) | (nr - (y + hh) < _EPS))
 
 
+WARP = 32  # threads that share a window in csrc/lk_level.cu
+
+
 def _window_sum(v: torch.Tensor) -> torch.Tensor:
-    """Sum over the last (row-major window) axis, accumulated cell by
-    cell like the reference's window loops."""
-    acc = v[..., 0]
-    for k in range(1, v.shape[-1]):
-        acc = acc + v[..., k]
-    return acc
+    """Sum over the last (row-major window) axis in the order of the LK
+    kernels, where a warp owns a window: the axis is padded with +0.0 to
+    a multiple of 32 cells; partial t starts from cell t and adds cells
+    t + 32, t + 64, ... in that order (thread t of the warp); then the 32
+    partials fold 32 -> 16 -> 8 -> 4 -> 2 -> 1, partial i + half added to
+    partial i (the warp's xor butterfly with offsets 16, 8, 4, 2, 1)."""
+    pad = -v.shape[-1] % WARP
+    if pad:
+        v = torch.nn.functional.pad(v, (0, pad))
+    chunks = v.reshape(v.shape[:-1] + (-1, WARP))
+    acc = chunks[..., 0, :]
+    for k in range(1, chunks.shape[-2]):
+        acc = acc + chunks[..., k, :]
+    half = WARP // 2
+    while half:
+        acc = acc[..., :half] + acc[..., half:]
+        half //= 2
+    return acc[..., 0]
 
 
 def _gain_bias_diff(g1, g2, area):
@@ -231,10 +257,10 @@ def _plain_level(stack):
 
 def lk_level(stack1, stack2, x1, y1, x2, y2, active, cfg: TrackingConfig,
              want_residue: bool = True):
-    """Kernels B and C's wrapper (contract of `lk_level_plain`, or with
+    """The level entries' wrapper (contract of `lk_level_plain`, or with
     [B, 3, H, W] stacks and [B, F] lanes of `lk_level_batched_plain`).
-    CUDA: one launch of kernel B, or of kernel C for B sequences.  CPU:
-    the plain version."""
+    CUDA: one launch of kernel B's level entry, or of kernel C's for B
+    sequences.  CPU: the plain version."""
     if stack1.device.type == "cuda":
         from ..cuda.lk_level import lk_level_batched_cuda, lk_level_cuda
         fn = lk_level_batched_cuda if stack1.dim() == 4 else lk_level_cuda
@@ -294,15 +320,7 @@ def track_features_pyramid(pyr1, gradx1, grady1, pyr2, gradx2, grady2,
     return track_features_pyramid_stacks(stacks1, stacks2, x, y, val, cfg)
 
 
-def track_features_pyramid_stacks(stacks1, stacks2, x, y, val,
-                                  cfg: TrackingConfig, plain: bool = False):
-    """Same driver on finest-first [3, H_l, W_l] stacks (the pyramid
-    kernel's output layout) with features [N]; or on B sequences'
-    [B, 3, H_l, W_l] stacks (the batched pyramid kernel's) with features
-    [B, N], where every lane runs as it would in its sequence alone.
-    Every step below is elementwise over the lanes, so the one loop serves
-    both.  plain=True runs every level through the plain version (see
-    `track_level`)."""
+def _check_frame_pair(stacks1, stacks2, x, cfg: TrackingConfig) -> None:
     if len(stacks1) != cfg.n_pyramid_levels or \
             len(stacks2) != cfg.n_pyramid_levels:
         raise ValueError("stacks must hold n_pyramid_levels levels")
@@ -312,6 +330,44 @@ def track_features_pyramid_stacks(stacks1, stacks2, x, y, val,
     if stacks1[0].shape[:-3] != x.shape[:-1]:
         raise ValueError(f"stacks {tuple(stacks1[0].shape)} do not fit "
                          f"features {tuple(x.shape)}")
+
+
+def track_features_pyramid_stacks(stacks1, stacks2, x, y, val,
+                                  cfg: TrackingConfig, plain: bool = False):
+    """Coarse-to-fine tracking of all features between two frames, on
+    finest-first [3, H_l, W_l] stacks (the pyramid kernel's output layout)
+    with features [N]; or on B sequences' [B, 3, H_l, W_l] stacks (the
+    batched pyramid kernel's) with features [B, N], where every lane runs
+    as it would in its sequence alone.  Returns (x_new, y_new, val_new).
+
+    CUDA stacks: one launch of kernel B's pyramid entry, or of kernel C's
+    for B sequences.  CPU stacks, or plain=True on any device:
+    `track_features_pyramid_levels`, the plain version."""
+    if not plain and len(stacks1) and stacks1[0].is_cuda:
+        # the wrapper checks what `_check_frame_pair` checks, and more
+        from ..cuda.lk_level import lk_pyramid_batched_cuda, lk_pyramid_cuda
+        fn = lk_pyramid_batched_cuda if stacks1[0].dim() == 4 \
+            else lk_pyramid_cuda
+        return fn(stacks1, stacks2, x, y, val, cfg)
+    _check_frame_pair(stacks1, stacks2, x, cfg)
+    if not plain and stacks1[0].device.type != "cpu":
+        raise ValueError(f"no LK path for device {stacks1[0].device}")
+    return track_features_pyramid_levels(stacks1, stacks2, x, y, val, cfg,
+                                         plain=plain)
+
+
+def track_features_pyramid_levels(stacks1, stacks2, x, y, val,
+                                  cfg: TrackingConfig, plain: bool = False,
+                                  stats: list | None = None):
+    """The coarse-to-fine tracker as a torch loop over the levels: the
+    plain version of the LK pyramid entries (contract of
+    `track_features_pyramid_stacks`).  Every step is elementwise over the
+    lanes, so the one loop serves [N] and [B, N] features.  Each level
+    goes through `track_level`: with plain=True its plain version on any
+    device, else the level entry of kernel B or C on CUDA stacks.  With a
+    list for `stats`, every level appends (level, lanes in the loop [..]
+    bool, iterations [..] i32)."""
+    _check_frame_pair(stacks1, stacks2, x, cfg)
     s = _f32(cfg.subsampling)
     nlev = cfg.n_pyramid_levels
     nr0, nc0 = stacks1[0].shape[-2], stacks1[0].shape[-1]
@@ -334,9 +390,11 @@ def track_features_pyramid_stacks(stacks1, stacks2, x, y, val,
         xout = torch.where(in_loop, xout * s, xout)
         yout = torch.where(in_loop, yout * s, yout)
 
-        x2, y2, st, _ = track_level(stacks1[r], stacks2[r], xloc, yloc,
-                                    xout, yout, in_loop, cfg,
-                                    want_residue=(r == 0), plain=plain)
+        x2, y2, st, iters = track_level(stacks1[r], stacks2[r], xloc, yloc,
+                                        xout, yout, in_loop, cfg,
+                                        want_residue=(r == 0), plain=plain)
+        if stats is not None:
+            stats.append((r, in_loop, iters))
 
         xout = torch.where(in_loop, x2, xout)
         yout = torch.where(in_loop, y2, yout)

@@ -394,3 +394,14 @@ def test_interop_carries_batched_state(monkeypatch):
         [jnp.asarray(s) for s in jst[0]], [jnp.asarray(s) for s in jst[1]],
         jnp.asarray(jx), jnp.asarray(jy), jnp.asarray(jv))
     assert_same_tracks(got, ref)
+
+
+@pytest.mark.parametrize("fault,message", [
+    ("cpu", "CUDA tensors"), ("shapes", "level 1 stacks must both be"),
+    ("strides", "contiguous"), ("levels", "at most 8"),
+    ("sequences", "do not fit")])
+def test_batched_pyramid_wrapper_refuses(fault, message):
+    from klt_tpu_torch.cuda.lk_level import lk_pyramid_batched_cuda
+    from test_torch_lk import pyramid_wrapper_args
+    with pytest.raises(ValueError, match=message):
+        lk_pyramid_batched_cuda(*pyramid_wrapper_args(fault, batched=True))

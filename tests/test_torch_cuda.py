@@ -20,7 +20,9 @@ import torch
 import klt_tpu_torch as kt
 from chip_smoke import batched_frames, synthetic_frames
 from klt_tpu_torch.ops.lk import (lk_level, lk_level_batched_plain,
-                                  lk_level_plain)
+                                  lk_level_plain,
+                                  track_features_pyramid_levels,
+                                  track_features_pyramid_stacks)
 from klt_tpu_torch.ops.pyramid import (build_pyramid_stacks,
                                        build_pyramid_stacks_plain)
 from klt_tpu_torch.ops.pyramid import (build_pyramid_stacks_batched,
@@ -95,6 +97,12 @@ def level_case(name, dev):
         kw = {"max_iterations": 2, "min_displacement": 1e-4}
     if name == "window_9x5":
         kw = {"window_width": 9, "window_height": 5}
+    if name.startswith("window_sq"):  # 3x3: under a warp; 15x15: 8 cells a
+        side = int(name[9:])          # thread; 17x17: the unbounded loop
+        kw = {"window_width": side, "window_height": side,
+              "search_range": side}
+    if name == "one_level":
+        kw = {"search_range": 3}
     cfg = kt.TrackingConfig(**kw)
     frames = synthetic_frames(2)
     if name == "small_det":
@@ -110,8 +118,11 @@ def level_case(name, dev):
     return cfg, st, x, y, active
 
 
-@pytest.mark.parametrize("name", ["default", "lighting", "oob", "small_det",
-                                  "max_iterations", "window_9x5"])
+LEVEL_CASES = ["default", "lighting", "oob", "small_det", "max_iterations",
+               "window_9x5", "window_sq3", "window_sq15", "window_sq17"]
+
+
+@pytest.mark.parametrize("name", LEVEL_CASES)
 def test_lk_kernel_equals_plain(name, dev):
     from klt_tpu_torch import cuda
     cfg, st, x, y, active = level_case(name, dev)
@@ -145,7 +156,7 @@ def test_lk_kernel_rejects_bad_inputs(dev):
 def test_track_sequence_kernels_equal_plain(kw, dev):
     """The whole main path: kernels on the card equal the plain versions on
     the card and on the CPU, with one pyramid launch per frame and one LK
-    launch per level and frame pair."""
+    launch per frame pair."""
     from klt_tpu_torch import cuda
     cfg = kt.TrackingConfig(sequential_mode=True, **kw)
     frames = synthetic_frames(5)
@@ -156,7 +167,7 @@ def test_track_sequence_kernels_equal_plain(kw, dev):
     cuda.reset_launch_counts()
     got = track_sequence(f.to(dev), *[a.to(dev) for a in feats], cfg)
     assert cuda.PYRAMID.launches == 5
-    assert cuda.LK_LEVEL.launches == 4 * cfg.n_pyramid_levels
+    assert (cuda.LK_PYRAMID.launches, cuda.LK_LEVEL.launches) == (4, 0)
     plain = track_sequence(f.to(dev), *[a.to(dev) for a in feats], cfg,
                            plain=True)
     assert_equal_all(got, plain)
@@ -295,15 +306,16 @@ def replace_inputs(dev, n_frames=8, scale=1, n=150):
 def test_track_sequence_replace_kernels_equal_plain(dev):
     """Kernels on the card, plain on the card and plain on the CPU, with
     and without precomp: bit-equal tables; one launch of A, of D and of R
-    per frame and of B per level (E once with precomp)."""
+    per frame and of B's pyramid entry per frame pair (E once with
+    precomp)."""
     from klt_tpu_torch import cuda
     cfg, f, feats = replace_inputs(dev)
     fd, featd = f.to(dev), [a.to(dev) for a in feats]
     cuda.reset_launch_counts()
     got = track_sequence_replace(fd, *featd, cfg)
     assert (cuda.PYRAMID.launches, cuda.CORNER_RESPONSE.launches,
-            cuda.REPLACE_LOST.launches, cuda.LK_LEVEL.launches) == \
-        (8, 7, 7, 7 * cfg.n_pyramid_levels)
+            cuda.REPLACE_LOST.launches, cuda.LK_PYRAMID.launches,
+            cuda.LK_LEVEL.launches) == (8, 7, 7, 7, 0)
     cuda.reset_launch_counts()
     pre = track_sequence_replace(fd, *featd, cfg, precomp=True)
     assert (cuda.PYRAMID.launches, cuda.PYRAMID_BATCHED.launches) == (1, 1)
@@ -395,8 +407,7 @@ def batched_level_case(name, dev):
     return cfg, st1, st2, x.to(dev), y.to(dev), active.to(dev)
 
 
-@pytest.mark.parametrize("name", ["default", "lighting", "oob", "small_det",
-                                  "max_iterations", "window_9x5", "b32"])
+@pytest.mark.parametrize("name", LEVEL_CASES + ["b32"])
 def test_batched_lk_kernel_equals_plain_and_kernel_b(name, dev):
     """Kernel C equals its plain version bit for bit, and its lane b
     equals kernel B on sequence b."""
@@ -442,8 +453,8 @@ def test_track_sequences_batched_kernels_equal_plain(kw, dev):
     """B = 5 different sequences: kernels on the card equal the plain
     versions on the card and on the CPU and, lane by lane,
     track_sequence; one kernel E launch per frame (one in all with
-    precomp) and one kernel C launch per level and step, no kernel A or
-    B launch."""
+    precomp) and one launch of kernel C's pyramid entry per step, no
+    kernel A or B launch and no level entry."""
     from klt_tpu_torch import cuda
     cfg = kt.TrackingConfig(sequential_mode=True, **kw)
     frames = batched_frames(5, 5)
@@ -463,7 +474,7 @@ def test_track_sequences_batched_kernels_equal_plain(kw, dev):
     counts = {k.symbol: k.launches for k in cuda.KERNELS}
     assert counts == {k.symbol: 0 for k in cuda.KERNELS} | {
         cuda.PYRAMID_BATCHED.symbol: t,
-        cuda.LK_LEVEL_BATCHED.symbol: (t - 1) * cfg.n_pyramid_levels}
+        cuda.LK_PYRAMID_BATCHED.symbol: t - 1}
     cuda.reset_launch_counts()
     pre = track_sequences_batched(fd, *featd, cfg, precomp=True)
     assert cuda.PYRAMID_BATCHED.launches == 1
@@ -477,3 +488,123 @@ def test_track_sequences_batched_kernels_equal_plain(kw, dev):
         assert_equal_all([g[:, i] for g in got], one)
     live = val >= 0
     assert (got[2][-1].cpu().numpy()[live] == kt.TRACKED).mean() > 0.9
+
+
+PYRAMID_CASES = LEVEL_CASES + ["one_level"]
+
+
+def pyramid_features(shape, rng):
+    """Features for a whole frame pair: most inside the 320x240 frame, a
+    few at its border and outside it, a few lost (val < 0)."""
+    x = rng.uniform(1, 318, shape).astype(np.float32)
+    y = rng.uniform(1, 238, shape).astype(np.float32)
+    val = np.where(rng.rand(*shape) > 0.1, 0, -1 - rng.randint(0, 5, shape))
+    edge = rng.rand(*shape) < 0.15  # along the border margin
+    x[edge] = rng.choice([8.0, 24.2, 295.8, 311.5, 330.0], int(edge.sum()))
+    return [torch.from_numpy(a) for a in (x, y, val.astype(np.int32))]
+
+
+@pytest.mark.parametrize("name", PYRAMID_CASES)
+def test_lk_pyramid_kernel_equals_level_loop(name, dev):
+    """Kernel B's pyramid entry (one launch per frame pair) equals the
+    torch level loop with the plain levels, on the card and on the CPU,
+    and with the level entries."""
+    from klt_tpu_torch import cuda
+    cfg, st, _, _, _ = level_case(name, dev)
+    feats = pyramid_features((256,), np.random.RandomState(8))
+    featd = [a.to(dev) for a in feats]
+    cuda.reset_launch_counts()
+    got = track_features_pyramid_stacks(st[0], st[1], *featd, cfg)
+    assert (cuda.LK_PYRAMID.launches, cuda.LK_LEVEL.launches) == (1, 0)
+    assert_equal_all(got, track_features_pyramid_stacks(
+        st[0], st[1], *featd, cfg, plain=True))
+    assert cuda.LK_LEVEL.launches == 0
+    assert_equal_all(got, track_features_pyramid_levels(st[0], st[1], *featd,
+                                                        cfg))
+    assert cuda.LK_LEVEL.launches == cfg.n_pyramid_levels
+    cpu = track_features_pyramid_stacks([s.cpu() for s in st[0]],
+                                        [s.cpu() for s in st[1]], *feats, cfg)
+    assert_equal_all([g.cpu() for g in got], cpu)
+    lost = feats[2] < 0
+    for g, a in zip(got, feats):  # lost features pass through
+        assert torch.equal(g.cpu()[lost], a[lost])
+    assert len(set(got[2].cpu()[~lost].tolist())) > 1
+    assert name == "one_level" or cfg.n_pyramid_levels > 1
+
+
+def test_lk_pyramid_kernel_level_smaller_than_window(dev):
+    """A coarse level that cannot hold the window: every live lane is OOB
+    there, at that level's scale, without sampling."""
+    cfg = kt.TrackingConfig(search_range=60)
+    assert cfg.n_pyramid_levels == 3
+    frames = synthetic_frames(2)[:, :120, :160]
+    st = [build_pyramid_stacks(torch.from_numpy(
+        np.ascontiguousarray(f)).to(dev), cfg) for f in frames]
+    assert st[0][2].shape[-2] < cfg.window_height + 1
+    feats = [a.to(dev) for a in pyramid_features(
+        (64,), np.random.RandomState(9))]
+    got = track_features_pyramid_stacks(st[0], st[1], *feats, cfg)
+    assert_equal_all(got, track_features_pyramid_stacks(
+        st[0], st[1], *feats, cfg, plain=True))
+    assert (got[2][feats[2] >= 0] == kt.OOB).all()
+
+
+@pytest.mark.parametrize("name", PYRAMID_CASES + ["b32"])
+def test_batched_lk_pyramid_kernel_equals_level_loop_and_kernel_b(name, dev):
+    """Kernel C's pyramid entry equals the torch level loop with the plain
+    levels bit for bit, its lane b equals kernel B's pyramid entry on
+    sequence b, and it takes stacks that are slices of larger ones."""
+    from klt_tpu_torch import cuda
+    cfg, st1, st2, _, _, _ = batched_level_case(name, dev)
+    b = st1[0].shape[0]
+    n = 150 if name == "b32" else 256
+    feats = pyramid_features((b, n), np.random.RandomState(10))
+    featd = [a.to(dev) for a in feats]
+    cuda.reset_launch_counts()
+    got = track_features_pyramid_stacks(st1, st2, *featd, cfg)
+    counts = {k.symbol: k.launches for k in cuda.KERNELS}
+    assert counts == {k.symbol: 0 for k in cuda.KERNELS} | {
+        cuda.LK_PYRAMID_BATCHED.symbol: 1}
+    assert_equal_all(got, track_features_pyramid_stacks(
+        st1, st2, *featd, cfg, plain=True))
+    assert_equal_all(got, track_features_pyramid_levels(st1, st2, *featd,
+                                                        cfg))
+    for i in range(b):
+        one = track_features_pyramid_stacks(
+            [s[i] for s in st1], [s[i] for s in st2],
+            *[a[i] for a in featd], cfg)
+        assert_equal_all([g[i] for g in got], one)
+    both = [torch.cat([u, v]) for u, v in zip(st1, st2)]
+    assert_equal_all(got, track_features_pyramid_stacks(
+        [s[:b] for s in both], [s[b:] for s in both], *featd, cfg))
+    if b == 3:
+        cpu = track_features_pyramid_stacks(
+            [s.cpu() for s in st1], [s.cpu() for s in st2], *feats, cfg)
+        assert_equal_all([g.cpu() for g in got], cpu)
+
+
+def test_lk_pyramid_kernels_reject_bad_inputs(dev):
+    from klt_tpu_torch.cuda.lk_level import (lk_pyramid_batched_cuda,
+                                             lk_pyramid_cuda)
+    cfg, st, _, _, _ = level_case("default", dev)
+    x, y, val = (a.to(dev) for a in pyramid_features(
+        (16,), np.random.RandomState(1)))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        lk_pyramid_cuda(st[0], st[1], x.cpu(), y, val, cfg)
+    with pytest.raises(ValueError, match="n_pyramid_levels"):
+        lk_pyramid_cuda(st[0][:1], st[1], x, y, val, cfg)
+    with pytest.raises(ValueError, match="val must be"):
+        lk_pyramid_cuda(st[0], st[1], x, y, val.long(), cfg)
+    with pytest.raises(ValueError, match="contiguous"):
+        lk_pyramid_cuda([st[0][0].transpose(1, 2).contiguous()
+                         .transpose(1, 2), st[0][1]], st[1], x, y, val, cfg)
+    with pytest.raises(ValueError, match="do not fit"):
+        lk_pyramid_batched_cuda([s[None] for s in st[0]],
+                                [s[None] for s in st[1]], x, y, val, cfg)
+    deep = kt.TrackingConfig(n_pyramid_levels=9, subsampling=2)
+    with pytest.raises(ValueError, match="at most 8"):
+        lk_pyramid_cuda([st[0][0]] * 9, [st[1][0]] * 9, x, y, val, deep)
+    empty = [a[:0] for a in (x, y, val)]
+    out = lk_pyramid_cuda(st[0], st[1], *empty, cfg)
+    assert [tuple(o.shape) for o in out] == [(0,)] * 3
+    assert out[2].dtype == torch.int32

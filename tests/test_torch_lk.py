@@ -21,7 +21,9 @@ from klt_tpu_torch.ops.lk import (track_features_pyramid,
 from chip_smoke import bilinear_warp
 from conftest import load_f32
 
-POS_TOL = 1e-3  # px; XLA sums windows in another order than C and the port
+# px; XLA sums a window in another order than the port, whose order is the
+# LK kernels' warp's (ops/lk.py::_window_sum); measured: 3.05e-5 px
+POS_TOL = 1e-3
 N_FEAT = 32
 
 
@@ -210,3 +212,131 @@ def test_plain_sqrt_is_correctly_rounded():
     got = sqrt_rn(torch.from_numpy(x)).numpy()
     np.testing.assert_array_equal(got.view(np.uint32),
                                   np.sqrt(x).view(np.uint32))
+
+
+def documented_window_sum(cells):
+    """f32 sum of a window's row-major cells in the order csrc/lk_level.cu
+    and ops/lk.py document, written out in numpy scalars: pad with +0.0 to
+    a multiple of 32 cells; partial t starts from cell t and adds cells
+    t + 32, t + 64, ...; the 32 partials fold 32 -> 16 -> ... -> 1,
+    partial i + half added to partial i."""
+    n = len(cells)
+    cell = lambda c: cells[c] if c < n else np.float32(0.0)
+    part = []
+    for t in range(32):
+        acc = cell(t)
+        for k in range(1, -(-n // 32)):
+            acc = np.float32(acc + cell(t + 32 * k))
+        part.append(acc)
+    half = 16
+    while half:
+        part = [np.float32(part[i] + part[i + half]) for i in range(half)]
+        half //= 2
+    return part[0]
+
+
+@pytest.mark.parametrize("side", [3, 7, 15])
+def test_window_sum_follows_the_documented_order(side):
+    from klt_tpu_torch.ops.lk import _window_sum
+    rng = np.random.RandomState(side)
+    # magnitudes from 1e-3 to 1e5, both signs: every order rounds its own way
+    v = (rng.normal(size=(40, side * side)) *
+         10.0 ** rng.uniform(-3, 5, (40, side * side))).astype(np.float32)
+    v[0] = -0.0  # a window of negative zeros meets the +0.0 padding
+    got = _window_sum(torch.from_numpy(v)).numpy()
+    want = np.array([documented_window_sum(row) for row in v], np.float32)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    stacked = _window_sum(torch.from_numpy(np.stack([v, 2 * v]))).numpy()
+    np.testing.assert_array_equal(stacked[0].view(np.uint32),
+                                  want.view(np.uint32))
+    # the order matters: summing cell by cell lands elsewhere on some rows
+    serial = v[:, 0].copy()
+    for k in range(1, v.shape[1]):
+        serial = serial + v[:, k]
+    assert (serial != want).any()
+
+
+@pytest.mark.parametrize("side", [3, 15])
+def test_other_window_sizes_match_xla_path(side, monkeypatch):
+    """3x3 (9 cells, under one warp) and 15x15 (225 cells, 8 per thread)
+    windows against klt_tpu's XLA path."""
+    from klt_tpu.ops.lk import track_features_pyramid_stacks as jtrack
+    _, img1, img2, x, y, val, _ = make_case("default")
+    jcfg = klt_tpu.TrackingConfig(window_width=side, window_height=side,
+                                  search_range=side)  # 2 levels, halved
+    st1 = numpy_stacks(img1, jcfg, monkeypatch)
+    st2 = numpy_stacks(img2, jcfg, monkeypatch)
+    monkeypatch.setenv("KLT_TPU_NO_PALLAS", "1")
+    ref = jax.jit(lambda a, b, *f: jtrack(list(a), list(b), *f, jcfg))(
+        [jnp.asarray(s) for s in st1], [jnp.asarray(s) for s in st2],
+        jnp.asarray(x), jnp.asarray(y), jnp.asarray(val))
+    cfg = config_from_fields(dataclasses.asdict(jcfg))
+    ours = track_features_pyramid_stacks(stacks_from_numpy(st1),
+                                         stacks_from_numpy(st2),
+                                         *features_from_numpy(x, y, val), cfg)
+    ours = [o.numpy() for o in ours]
+    ref = [np.asarray(r) for r in ref]
+    np.testing.assert_array_equal(ours[2], ref[2])
+    np.testing.assert_allclose(ours[0], ref[0], rtol=0, atol=POS_TOL)
+    np.testing.assert_allclose(ours[1], ref[1], rtol=0, atol=POS_TOL)
+    # the 15x15 window's border leaves few of the 64x80 crop's features
+    assert (ours[2] == TRACKED).sum() >= 3
+
+
+def test_level_loop_is_the_cpu_path_and_reports_its_work(monkeypatch):
+    """On the CPU track_features_pyramid_stacks is the torch level loop,
+    the plain version of the LK pyramid kernels; with `stats` the loop
+    reports each level's lanes and iterations."""
+    from klt_tpu_torch.ops.lk import track_features_pyramid_levels
+    kw, img1, img2, x, y, val, _ = make_case("oob")
+    jcfg = klt_tpu.TrackingConfig(**kw)
+    cfg = config_from_fields(dataclasses.asdict(jcfg))
+    st1 = stacks_from_numpy(numpy_stacks(img1, jcfg, monkeypatch))
+    st2 = stacks_from_numpy(numpy_stacks(img2, jcfg, monkeypatch))
+    feats = features_from_numpy(x, y, val)
+    stats = []
+    a = track_features_pyramid_stacks(st1, st2, *feats, cfg)
+    b = track_features_pyramid_levels(st1, st2, *feats, cfg, stats=stats)
+    c = track_features_pyramid_stacks(st1, st2, *feats, cfg, plain=True)
+    for u, v, w in zip(a, b, c):
+        assert torch.equal(u, v) and torch.equal(u, w)
+    assert [s[0] for s in stats] == [1, 0]  # coarsest level first
+    coarse, fine = stats[0][1], stats[1][1]
+    assert coarse.sum() == (val >= 0).sum()
+    assert fine.sum() < coarse.sum()  # lanes OOB at level 1 left the loop
+    assert (stats[1][2][fine] >= 1).all() and (stats[1][2][~fine] == 0).all()
+
+
+def pyramid_wrapper_args(fault, batched=False):
+    """Inputs of an LK pyramid wrapper with one fault."""
+    lead = (2,) if batched else ()
+    kw = {}
+    shapes = [(3, 40, 48), (3, 10, 12)]
+    if fault == "levels":
+        kw = {"n_pyramid_levels": 9, "subsampling": 2}
+        shapes = [(3, 8, 8)] * 9
+    cfg = config_from_fields(dataclasses.asdict(klt_tpu.TrackingConfig(**kw)))
+    st1 = [torch.zeros(lead + s) for s in shapes]
+    st2 = [torch.zeros(lead + s) for s in shapes]
+    if fault == "shapes":
+        st2[1] = torch.zeros(lead + (3, 10, 13))
+    if fault == "strides":
+        st1[0] = torch.zeros(lead + (3, 48, 40)).transpose(-1, -2)
+        assert st1[0].shape == st2[0].shape
+    x = torch.full(lead + (4,), 10.0)
+    val = torch.zeros(lead + (4,), dtype=torch.int32)
+    if fault == "sequences":
+        x = torch.full((3, 4), 10.0)
+    if fault == "dtype":
+        val = val.long()
+    return st1, st2, x, x.clone(), val, cfg
+
+
+@pytest.mark.parametrize("fault,message", [
+    ("cpu", "CUDA tensors"), ("shapes", "level 1 stacks must both be"),
+    ("strides", "contiguous"), ("levels", "at most 8"),
+    ("dtype", "val must be")])
+def test_pyramid_wrapper_refuses(fault, message):
+    from klt_tpu_torch.cuda.lk_level import lk_pyramid_cuda
+    with pytest.raises(ValueError, match=message):
+        lk_pyramid_cuda(*pyramid_wrapper_args(fault))

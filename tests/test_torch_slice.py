@@ -20,7 +20,9 @@ from klt_tpu_torch.interop import config_from_fields, features_from_numpy
 from klt_tpu_torch.runtime.pipeline import (prepare_pyramids,
                                             track_pair_carry, track_sequence)
 
-POS_TOL = 1e-3  # px; XLA sums windows in another order than C and the port
+# px; XLA sums a window in another order than the port, whose order is the
+# LK kernels' warp's (ops/lk.py::_window_sum); measured: 3.05e-5 px
+POS_TOL = 1e-3
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
