@@ -3,8 +3,10 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from klt_tpu_torch/csrc (one nvcc per source, in
-parallel), holds each against its plain torch version on the card, then
-drives the port's main paths:
+parallel), holds each against its plain torch version on the card (the
+pyramid and replacement kernels also on adversarial configurations, sizes
+and states: pyramid_cases, replace_cases), then drives the port's main
+paths:
 
 * tracking (the reference's example3 flow: select features on frame 0,
   track them in sequential mode, write the feature table) at 320x240 with
@@ -179,6 +181,80 @@ def provided_frames():
         return None
     return np.stack([read_pgm(os.path.join(d, f"img{i}.pgm"))
                      for i in range(10)])
+
+
+# ------------------------------------------------------------------ #
+# adversarial inputs of kernels R, A and E                             #
+# ------------------------------------------------------------------ #
+
+def replace_cases():
+    """Adversarial states of kernel R beside the tracked ones: (name,
+    TrackingConfig keywords, response f32 [H, W], x, y f32 [N], val i32
+    [N]), made from a seed.  The response takes few distinct values, with
+    fractions to truncate, so equal maxima lie in different 32x32 tiles and
+    rows; features sit on tile corners, on the map's borders and outside
+    it, so squares cross both."""
+    rng = np.random.RandomState(11)
+    small = {"borderx": 0, "bordery": 0}  # candidates up to the window margin
+
+    def state(hw, n, lost_share, levels=4):
+        h, w = hw
+        resp = (rng.randint(-1, levels, hw) * 40 +
+                rng.uniform(0.0, 0.99, hw)).astype(np.float32)
+        x = rng.uniform(-3.0, w + 2.0, n).astype(np.float32)
+        y = rng.uniform(-3.0, h + 2.0, n).astype(np.float32)
+        k = n // 3  # on tile corners and on the map's edges
+        x[:k] = rng.choice([0.0, 31.6, 32.0, 63.9, 64.2, w - 1.0], k)
+        y[:k] = rng.choice([0.3, 31.0, 32.5, 63.0, 64.9, h - 1.0], k)
+        val = rng.randint(0, 500, n).astype(np.int32)
+        lost = rng.rand(n) < lost_share
+        val[lost] = rng.randint(-5, 0, int(lost.sum()))
+        return resp, x, y, val
+
+    return [
+        ("ties, a map that is no multiple of the tile", {},
+         *state((251, 333), 160, 0.4)),
+        ("squares across tile corners and map borders", small,
+         *state((96, 128), 90, 0.5)),
+        ("all slots lost", small, *state((64, 80), 60, 1.0)),
+        ("more lost slots than candidates", small,
+         *state((40, 50), 80, 0.9)),
+        ("mindist 1", {"mindist": 1, **small}, *state((70, 90), 120, 0.5)),
+        ("mindist larger than a tile", {"mindist": 40, **small},
+         *state((251, 333), 100, 0.6)),
+        ("n_skipped_pixels 2", {"n_skipped_pixels": 2, **small},
+         *state((100, 130), 80, 0.5)),
+        ("a map smaller than a tile", {"mindist": 4, **small},
+         *state((20, 27), 24, 0.5)),
+        ("a high floor", {"min_eigenvalue": 81, **small},
+         *state((64, 80), 50, 0.6)),
+        ("no slot lost", small, *state((64, 80), 40, 0.0)),
+        ("no slot at all", small, *state((64, 80), 0, 0.0)),
+    ]
+
+
+def pyramid_cases():
+    """Configurations and frame sizes of kernels A and E beside the main
+    paths': (name, TrackingConfig keywords, (rows, cols))."""
+    return [
+        ("default", {}, (240, 320)),
+        ("default, enough tiles for tall ones", {}, (480, 640)),
+        ("3 levels, subsampling 2",
+         {"n_pyramid_levels": 3, "subsampling": 2}, (240, 320)),
+        ("wide taps, 3 levels of subsampling 8",
+         {"search_range": 60, "window_width": 9}, (240, 320)),
+        ("wide taps that no tile holds (global-memory decimation)",
+         {"n_pyramid_levels": 2, "subsampling": 16,
+          "pyramid_sigma_fact": 0.5}, (240, 320)),
+        ("an odd-sized frame", {}, (251, 333)),
+        ("a frame smaller than a tile plus halo", {}, (20, 27)),
+        ("gradient taps of two widths", {"grad_sigma": 0.9}, (64, 80)),
+    ]
+
+
+def noise_frames(n: int, hw, seed: int) -> np.ndarray:
+    """uint8 [n, rows, cols] of uniform noise."""
+    return np.random.RandomState(seed).randint(0, 256, (n, *hw), np.uint8)
 
 
 # ------------------------------------------------------------------ #
@@ -372,7 +448,9 @@ def phase_build(card: str) -> None:
     # ptxas' report, one line per kernel: registers, stack and spills
     name = None
     lk = ("lk_level_batched_kernel", "lk_pyramid_batched_kernel",
-          "lk_level_kernel", "lk_pyramid_kernel")
+          "lk_level_kernel", "lk_pyramid_kernel", "pyramid_tiles",
+          "hpass_global", "vpass_global", "replace_lost", "hsum_products",
+          "vsum_eigen")
     for line in cuda.build_log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
@@ -408,6 +486,47 @@ def phase_pyramid(frames_by_size, cfg, errs) -> None:
                   f"grady {diffs[2]:.3g}")
             check(max(diffs) <= 1e-3, f"kernel A differs from plain by "
                   f"{max(diffs)} at level {lvl}")
+
+
+def phase_pyramid_cases(errs_a, errs_e) -> None:
+    """Kernels A and E on the configurations and sizes of pyramid_cases
+    (tall and flat tiles, three levels, wide taps, the global-memory
+    decimation, odd and tiny frames, two gradient widths), noise frames:
+    the bits of the plain version, and E image by image equal to A."""
+    lib = cuda.load_library()
+    for name, kw, hw in pyramid_cases():
+        cfg = klt.TrackingConfig(**kw)
+        n_pyr = len(gaussian_kernels(cfg.pyramid_sigma)[0])
+        untiled = bool(lib.klt_pyramid_needs_scratch(
+            cfg.n_pyramid_levels, cfg.subsampling, n_pyr))
+        imgs = torch.from_numpy(noise_frames(3, hw, 21)).cuda()
+        got = build_pyramid_stacks_batched_cuda(imgs, cfg)
+        ref = build_pyramid_stacks_batched_plain(imgs, cfg)
+        single = [build_pyramid_stacks_cuda(im, cfg) for im in imgs]
+        torch.cuda.synchronize()
+        err_e = max((a - b).abs().max().item() for a, b in zip(got, ref))
+        err_a = max((s[lvl] - r[i]).abs().max().item()
+                    for i, s in enumerate(single) for lvl, r in enumerate(ref))
+        bits = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(got, ref))
+        same_a = all(torch.equal(g[i], s[lvl]) for i, s in enumerate(single)
+                     for lvl, g in enumerate(got))
+        errs_a.append(err_a)
+        errs_e.append(err_e)
+        print(f"[2, 8 kernels A, E] {name}: 3 frames of {hw[1]}x{hw[0]}, "
+              f"levels {[tuple(g.shape[2:]) for g in got]}, taps "
+              f"{len(gaussian_kernels(cfg.smooth_sigma)[0])} / "
+              f"{[len(t) for t in gaussian_kernels(cfg.grad_sigma)]} / "
+              f"{n_pyr}, decimation "
+              f"{'by the global-memory passes' if untiled else 'tiled'}: max "
+              f"|A - plain| {err_a:.3g}, max |E - plain| {err_e:.3g}, the "
+              f"plain version's bits: {bits}, E image by image equal to A: "
+              f"{same_a}")
+        check(err_a == 0 and err_e == 0 and bits and same_a and
+              all(torch.isfinite(g).all().item() for g in got),
+              f"kernel A or E differs from the plain version ({name})")
+        check(untiled == ("no tile" in name),
+              f"unexpected choice of decimation path ({name})")
 
 
 def level_inputs(fl, cfg, r):
@@ -584,7 +703,7 @@ def phase_times(card, frames_by_size, cfg, n_feats, times, per_step):
 
         img = dev_frames[1]
         a_ms, a_host = kernel_times(
-            lambda: build_pyramid_stacks_cuda(img, cfg), 100, launches=8)
+            lambda: build_pyramid_stacks_cuda(img, cfg), 100, launches=3)
         a_plain = cuda_ms(lambda: build_pyramid_stacks_plain(img, cfg), 20)
         a_bound = bound(*pyramid_work(img, cfg))
         st1 = build_pyramid_stacks_cuda(dev_frames[0], cfg)
@@ -698,6 +817,37 @@ def phase_replace_kernel(frames_by_size, n_feats, cfg, errs) -> None:
         check((lost & (v > 0)).any(), "kernel R refilled no slot")
         check(not ((v < 0) & (v != klt.NOT_FOUND)).any(),
               "a slot left lost is not NOT_FOUND")
+
+
+def phase_replace_cases(errs) -> None:
+    """Kernel R against its plain version on the adversarial states of
+    replace_cases."""
+    for name, kw, resp, x, y, val in replace_cases():
+        cfg = klt.TrackingConfig(**kw)
+        respd = torch.from_numpy(resp).cuda()
+        outs = []
+        for fn in (replace_lost_cuda_, replace_lost_plain_):
+            state = [torch.from_numpy(a.copy()).cuda() for a in (x, y, val)]
+            fn(respd, *state, cfg)
+            outs.append(state)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(*outs))
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(*outs)) if len(val) else 0.0
+        v = outs[0][2].cpu().numpy()
+        lost = val < 0
+        errs.append(err)
+        print(f"[9 kernel R] {name}: {resp.shape[1]}x{resp.shape[0]} map, "
+              f"mindist {cfg.mindist}, {len(val)} slots, {int(lost.sum())} "
+              f"lost: {int((lost & (v > 0)).sum())} refilled, "
+              f"{int((lost & (v == klt.NOT_FOUND)).sum())} left NOT_FOUND; "
+              f"x, y, val equal to the plain version: {same}")
+        check(same and err == 0, f"kernel R differs from its plain version "
+              f"({name})")
+        check(not ((v < 0) & (v != klt.NOT_FOUND)).any(),
+              "a slot left lost is not NOT_FOUND")
+        check(name.startswith("no slot") == (not (lost & (v > 0)).any()),
+              f"unexpected refills ({name})")
 
 
 def tracker_replace_loop(frames, fl, cfg, table=None):
@@ -955,21 +1105,21 @@ def phase_replace_times(card, frames, n_feats, cfg, times,
     d_bound = bound(*response_work(rows, cols, cfg))
     batch = dev_frames[1:1 + PRECOMP_FRAMES]
     e_ms, e_host = kernel_times(
-        lambda: build_pyramid_stacks_batched_cuda(batch, cfg), 20, launches=8)
+        lambda: build_pyramid_stacks_batched_cuda(batch, cfg), 20, launches=3)
     e_plain = cuda_ms(lambda: build_pyramid_stacks_batched_plain(batch, cfg),
                       2)
     e_bound = bound(*pyramid_work(batch, cfg, len(batch)))
     a_ms, _ = kernel_times(lambda: build_pyramid_stacks_cuda(batch[0], cfg),
-                           100, launches=8)
+                           100, launches=3)
     lost, resp = lost_state(frames, n_feats, cfg, 5)
     state = [torch.from_numpy(a).cuda() for a in (lost.x, lost.y, lost.val)]
     fresh = lambda: [a.clone() for a in state]
     clone_ms, _ = kernel_times(fresh, 100, launches=3)
     r_ms, r_host = kernel_times(
-        lambda: replace_lost_cuda_(resp, *fresh(), cfg), 100, launches=8)
+        lambda: replace_lost_cuda_(resp, *fresh(), cfg), 100, launches=4)
     r_plain = cuda_ms(lambda: replace_lost_plain_(resp, *fresh(), cfg), 5)
     r0_ms, _ = kernel_times(lambda: replace_lost_cuda_(resp, *feats, cfg),
-                            100, launches=4)
+                            100)
     n_lost = int((lost.val < 0).sum())
     r_bound = bound(*replace_work(rows, cols, n_feats, n_lost))
     us = lambda ms: f"{ms * 1e3:.1f}"
@@ -992,10 +1142,16 @@ def phase_replace_times(card, frames, n_feats, cfg, times,
                        "bound_by": bnd[1]}
 
 
-def profile_device(run, steps: int, tag: str, label: str, groups) -> None:
+PYRAMID_KERNELS = ("pyramid_tiles", "hpass_global", "vpass_global")
+
+
+def profile_device(run, steps: int, tag: str, label: str, groups,
+                   expect=None) -> None:
     """torch.profiler over run() (after one warm-up run): device busy
     share of the wall time, and each group of kernels' share of device
-    time; groups maps a name to the kernel-name substrings it covers."""
+    time; groups maps a name to the kernel-name substrings it covers,
+    expect a group's name to the device launches the run must make of
+    it."""
     from torch.profiler import ProfilerActivity, profile
     run()
     torch.cuda.synchronize()
@@ -1022,9 +1178,14 @@ def profile_device(run, steps: int, tag: str, label: str, groups) -> None:
         keys = keys if isinstance(keys, tuple) else (keys,)
         mine = [k for k in dev_us if any(s in k for s in keys)]
         us = sum(dev_us[k] for k in mine)
-        ours += sum(dev_n[k] for k in mine)
+        n_mine = sum(dev_n[k] for k in mine)
+        ours += n_mine
         covered += us
-        shares.append(f"{name} {us / total:.3f} ({us / steps:.1f} us/step)")
+        shares.append(f"{name} {us / total:.3f} ({us / steps:.1f} us/step, "
+                      f"{n_mine} device launches)")
+        want = (expect or {}).get(name)
+        check(want is None or n_mine == want, f"{name}: {n_mine} device "
+              f"launches, expected {want}")
     print(f"[{tag}] {label}, {steps} steps (profiler on): wall "
           f"{wall * 1e6 / steps:.1f} us per step, device busy "
           f"{total / (wall * 1e6):.3f} of the wall time "
@@ -1053,7 +1214,12 @@ def phase_profile(frames, n_feats, cfg) -> None:
          "kernel D (hsum_products, vsum_eigen)": ("hsum_products",
                                                   "vsum_eigen"),
          "kernel B (lk_pyramid_kernel)": "lk_pyramid_kernel",
-         "kernel A (hpass, vpass)": ("hpass", "vpass")})
+         "kernel A (pyramid_tiles)": PYRAMID_KERNELS},
+        # one launch of R a step; the pre-smoothing and one launch per level
+        # for each frame's pyramid
+        expect={"kernel R (replace_lost)": len(frames) - 1,
+                "kernel A (pyramid_tiles)":
+                    len(frames) * (1 + cfg.n_pyramid_levels)})
 
 
 def phase_profile_tracking(frames, n_feats, cfg) -> None:
@@ -1068,7 +1234,9 @@ def phase_profile_tracking(frames, n_feats, cfg) -> None:
         f"track_sequence of {frames.shape[2]}x{frames.shape[1]}, "
         f"{int((fl.val >= 0).sum())} features",
         {"kernel B (lk_pyramid_kernel)": "lk_pyramid_kernel",
-         "kernel A (hpass, vpass)": ("hpass", "vpass")})
+         "kernel A (pyramid_tiles)": PYRAMID_KERNELS},
+        expect={"kernel A (pyramid_tiles)":
+                len(frames) * (1 + cfg.n_pyramid_levels)})
 
 
 # ------------------------------------------------------------------ #
@@ -1314,7 +1482,16 @@ def phase_batched_times(card, cases, cfg, times, per_step) -> None:
                   *[a[i] for a in featd], cfg) for i in range(b)]
         b_ms, _ = kernel_times(
             lambda: [lk_pyramid_cuda(*a) for a in pairs], 10, launches=b)
+        e_batch = dev_frames[:, 1].contiguous()
+        e_ms, e_host = kernel_times(
+            lambda: build_pyramid_stacks_batched_cuda(e_batch, cfg), 50,
+            launches=3)
+        e_bound = bound(*pyramid_work(e_batch, cfg, b))
         us = lambda ms: f"{ms * 1e3:.1f}"
+        print(f"[18 times] {card} | {size}, kernel E on one frame index of "
+              f"all {b} sequences, device us per call (bound; host enqueue): "
+              f"{us(e_ms)} ({us(e_bound[0])} by {e_bound[1]}; {us(e_host)})",
+              flush=True)
         print(f"[18 times] {card} | {size}, {int(args[6].sum())} live of "
               f"{args[2].numel()} lanes, device us per call (bound; host "
               f"enqueue; plain version on the card): kernel C level entry, "
@@ -1342,7 +1519,9 @@ def phase_batched_profile(frames, feats, cfg) -> None:
         f"track_sequences_batched, {b} sequences of "
         f"{frames.shape[3]}x{frames.shape[2]}",
         {"kernel C (lk_pyramid_batched_kernel)": "lk_pyramid_batched_kernel",
-         "kernel E (hpass, vpass)": ("hpass", "vpass")})
+         "kernel E (pyramid_tiles)": PYRAMID_KERNELS},
+        expect={"kernel E (pyramid_tiles)":
+                t_len * (1 + cfg.n_pyramid_levels)})
 
 
 # ------------------------------------------------------------------ #
@@ -1524,6 +1703,9 @@ def main() -> int:
     errs = {k.symbol: [] for k in cuda.KERNELS}
     with phase("2 kernel A"):
         phase_pyramid((qvga, vga), cfg, errs[cuda.PYRAMID.symbol])
+    with phase("2, 8 kernels A, E, configurations"):
+        phase_pyramid_cases(errs[cuda.PYRAMID.symbol],
+                            errs[cuda.PYRAMID_BATCHED.symbol])
     with phase("3 kernel B"):
         phase_lk((qvga, vga), (cfg, lighting), (150, 2000),
                  errs[cuda.LK_LEVEL.symbol])
@@ -1536,6 +1718,7 @@ def main() -> int:
     with phase("9 kernel R"):
         phase_replace_kernel((qvga, vga), (150, 500), cfg,
                              errs[cuda.REPLACE_LOST.symbol])
+        phase_replace_cases(errs[cuda.REPLACE_LOST.symbol])
 
     with phase("15 kernel C"):
         phase_batched_lk(((flag_b, flag_feats), (real_b, real_feats)),

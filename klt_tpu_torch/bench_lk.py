@@ -1,4 +1,4 @@
-"""Times of the LK kernels inside the sequence entry points, on one GPU.
+"""Times of the kernels inside the sequence entry points, on one GPU.
 
     python3 -m klt_tpu_torch.bench_lk [--tag NAME] [--reps N]
                                       [--wrapper-only]
@@ -7,8 +7,16 @@ run from the root of a checkout (it takes its synthetic frames from
 chip_smoke.py).  For each cell it prints one JSON line: frames/s and wall
 per step of the entry point (host clock around synchronised runs, median
 of --reps), and from one torch.profiler run the device time per step of
-the LK kernels and of everything else, the device launches per step, and
-the device-busy share of the wall time.
+the LK kernels, of the pyramid kernels (A, E), of the replacement (R) and
+the corner response (D) and of everything else, the device launches per
+step, and the device-busy share of the wall time.
+
+Then one JSON line of device us per call of kernels A, E and R alone
+(CUDA events around back-to-back calls with the host enqueued ahead):
+A at 320x240 and 640x480, E at 32 x 320x240 and 64 x 640x480, R at
+640x480 with 500 slots on a tracked state with lost slots and on one with
+none; and, from torch.profiler, the device us of each launch of one call
+of A and of E, in order.
 
 A last JSON line gives the host's cost of enqueueing one frame pair at
 640x480 (clock around a tight loop of calls, nothing awaited): the LK
@@ -32,6 +40,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -63,6 +72,11 @@ def profile(run, steps: int) -> dict:
         wall = time.perf_counter() - t0
     lk_us = all_us = 0.0
     lk_n = all_n = 0
+    groups = {"pyramid": ("hpass", "vpass", "pyramid_tiles"),
+              "replace": ("replace_lost",),
+              "response": ("hsum_products", "vsum_eigen")}
+    group_us = dict.fromkeys(groups, 0.0)
+    group_n = dict.fromkeys(groups, 0)
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0))
@@ -73,8 +87,17 @@ def profile(run, steps: int) -> dict:
         if "lk_" in ev.key:
             lk_us += us
             lk_n += ev.count
+        for name, keys in groups.items():
+            if any(k in ev.key for k in keys):
+                group_us[name] += us
+                group_n[name] += ev.count
+    per_group = {}
+    for name in groups:
+        per_group[f"{name}_device_us_per_step"] = group_us[name] / steps
+        per_group[f"{name}_launches_per_step"] = group_n[name] / steps
     return {"lk_device_us_per_step": lk_us / steps,
             "lk_launches_per_step": lk_n / steps,
+            **per_group,
             "other_device_us_per_step": (all_us - lk_us) / steps,
             "other_launches_per_step": (all_n - lk_n) / steps,
             "device_busy_share_profiled": all_us / (wall * 1e6),
@@ -142,6 +165,63 @@ def wrapper_costs(cfg, tag: str, card: str) -> None:
         "table row copy": host_us(copy_row)}}), flush=True)
 
 
+def launch_times(fn) -> list:
+    """[kernel name, device us] of every launch of one fn(), in order."""
+    from torch.profiler import ProfilerActivity, profile as prof_ctx
+    fn()
+    torch.cuda.synchronize()
+    with prof_ctx(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = sorted((e.time_range.start, e.name, getattr(
+        e, "device_time", getattr(e, "cuda_time", 0.0)))
+        for e in prof.events() if "CUDA" in str(e.device_type))
+    short = lambda name: (re.findall(r"(\w+)\(", name) or [name[:40]])[0]
+    return [[short(name), round(us, 1)] for _, name, us in evs]
+
+
+def kernel_costs(cfg, tag: str, card: str) -> None:
+    """Device us per call of kernels A, E and R alone."""
+    from chip_smoke import kernel_times, lost_state
+    from klt_tpu_torch.cuda.pyramid import (
+        build_pyramid_stacks_batched_cuda, build_pyramid_stacks_cuda)
+    from klt_tpu_torch.cuda.replace import replace_lost_cuda_
+    qvga = torch.from_numpy(batched_frames(32, 1)[:, 0]).cuda()
+    frames = synthetic_frames(65, scale=2)
+    vga = torch.from_numpy(frames).cuda()
+    us = lambda fn, reps: round(kernel_times(fn, reps, launches=8)[0] * 1e3,
+                                2)
+    out = {
+        "A 320x240": us(lambda: build_pyramid_stacks_cuda(qvga[0], cfg), 100),
+        "A 640x480": us(lambda: build_pyramid_stacks_cuda(vga[1], cfg), 100),
+        "E 32 x 320x240": us(
+            lambda: build_pyramid_stacks_batched_cuda(qvga, cfg), 50),
+        "E 64 x 640x480": us(
+            lambda: build_pyramid_stacks_batched_cuda(vga[1:], cfg), 20)}
+    lost, resp = lost_state(frames, 500, cfg, 5)
+    state = [torch.from_numpy(a).cuda() for a in (lost.x, lost.y, lost.val)]
+    live = [torch.from_numpy(a).cuda() for a in select(frames[0], 500, cfg)]
+    fresh = lambda: [a.clone() for a in state]
+    n_lost = int((lost.val < 0).sum())
+    out[f"R 640x480, {n_lost} of 500 lost, input copies included"] = us(
+        lambda: replace_lost_cuda_(resp, *fresh(), cfg), 100)
+    out["the input copies"] = us(fresh, 100)
+    out["R 640x480, no slot lost"] = us(
+        lambda: replace_lost_cuda_(resp, *live, cfg), 100)
+    per_launch = {
+        "A 320x240": launch_times(
+            lambda: build_pyramid_stacks_cuda(qvga[0], cfg)),
+        "A 640x480": launch_times(
+            lambda: build_pyramid_stacks_cuda(vga[1], cfg)),
+        "E 32 x 320x240": launch_times(
+            lambda: build_pyramid_stacks_batched_cuda(qvga, cfg)),
+        "E 64 x 640x480": launch_times(
+            lambda: build_pyramid_stacks_batched_cuda(vga[1:], cfg))}
+    print(json.dumps({"tag": tag, "card": card, "device_us_per_call": out,
+                      "device_us_per_launch": per_launch}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tag", default="this")
@@ -187,6 +267,7 @@ def main() -> int:
         measure(f"{name}, {int((feats[2] >= 0).sum())} live",
                 lambda: track_sequences_batched(f, *featd, cfg), t - 1, b,
                 args.reps, args.tag, card)
+    kernel_costs(cfg, args.tag, card)
     wrapper_costs(cfg, args.tag, card)
     return 0
 

@@ -21,29 +21,61 @@
 // were lost, so a frame loop that runs this after each track step never
 // waits for the device.
 //
-// What bounds it on an H100: latency of a serial loop.  Each pick depends
-// on the previous one's stamp, so the picks run one after another, and
-// each scans the whole map (307,200 ints at 640x480, 300 loads a thread).
+// What bounds it on an H100: latency of a serial chain.  Each pick depends
+// on the previous one's stamp, so the picks run one after another; what
+// can be cut is the length of a link and everything around the chain.
 //
-// What the design does about it: a frame with no lost slot returns at
-// once; otherwise one block of 1024 threads does all of it, so steps are
-// separated by __syncthreads and never by a launch or a host round trip;
-// the argmax is a strided scan per thread (lowest index kept on ties), a
-// warp shuffle reduction and one across the 32 warps.
-// Compacting the candidates once, so that a pick scans only what is left,
-// is left to a later change.
+// What the design does about it: a hierarchy of 32x32 tiles.
+//   * First pass, one block of 256 threads per tile over the whole card:
+//     the block filters the features whose square meets its tile into
+//     shared memory, forms its 1024 masked cells (four a thread, no
+//     division), kills those inside a listed square, writes them to the
+//     map and reduces them to the tile's best (value, lowest flat index).
+//     No block waits for another.
+//   * The block that finishes last (a ticket: __threadfence, then one
+//     atomicAdd per block) runs the greedy loop alone, with the tiles'
+//     bests in its shared memory.  A pick is the argmax over those, the
+//     stamp of its square, and a rescan by the whole block of only those
+//     tiles the square meets whose best was killed, up to 2x2 tiles at a
+//     time: their loads (one a thread per four rows of a tile, all leaving
+//     before one is used; a cell inside the new square needs none), the
+//     stamp's stores and the search for the next lost slot are under way
+//     together, so a link of the chain is one trip to L2 and four
+//     barriers, and the loop runs once per lost slot, never once more.
+//     (One warp alone, with no barrier at all, was slower: a single warp
+//     cannot issue fast enough.)
+//   * A cell's position travels as (row << 16 | column): the order of the
+//     flat index, without its division.  (value, position) with the lower
+//     position winning at equal value is a total order, inside a tile and
+//     across tiles, so the picks are those of an argmax over the flat map
+//     whatever the tile size.
+//   * A frame with no lost slot leaves every block at once, before any
+//     ticket is taken: half of the frames of a tracking run.
+// One launch, not a cooperative launch (its grid sync needs all blocks
+// resident at once and would keep them spinning through the chain) and not
+// two launches (the second would be paid on every frame, lost slot or
+// not).
 
 #include <cuda_runtime.h>
+#include <limits.h>
 
 #define KLT_NOT_FOUND (-1)
 
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kTile = 32;     // a tile is kTile x kTile cells; a warp is a row
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kCells = kTile / kWarps;  // cells a thread: rows warp + 8*q
+constexpr int kGroup = 4;               // tiles scanned again at a time: 2x2
+// the greedy block keeps every tile's best in shared memory
+constexpr int kMaxTiles = 25000;
+
+// A cell's position as one int that orders like its flat index.
+__device__ __forceinline__ int pack(int y, int x) { return (y << 16) | x; }
 
 // (v, i) becomes the better of itself and (ov, oi): the larger value, the
-// lower index on ties.
+// lower position on ties.
 __device__ __forceinline__ void keep_best(int& v, int& i, int ov, int oi) {
   if (ov > v || (ov == v && oi < i)) {
     v = ov;
@@ -51,134 +83,323 @@ __device__ __forceinline__ void keep_best(int& v, int& i, int ov, int oi) {
   }
 }
 
+// Every thread of the warp ends with the warp's best.
 __device__ __forceinline__ void warp_best(int& v, int& i) {
   for (int off = 16; off > 0; off >>= 1) {
-    const int ov = __shfl_down_sync(0xffffffffu, v, off);
-    const int oi = __shfl_down_sync(0xffffffffu, i, off);
+    const int ov = __shfl_xor_sync(0xffffffffu, v, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
     keep_best(v, i, ov, oi);
   }
 }
 
-// Kill the (2*stamp+1)^2 square around (cx, cy), clipped to the map;
-// the block's threads share the cells.
-__device__ __forceinline__ void stamp_square(int* map, int rows, int cols,
-                                             int cx, int cy, int stamp) {
-  const int side = 2 * stamp + 1;
-  for (int c = threadIdx.x; c < side * side; c += blockDim.x) {
-    const int px = cx - stamp + c % side, py = cy - stamp + c / side;
-    if (px >= 0 && px < cols && py >= 0 && py < rows)
-      map[(size_t)py * cols + px] = -1;
+// The block's best of one (v, i) per thread, in every thread.  s_v, s_i:
+// kWarps ints each; ends with a barrier after the last read.
+__device__ __forceinline__ void block_best(int& v, int& i, int* s_v,
+                                           int* s_i) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  warp_best(v, i);
+  if (lane == 0) {
+    s_v[warp] = v;
+    s_i[warp] = i;
+  }
+  __syncthreads();
+  v = lane < kWarps ? s_v[lane] : -1;
+  i = lane < kWarps ? s_i[lane] : INT_MAX;
+  warp_best(v, i);
+  __syncthreads();
+}
+
+struct Args {
+  const float* resp;
+  int rows, cols;
+  float* x;
+  float* y;
+  int* val;
+  int n;
+  int borderx, bordery, step, floor_v, stamp;
+  int* map;      // [rows, cols]
+  int* tile_v;   // [tiles_y * tiles_x] each tile's best value
+  int* tile_i;   // and its packed position
+  int* ticket;   // one int, 0 on entry and on exit
+};
+
+// Steps 1 and 2 on this block's tile, and the tile's best.
+__device__ __forceinline__ void build_tile(const Args& a, int* s_v, int* s_i,
+                                           int* s_cx, int* s_cy, int* s_cnt) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tx0 = blockIdx.x * kTile, ty0 = blockIdx.y * kTile;
+  const int px = tx0 + lane;
+
+  // live features whose square meets the tile, a block's worth at a time
+  bool killed[kCells] = {};
+  for (int base = 0; base < a.n; base += kThreads) {
+    const int f = base + tid;
+    if (f < a.n && a.val[f] >= 0) {
+      const int cx = (int)a.x[f], cy = (int)a.y[f];
+      if (cx >= 0 && cx < a.cols && cy >= 0 && cy < a.rows &&
+          cx >= tx0 - a.stamp && cx <= tx0 + kTile - 1 + a.stamp &&
+          cy >= ty0 - a.stamp && cy <= ty0 + kTile - 1 + a.stamp) {
+        const int k = atomicAdd(s_cnt, 1);
+        s_cx[k] = cx;
+        s_cy[k] = cy;
+      }
+    }
+    __syncthreads();
+    const int cnt = *s_cnt;
+    for (int k = 0; k < cnt; ++k) {
+      const bool in_x = abs(px - s_cx[k]) <= a.stamp;
+#pragma unroll
+      for (int q = 0; q < kCells; ++q)
+        killed[q] |= in_x &&
+                     abs(ty0 + warp + kWarps * q - s_cy[k]) <= a.stamp;
+    }
+    __syncthreads();
+    if (tid == 0) *s_cnt = 0;
+    __syncthreads();
+  }
+
+  int v = -1, i = INT_MAX;  // rows in order: the first maximum is kept
+  const bool col_ok = px >= a.borderx && px < a.cols - a.borderx &&
+                      (a.step == 1 || (px - a.borderx) % a.step == 0);
+#pragma unroll
+  for (int q = 0; q < kCells; ++q) {
+    const int py = ty0 + warp + kWarps * q;
+    if (px >= a.cols || py >= a.rows) continue;
+    const int idx = py * a.cols + px;
+    const bool ok = col_ok && !killed[q] && py >= a.bordery &&
+                    py < a.rows - a.bordery &&
+                    (a.step == 1 || (py - a.bordery) % a.step == 0);
+    int m = -1;
+    if (ok) {
+      const int r = (int)a.resp[idx];  // C cast: truncation toward zero
+      if (r >= a.floor_v) m = r;
+    }
+    a.map[idx] = m;
+    if (m > v) {
+      v = m;
+      i = pack(py, px);
+    }
+  }
+  block_best(v, i, s_v, s_i);
+  if (tid == 0) {
+    const int t = blockIdx.y * gridDim.x + blockIdx.x;
+    a.tile_v[t] = v;
+    a.tile_i[t] = i;
+  }
+}
+
+// The first lost slot at or after `from`, or n: a whole warp, 32 slots a
+// step.
+__device__ __forceinline__ int next_lost(const Args& a, int from) {
+  const int lane = threadIdx.x & 31;
+  for (int base = from & ~31; base < a.n; base += 32) {
+    const int f = base + lane;
+    const unsigned lost =
+        __ballot_sync(0xffffffffu, f >= from && f < a.n && a.val[f] < 0);
+    if (lost) return base + __ffs(lost) - 1;
+  }
+  return a.n;
+}
+
+// Steps 3 and 4, by one block, once every tile is built.  s_tile_v,
+// s_tile_i: the tiles' bests, n_tiles ints each; s_gv, s_gi: kGroup *
+// kWarps ints each.
+__device__ __forceinline__ void greedy_picks(const Args& a, int* s_v, int* s_i,
+                                             int* s_gv, int* s_gi,
+                                             int* s_slot, int* s_tile_v,
+                                             int* s_tile_i) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tiles_x = gridDim.x, n_tiles = gridDim.x * gridDim.y;
+  for (int t = tid; t < n_tiles; t += kThreads) {
+    s_tile_v[t] = __ldcg(a.tile_v + t);
+    s_tile_i[t] = __ldcg(a.tile_i + t);
+  }
+  int n_lost = 0;
+  for (int base = 0; base < a.n; base += kThreads)
+    n_lost += __syncthreads_count(base + tid < a.n && a.val[base + tid] < 0);
+  if (warp == 0) {
+    const int f = next_lost(a, 0);
+    if (lane == 0) *s_slot = f;
+  }
+  __syncthreads();
+
+  for (int pick = 0; pick < n_lost; ++pick) {
+    // the best of the tiles' bests
+    int bv = -1, bi = INT_MAX;
+    for (int t = tid; t < n_tiles; t += kThreads)
+      keep_best(bv, bi, s_tile_v[t], s_tile_i[t]);
+    block_best(bv, bi, s_v, s_i);
+    if (bv < a.floor_v) break;
+
+    const int py = bi >> 16, px = bi & 0xffff;
+    int sl = 0;  // thread 0's
+    if (tid == 0) {
+      sl = *s_slot;
+      a.x[sl] = (float)px;
+      a.y[sl] = (float)py;
+      a.val[sl] = bv;
+    }
+    // the pick's square, clipped to the map, and the tiles it meets
+    const int x0 = max(px - a.stamp, 0), x1 = min(px + a.stamp, a.cols - 1);
+    const int y0 = max(py - a.stamp, 0), y1 = min(py + a.stamp, a.rows - 1);
+    const int t1x = x1 / kTile, t1y = y1 / kTile;
+    bool stamped = false;
+    for (int gy = y0 / kTile; gy <= t1y; gy += 2) {
+      for (int gx = x0 / kTile; gx <= t1x; gx += 2) {
+        // of these 2x2 tiles, scan again those whose best the square
+        // kills: lane = column, rows in order, so a column's first
+        // maximum is kept; a cell inside the square is dead unread
+        unsigned redo = 0;
+        int cell[kGroup][kCells];  // all loads leave before one is used
+#pragma unroll
+        for (int u = 0; u < kGroup; ++u) {
+          const int ty = gy + (u >> 1), tx = gx + (u & 1);
+          bool scan = ty <= t1y && tx <= t1x;
+          if (scan) {
+            const int old_v = s_tile_v[ty * tiles_x + tx];
+            const int old_i = s_tile_i[ty * tiles_x + tx];
+            const int oy = old_i >> 16, ox = old_i & 0xffff;
+            // an empty tile stays empty, a live best the best
+            scan = old_v >= 0 && ox >= x0 && ox <= x1 && oy >= y0 && oy <= y1;
+          }
+          redo |= (unsigned)scan << u;
+          const int cx = tx * kTile + lane;
+#pragma unroll
+          for (int q = 0; q < kCells; ++q) {
+            const int cy = ty * kTile + warp + kWarps * q;
+            const bool dead = cx >= x0 && cx <= x1 && cy >= y0 && cy <= y1;
+            cell[u][q] = scan && !dead && cx < a.cols && cy < a.rows
+                             ? __ldcg(a.map + cy * a.cols + cx) : -1;
+          }
+        }
+        if (!stamped) {
+          // while those loads are under way: kill the square in the map
+          // for later picks, and find the next lost slot
+          stamped = true;
+          for (int yy = y0 + warp; yy <= y1; yy += kWarps)
+            for (int xx = x0 + lane; xx <= x1; xx += 32)
+              a.map[yy * a.cols + xx] = -1;
+          if (warp == 0) {
+            const int f = next_lost(a, __shfl_sync(0xffffffffu, sl, 0) + 1);
+            if (lane == 0) *s_slot = f;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kGroup; ++u) {
+          if (!(redo >> u & 1)) continue;
+          const int ty = gy + (u >> 1), cx = (gx + (u & 1)) * kTile + lane;
+          int v = -1, i = INT_MAX;
+#pragma unroll
+          for (int q = 0; q < kCells; ++q) {
+            if (cell[u][q] > v) {
+              v = cell[u][q];
+              i = pack(ty * kTile + warp + kWarps * q, cx);
+            }
+          }
+          warp_best(v, i);
+          if (lane == 0) {
+            s_gv[u * kWarps + warp] = v;
+            s_gi[u * kWarps + warp] = i;
+          }
+        }
+        __syncthreads();
+        if (warp < kGroup && (redo >> warp & 1)) {
+          int rv = lane < kWarps ? s_gv[warp * kWarps + lane] : -1;
+          int ri = lane < kWarps ? s_gi[warp * kWarps + lane] : INT_MAX;
+          warp_best(rv, ri);
+          if (lane == 0) {
+            const int t = (gy + (warp >> 1)) * tiles_x + gx + (warp & 1);
+            s_tile_v[t] = rv;
+            s_tile_i[t] = ri;
+          }
+        }
+        __syncthreads();
+      }
+    }
+  }
+
+  // 4. what is still lost is NOT_FOUND at (-1, -1)
+  for (int f = tid; f < a.n; f += kThreads) {
+    if (a.val[f] < 0) {
+      a.x[f] = -1.0f;
+      a.y[f] = -1.0f;
+      a.val[f] = KLT_NOT_FOUND;
+    }
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
-replace_lost(const float* resp, int rows, int cols, float* x, float* y,
-             int* val, int n, int borderx, int bordery, int step,
-             int floor_v, int stamp, int* map) {
+replace_lost(const __grid_constant__ Args a) {
+  extern __shared__ int s_tiles[];  // greedy block: 2 * n_tiles ints
   __shared__ int s_v[kWarps], s_i[kWarps];
-  __shared__ int s_slot;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int hw = rows * cols;
+  __shared__ int s_gv[kGroup * kWarps], s_gi[kGroup * kWarps];
+  __shared__ int s_cx[kThreads], s_cy[kThreads];
+  __shared__ int s_cnt, s_slot, s_last;
+  const int tid = threadIdx.x;
 
-  // 0. nothing lost, nothing to do (steps 3 and 4 touch lost slots only)
+  // 0. nothing lost, nothing to do (steps 3 and 4 touch lost slots only);
+  // every block sees the same val, so all leave or none does
   int any_lost = 0;
-  for (int f = tid; f < n; f += blockDim.x) any_lost |= val[f] < 0;
+  for (int f = tid; f < a.n; f += kThreads) any_lost |= a.val[f] < 0;
+  if (tid == 0) s_cnt = 0;
   if (!__syncthreads_or(any_lost)) return;
 
-  // 1. masked int map
-  for (int i = tid; i < hw; i += blockDim.x) {
-    const int yy = i / cols, xx = i - yy * cols;
-    bool ok = yy >= bordery && yy < rows - bordery && xx >= borderx &&
-              xx < cols - borderx;
-    if (step > 1)
-      ok = ok && (yy - bordery) % step == 0 && (xx - borderx) % step == 0;
-    const int v = (int)resp[i];  // C cast: truncation toward zero
-    map[i] = ok && v >= floor_v ? v : -1;
-  }
+  build_tile(a, s_v, s_i, s_cx, s_cy, &s_cnt);
+
+  // the last block to get here has every tile before it
+  __threadfence();
   __syncthreads();
-
-  // 2. live features' squares, one (feature, cell) pair per thread step
-  const int side = 2 * stamp + 1, area = side * side;
-  for (long j = tid; j < (long)n * area; j += blockDim.x) {
-    const int f = (int)(j / area), c = (int)(j - (long)f * area);
-    if (val[f] < 0) continue;
-    const int cx = (int)x[f], cy = (int)y[f];
-    if (cx < 0 || cx >= cols || cy < 0 || cy >= rows) continue;
-    const int px = cx - stamp + c % side, py = cy - stamp + c / side;
-    if (px >= 0 && px < cols && py >= 0 && py < rows)
-      map[(size_t)py * cols + px] = -1;
-  }
+  if (tid == 0)
+    s_last = atomicAdd(a.ticket, 1) == (int)(gridDim.x * gridDim.y) - 1;
   __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  if (tid == 0) *a.ticket = 0;  // as the next call expects it
 
-  // 3. greedy picks
-  int slot = 0;  // thread 0's walk over the slots, never backwards
-  for (;;) {
-    if (tid == 0) {
-      while (slot < n && val[slot] >= 0) ++slot;
-      s_slot = slot;
-    }
-    int bv = -1, bi = hw;
-    for (int i = tid; i < hw; i += blockDim.x) {
-      const int v = map[i];
-      if (v > bv) {  // increasing i: the first maximum stays
-        bv = v;
-        bi = i;
-      }
-    }
-    warp_best(bv, bi);
-    if (lane == 0) {
-      s_v[warp] = bv;
-      s_i[warp] = bi;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      bv = lane < kWarps ? s_v[lane] : -1;
-      bi = lane < kWarps ? s_i[lane] : hw;
-      warp_best(bv, bi);
-      if (lane == 0) {
-        s_v[0] = bv;
-        s_i[0] = bi;
-      }
-    }
-    __syncthreads();
-    const int best_v = s_v[0], best_i = s_i[0], sl = s_slot;
-    __syncthreads();  // all have read before the next pick overwrites
-    if (sl >= n || best_v < floor_v) break;
-    const int py = best_i / cols, px = best_i - py * cols;
-    if (tid == 0) {
-      x[sl] = (float)px;
-      y[sl] = (float)py;
-      val[sl] = best_v;
-    }
-    stamp_square(map, rows, cols, px, py, stamp);
-    __syncthreads();
-  }
-
-  // 4. what is still lost is NOT_FOUND at (-1, -1)
-  for (int f = tid; f < n; f += blockDim.x) {
-    if (val[f] < 0) {
-      x[f] = -1.0f;
-      y[f] = -1.0f;
-      val[f] = KLT_NOT_FOUND;
-    }
-  }
+  const int n_tiles = gridDim.x * gridDim.y;
+  greedy_picks(a, s_v, s_i, s_gv, s_gi, &s_slot, s_tiles, s_tiles + n_tiles);
 }
 
 }  // namespace
 
+// The side of a tile (the scratch holds two ints per tile after the map)
+// and the most tiles a map may have.
+extern "C" int klt_replace_tile() { return kTile; }
+extern "C" int klt_replace_max_tiles() { return kMaxTiles; }
+
 // resp: device f32 [rows, cols]; x, y: device f32 [n]; val: device i32 [n],
-// updated in place; map: device i32 [rows, cols] scratch.  Returns
-// cudaGetLastError() after the launch.
+// updated in place; scratch: device i32 [rows * cols + 2 * tiles], tiles =
+// ceil(rows / 32) * ceil(cols / 32) <= klt_replace_max_tiles(), rows <= 32767,
+// cols <= 65535; ticket: one
+// device i32 that is 0 and that no other stream uses (the kernel leaves it
+// 0).  Returns cudaGetLastError() after the launch.
 extern "C" int klt_replace_lost(const float* resp, int rows, int cols,
                                 float* x, float* y, int* val, int n,
                                 int borderx, int bordery, int step,
-                                int floor_v, int stamp, int* map,
-                                void* stream) {
+                                int floor_v, int stamp, int* scratch,
+                                int* ticket, void* stream) {
+  // a position is packed as row << 16 | column
   if (rows < 1 || cols < 1 || n < 0 || step < 1 || stamp < 0 ||
-      (long)rows * cols > 0x7fffffffL)
+      rows > 0x7fff || cols > 0xffff)
     return (int)cudaErrorInvalidValue;
-  replace_lost<<<1, kThreads, 0, (cudaStream_t)stream>>>(
-      resp, rows, cols, x, y, val, n, borderx, bordery, step, floor_v, stamp,
-      map);
+  const dim3 grid((cols + kTile - 1) / kTile, (rows + kTile - 1) / kTile);
+  if (grid.y > 65535 || (long)grid.x * grid.y > kMaxTiles)
+    return (int)cudaErrorInvalidValue;
+  const int tiles = grid.x * grid.y;
+  // a stamp wider than the map kills all of it: the same squares, and no
+  // overflow in centre + stamp
+  const int side = rows > cols ? rows : cols;
+  if (stamp > side) stamp = side;
+  const size_t shared = 2 * sizeof(int) * tiles;
+  if (shared > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        replace_lost, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        2 * (int)sizeof(int) * kMaxTiles);
+    if (err != cudaSuccess) return (int)err;
+  }
+  Args a = {resp, rows, cols, x, y, val, n, borderx, bordery, step, floor_v,
+            stamp, scratch, scratch + (size_t)rows * cols,
+            scratch + (size_t)rows * cols + tiles, ticket};
+  replace_lost<<<grid, kThreads, shared, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -92,9 +92,18 @@ def load_library() -> ctypes.CDLL:
         lib.klt_cuda_error_string.restype = ctypes.c_char_p
         lib.klt_lk_max_levels.argtypes = []
         lib.klt_lk_max_levels.restype = ctypes.c_int
+        for name in ("klt_replace_tile", "klt_replace_max_tiles"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
+        lib.klt_pyramid_needs_scratch.argtypes = [_I, _I, _I]
+        lib.klt_pyramid_needs_scratch.restype = ctypes.c_int
         if lib.klt_lk_max_levels() != LK_MAX_LEVELS:
             raise RuntimeError("LK_MAX_LEVELS differs from the library's "
                                "KLT_MAX_LEVELS")
+        if (lib.klt_replace_tile(), lib.klt_replace_max_tiles()) != \
+                (REPLACE_TILE, REPLACE_MAX_TILES):
+            raise RuntimeError("REPLACE_TILE or REPLACE_MAX_TILES differs "
+                               "from the library's kTile, kMaxTiles")
         for k in KERNELS:
             fn = getattr(lib, k.symbol)
             fn.argtypes = k.argtypes
@@ -172,8 +181,8 @@ CORNER_RESPONSE = Kernel(
 REPLACE_LOST = Kernel(
     "klt_replace_lost",
     # resp, rows, cols, x, y, val, n, borderx, bordery, step, floor,
-    # stamp, map scratch, stream
-    [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    # stamp, scratch (map and tile bests), ticket, stream
+    [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     source="klt_tpu_torch/csrc/replace.cu",
     replaces="klt_tpu/ops/replace.py:95")
 
@@ -221,6 +230,11 @@ LK_PYRAMID_BATCHED = Kernel(
 
 KERNELS = (PYRAMID, LK_LEVEL, CORNER_RESPONSE, PYRAMID_BATCHED, REPLACE_LOST,
            LK_LEVEL_BATCHED, LK_PYRAMID, LK_PYRAMID_BATCHED)
+
+# The side of kernel R's tiles and the most tiles its map may have (kTile
+# and kMaxTiles of csrc/replace.cu; the library returns both).
+REPLACE_TILE = 32
+REPLACE_MAX_TILES = 25000
 
 # The most pyramid levels a pyramid entry takes (KLT_MAX_LEVELS of
 # csrc/lk_level.cu; the library's klt_lk_max_levels() returns it).

@@ -8,13 +8,14 @@ The plain torch versions are `ops.pyramid.build_pyramid_stacks_plain` and
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from ..config import TrackingConfig, MAX_KERNEL_WIDTH, pyramid_shapes
 from ..kernels import gaussian_kernels
-from . import PYRAMID, PYRAMID_BATCHED, check_cuda_tensor
+from . import PYRAMID, PYRAMID_BATCHED, check_cuda_tensor, load_library
 
 
 def _shapes_and_taps(h: int, w: int, cfg: TrackingConfig):
@@ -35,27 +36,42 @@ def _shapes_and_taps(h: int, w: int, cfg: TrackingConfig):
     return shapes, taps, tap_args
 
 
+@functools.lru_cache(maxsize=None)
+def _needs_scratch(n_levels: int, subsampling: int, n_pyr: int) -> bool:
+    return bool(load_library().klt_pyramid_needs_scratch(
+        n_levels, subsampling, n_pyr))
+
+
+def _scratch(shape, cfg: TrackingConfig, n_pyr: int, dev):
+    """The one-plane scratch of the global-memory decimation, for the few
+    configurations whose pyramid smoothing fits no tile; else None."""
+    if _needs_scratch(cfg.n_pyramid_levels, cfg.subsampling, n_pyr):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+    return None
+
+
 def build_pyramid_stacks_cuda(img: torch.Tensor, cfg: TrackingConfig
                               ) -> list[torch.Tensor]:
     """uint8/f32 [H, W] CUDA frame -> finest-first list of f32
     [3, H_l, W_l] stacks (intensity, gradx, grady), one kernel call."""
     check_cuda_tensor(img, "img", (torch.uint8, torch.float32), 2)
     h, w = img.shape
-    shapes, _taps, tap_args = _shapes_and_taps(h, w, cfg)
+    shapes, taps, tap_args = _shapes_and_taps(h, w, cfg)
     dev = img.device
     outs = [torch.empty((3, r, c), dtype=torch.float32, device=dev)
             for c, r in shapes]
-    scratch = torch.empty((3, h, w), dtype=torch.float32, device=dev)
+    scratch = _scratch((h, w), cfg, len(taps[3]), dev)
     out_ptrs = (ctypes.c_void_p * len(outs))(*[o.data_ptr() for o in outs])
     with torch.cuda.device(dev):
         PYRAMID(img.data_ptr(), int(img.dtype == torch.uint8), h, w,
                 cfg.n_pyramid_levels, cfg.subsampling, *tap_args,
-                out_ptrs, scratch.data_ptr(),
+                out_ptrs, None if scratch is None else scratch.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
     return outs
 
 
-# The grid's z dimension holds image * 3 maps, at most 65535.
+# The most frames of one call; the grid's x dimension holds every image's
+# tiles, far below its limit at this many.
 MAX_BATCH = 65535 // 3
 
 
@@ -69,15 +85,16 @@ def build_pyramid_stacks_batched_cuda(imgs: torch.Tensor, cfg: TrackingConfig
     if not 1 <= b <= MAX_BATCH:
         raise ValueError(f"batch of {b} frames; kernel E takes 1 to "
                          f"{MAX_BATCH}")
-    shapes, _taps, tap_args = _shapes_and_taps(h, w, cfg)
+    shapes, taps, tap_args = _shapes_and_taps(h, w, cfg)
     dev = imgs.device
     outs = [torch.empty((b, 3, r, c), dtype=torch.float32, device=dev)
             for c, r in shapes]
-    scratch = torch.empty((b, 3, h, w), dtype=torch.float32, device=dev)
+    scratch = _scratch((b, h, w), cfg, len(taps[3]), dev)
     out_ptrs = (ctypes.c_void_p * len(outs))(*[o.data_ptr() for o in outs])
     with torch.cuda.device(dev):
         PYRAMID_BATCHED(imgs.data_ptr(), int(imgs.dtype == torch.uint8), b,
                         h, w, cfg.n_pyramid_levels, cfg.subsampling,
-                        *tap_args, out_ptrs, scratch.data_ptr(),
+                        *tap_args, out_ptrs,
+                        None if scratch is None else scratch.data_ptr(),
                         torch.cuda.current_stream(dev).cuda_stream)
     return outs

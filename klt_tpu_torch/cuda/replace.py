@@ -10,7 +10,13 @@ import torch
 
 from ..config import TrackingConfig
 from ..ops.selection import _candidate_borders
-from . import REPLACE_LOST, check_cuda_tensor
+from . import (REPLACE_LOST, REPLACE_MAX_TILES, REPLACE_TILE,
+               check_cuda_tensor)
+
+# The kernel's ticket (the count of finished blocks, by which the last one
+# knows itself): one zeroed int per stream, which every call leaves 0.
+# Calls on one stream run in order, so they can share it.
+_tickets: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def replace_lost_cuda_(resp: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
@@ -31,10 +37,21 @@ def replace_lost_cuda_(resp: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     h, w = resp.shape
     borderx, bordery, step = _candidate_borders(cfg)
     dev = resp.device
-    scratch = torch.empty((h, w), dtype=torch.int32, device=dev)
+    n_tiles = -(-h // REPLACE_TILE) * -(-w // REPLACE_TILE)
+    if n_tiles > REPLACE_MAX_TILES or h > 0x7fff or w > 0xffff:
+        raise ValueError(f"a {w}x{h} map has {n_tiles} tiles; kernel R takes "
+                         f"{REPLACE_MAX_TILES}, at most 65535 columns and "
+                         f"32767 rows")
+    # the int map, then each tile's best value and its position
+    scratch = torch.empty(h * w + 2 * n_tiles, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ticket = _tickets.get((dev.index, stream))
+        if ticket is None:
+            ticket = _tickets[dev.index, stream] = torch.zeros(
+                1, dtype=torch.int32, device=dev)
         REPLACE_LOST(resp.data_ptr(), h, w, x.data_ptr(), y.data_ptr(),
                      val.data_ptr(), n, borderx, bordery, step,
                      max(1, int(cfg.min_eigenvalue)),
                      max(int(cfg.mindist) - 1, 0), scratch.data_ptr(),
-                     torch.cuda.current_stream(dev).cuda_stream)
+                     ticket.data_ptr(), stream)

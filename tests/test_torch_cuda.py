@@ -18,7 +18,8 @@ import pytest
 import torch
 
 import klt_tpu_torch as kt
-from chip_smoke import batched_frames, synthetic_frames
+from chip_smoke import (batched_frames, noise_frames, pyramid_cases,
+                        replace_cases, synthetic_frames)
 from klt_tpu_torch.ops.lk import (lk_level, lk_level_batched_plain,
                                   lk_level_plain,
                                   track_features_pyramid_levels,
@@ -88,6 +89,36 @@ def test_pyramid_kernel_rejects_bad_inputs(dev):
         build_pyramid_stacks_cuda(img.t(), cfg)
     with pytest.raises(ValueError, match="empty pyramid level"):
         build_pyramid_stacks_cuda(img[:3, :3].contiguous(), cfg)
+
+
+PYRAMID_CONFIGS = pyramid_cases()
+
+
+@pytest.mark.parametrize("case", range(len(PYRAMID_CONFIGS)),
+                         ids=[c[0] for c in PYRAMID_CONFIGS])
+def test_pyramid_kernels_tiled_and_global_equal_plain(case, dev):
+    """Kernels A and E on the configurations that size the tiles
+    differently, and on the one whose decimation fits no tile: the bits
+    of the plain version (on the card and on the CPU), E image by image
+    equal to A, u8 and f32 frames alike."""
+    from klt_tpu_torch import cuda
+    name, kw, hw = PYRAMID_CONFIGS[case]
+    cfg = kt.TrackingConfig(**kw)
+    taps = len(kt.kernels.gaussian_kernels(cfg.pyramid_sigma)[0])
+    needs = cuda.load_library().klt_pyramid_needs_scratch(
+        cfg.n_pyramid_levels, cfg.subsampling, taps)
+    assert bool(needs) == ("no tile" in name)
+    imgs = torch.from_numpy(noise_frames(3, hw, 21)).to(dev)
+    got = build_pyramid_stacks_batched(imgs, cfg)
+    plain = build_pyramid_stacks_batched_plain(imgs, cfg)
+    cpu = build_pyramid_stacks_batched_plain(imgs.cpu(), cfg)
+    for g, p, c in zip(got, plain, cpu):
+        assert torch.equal(g.view(torch.int32), p.view(torch.int32))
+        assert torch.equal(g.cpu().view(torch.int32), c.view(torch.int32))
+    for i in range(3):
+        assert_equal_all([g[i] for g in got],
+                         build_pyramid_stacks(imgs[i], cfg))
+    assert_equal_all(build_pyramid_stacks_batched(imgs.float(), cfg), got)
 
 
 def level_case(name, dev):
@@ -282,6 +313,67 @@ def test_replace_kernel_equals_plain(scale, kw, dev):
     if kw.get("mindist") == 40:  # candidates run out
         assert ((fl.val < 0) & (val == kt.NOT_FOUND)).any()
     assert not ((val < 0) & (val != kt.NOT_FOUND)).any()
+
+
+REPLACE_STATES = replace_cases()
+
+
+@pytest.mark.parametrize("case", range(len(REPLACE_STATES)),
+                         ids=[c[0] for c in REPLACE_STATES])
+def test_replace_kernel_adversarial_states_equal_plain(case, dev):
+    """Equal maxima in different tiles and rows, squares across tile
+    corners and map borders, all slots lost, candidates that run out,
+    mindist 1 and above a tile, a step grid, maps that are no multiple of
+    a tile or smaller than one, no slot lost, no slot: x, y, val equal to
+    the plain version's on the card and on the CPU."""
+    name, kw, resp, x, y, val = REPLACE_STATES[case]
+    cfg = kt.TrackingConfig(**kw)
+    outs = []
+    for where, fn in ((dev, replace_lost_), (dev, replace_lost_plain_),
+                      ("cpu", replace_lost_plain_)):
+        state = [torch.from_numpy(a.copy()).to(where) for a in (x, y, val)]
+        fn(torch.from_numpy(resp).to(where), *state, cfg)
+        outs.append([a.cpu() for a in state])
+    assert_equal_all(outs[0], outs[1])
+    assert_equal_all(outs[0], outs[2])
+    out = outs[0][2].numpy()
+    if name.startswith("no slot"):
+        np.testing.assert_array_equal(out, val)
+    else:
+        assert ((val < 0) & (out > 0)).any()
+    assert not ((out < 0) & (out != kt.NOT_FOUND)).any()
+
+
+def test_replace_kernel_calls_share_a_ticket_per_stream(dev):
+    """Calls one after the other on one stream, and on a second stream,
+    each find the ticket as the last one left it."""
+    _, kw, resp, x, y, val = REPLACE_STATES[0]
+    cfg = kt.TrackingConfig(**kw)
+    respd = torch.from_numpy(resp).to(dev)
+    want = [torch.from_numpy(a.copy()).to(dev) for a in (x, y, val)]
+    replace_lost_plain_(respd, *want, cfg)
+    side = torch.cuda.Stream(dev)
+    for stream in (torch.cuda.current_stream(dev), side):
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            for _ in range(3):
+                state = [torch.from_numpy(a.copy()).to(dev)
+                         for a in (x, y, val)]
+                replace_lost_(respd, *state, cfg)
+                stream.synchronize()
+                assert_equal_all(state, want)
+
+
+def test_replace_kernel_rejects_maps_it_does_not_take(dev):
+    """More tiles than the greedy block's shared memory holds, or more rows
+    than a packed position does: the wrapper raises."""
+    from klt_tpu_torch.cuda.replace import replace_lost_cuda_
+    cfg = kt.TrackingConfig()
+    state = [torch.zeros(4, device=dev), torch.zeros(4, device=dev),
+             torch.full((4,), -1, dtype=torch.int32, device=dev)]
+    for hw in ((5200, 5200), (40000, 8)):
+        with pytest.raises(ValueError, match="kernel R takes"):
+            replace_lost_cuda_(torch.empty(hw, device=dev), *state, cfg)
 
 
 def test_replace_kernel_with_no_lost_slot_changes_nothing(dev):

@@ -15,6 +15,7 @@ import klt_tpu
 from klt_tpu_torch.interop import config_from_fields
 from klt_tpu_torch.ops.pyramid import (build_pyramid_stacks,
                                        build_pyramid_stacks_plain)
+from chip_smoke import noise_frames, pyramid_cases
 from conftest import load_f32
 
 MAP_TOL = 1e-3  # XLA:CPU reassociates conv chains at the ulp level
@@ -119,3 +120,136 @@ def test_image_pyramids_are_the_stacks_split():
     pyr, gx, gy = build_image_pyramids(img, cfg)
     for s, maps in zip(stacks, zip(pyr, gx, gy)):
         assert torch.equal(s, torch.stack(maps))
+
+
+# ------------------------------------------------------------------ #
+# the tiled design of kernels A and E (csrc/pyramid.cu), in plain torch #
+# ------------------------------------------------------------------ #
+
+TILE_W = 32
+
+
+def tile_height(nmaps, stride, rh, rv, out_rows, out_cols):
+    """csrc/pyramid.cu::plan for one image: 32 output rows a tile if that
+    takes at most 48 KB of shared memory (input rows of an odd pitch, then
+    33 floats a row and map of the horizontal pass) and gives 264 blocks,
+    else 8 rows if 227 KB hold them, else 0 (no tile: the global-memory
+    passes)."""
+    def nbytes(th):
+        ih = stride * (th - 1) + 1 + 2 * rv
+        pitch = (stride * (TILE_W - 1) + 1 + 2 * rh) | 1
+        return 4 * ih * (pitch + nmaps * (TILE_W + 1))
+    tiles_x = -(-out_cols // TILE_W)
+    if nbytes(32) <= 48 * 1024 and tiles_x * -(-out_rows // 32) >= 264:
+        return 32
+    return 8 if nbytes(8) <= 227 * 1024 else 0
+
+
+def chain(terms, taps):
+    """acc = x[0] * t[w-1]; acc = acc + x[m] * t[w-1-m]: the order every
+    output of the kernel and of the plain version accumulates in."""
+    width = len(taps)
+    t = [float(v) for v in np.asarray(taps, np.float32)]
+    acc = terms(0) * t[width - 1]
+    for m in range(1, width):
+        acc = acc + terms(m) * t[width - 1 - m]
+    return acc
+
+
+def tile_program(img, maps, stride, offset, out_rows, out_cols):
+    """One tile program as a block runs it: for every tile of TILE_W x th
+    outputs, the input crop with its halo (pixels outside the image are
+    zeros that feed only zeroed outputs), the horizontal pass at the
+    columns the tile's outputs use, the vertical pass at their rows;
+    zeroing by global coordinates.  maps: (horizontal taps, vertical taps)
+    per output map.  Returns one [out_rows, out_cols] map per entry, or
+    None when no tile holds the program."""
+    rows, cols = img.shape
+    rh = max(len(h) // 2 for h, _ in maps)
+    rv = max(len(v) // 2 for _, v in maps)
+    th = tile_height(len(maps), stride, rh, rv, out_rows, out_cols)
+    if th == 0:
+        return None
+    ih = stride * (th - 1) + 1 + 2 * rv
+    iw = stride * (TILE_W - 1) + 1 + 2 * rh
+    outs = [torch.full((out_rows, out_cols), float("nan")) for _ in maps]
+    zero = torch.zeros(())
+    for i0 in range(0, out_rows, th):
+        for j0 in range(0, out_cols, TILE_W):
+            gy0 = offset + stride * i0 - rv
+            gx0 = offset + stride * j0 - rh
+            crop = torch.zeros((ih, iw))
+            ys = slice(max(gy0, 0), min(gy0 + ih, rows))
+            xs = slice(max(gx0, 0), min(gx0 + iw, cols))
+            if ys.start < ys.stop and xs.start < xs.stop:
+                crop[ys.start - gy0:ys.stop - gy0,
+                     xs.start - gx0:xs.stop - gx0] = img[ys, xs]
+            gx = offset + stride * (j0 + torch.arange(TILE_W))
+            gy = offset + stride * (i0 + torch.arange(th))
+            for out, (ht, vt) in zip(outs, maps):
+                r = len(ht) // 2
+                at = stride * torch.arange(TILE_W) + rh - r
+                mid = chain(lambda m: crop[:, at + m], ht)
+                mid = torch.where((gx >= r) & (gx < cols - r), mid, zero)
+                r = len(vt) // 2
+                at = stride * torch.arange(th) + rv - r
+                res = chain(lambda m: mid[at + m], vt)
+                res = torch.where(((gy >= r) & (gy < rows - r))[:, None],
+                                  res, zero)
+                n_i, n_j = min(th, out_rows - i0), min(TILE_W, out_cols - j0)
+                out[i0:i0 + n_i, j0:j0 + n_j] = res[:n_i, :n_j]
+    return outs
+
+
+def build_pyramid_stacks_tiled(img, cfg):
+    """The launch sequence of csrc/pyramid.cu: the pre-smoothing, then per
+    level the gradient program and, below the coarsest level, the
+    decimating program with H(pyramid gauss) at the kept columns only.
+    Returns (stacks, the levels whose decimation fits no tile)."""
+    from klt_tpu_torch.config import pyramid_shapes
+    from klt_tpu_torch.kernels import gaussian_kernels
+    from klt_tpu_torch.ops.convolve import convolve_separable
+    g_s = gaussian_kernels(cfg.smooth_sigma)[0]
+    gauss, deriv = gaussian_kernels(cfg.grad_sigma)
+    g_p = gaussian_kernels(cfg.pyramid_sigma)[0]
+    s, sh = cfg.subsampling, cfg.subsampling // 2
+    shapes = pyramid_shapes(img.shape[1], img.shape[0], cfg)
+    level, = tile_program(img.to(torch.float32), [(g_s, g_s)], 1, 0,
+                          *img.shape)
+    stacks, untiled = [], []
+    for lvl, (cols, rows) in enumerate(shapes):
+        gradx, grady = tile_program(level, [(deriv, gauss), (gauss, deriv)],
+                                    1, 0, rows, cols)
+        stacks.append(torch.stack([level, gradx, grady]))
+        if lvl < len(shapes) - 1:
+            ncols, nrows = shapes[lvl + 1]
+            nxt = tile_program(level, [(g_p, g_p)], s, sh, nrows, ncols)
+            if nxt is None:  # the kernel's global-memory passes
+                untiled.append(lvl)
+                nxt = [convolve_separable(level, g_p, g_p)
+                       [sh::s, sh::s][:nrows, :ncols].contiguous()]
+            level, = nxt
+    return stacks, untiled
+
+
+PYRAMID_CASES = pyramid_cases()
+
+
+@pytest.mark.parametrize("case", range(len(PYRAMID_CASES)),
+                         ids=[c[0] for c in PYRAMID_CASES])
+def test_tiled_pyramid_bit_equal_to_plain(case):
+    """Tile by tile with halos, H(pyramid gauss) at the kept columns only:
+    the same bits as the plain version on the whole image, so the tiling
+    and the decimated horizontal pass change no rounding and no zeroed
+    border."""
+    name, kw, hw = PYRAMID_CASES[case]
+    cfg = config_from_fields(dataclasses.asdict(klt_tpu.TrackingConfig(**kw)))
+    img = torch.from_numpy(noise_frames(1, hw, 21)[0])
+    tiled, untiled = build_pyramid_stacks_tiled(img, cfg)
+    plain = build_pyramid_stacks_plain(img, cfg)
+    assert len(tiled) == len(plain) == cfg.n_pyramid_levels
+    for a, b in zip(tiled, plain):
+        assert a.shape == b.shape
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert a.abs().max() > 0 or min(a.shape[1:]) < 8
+    assert untiled == ([0] if "no tile" in name else [])

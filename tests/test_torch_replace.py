@@ -15,13 +15,15 @@ import torch
 
 import klt_tpu
 import klt_tpu_torch as kt
-from chip_smoke import synthetic_frames
+from chip_smoke import replace_cases, synthetic_frames
 from klt_tpu_torch.interop import config_from_fields, features_from_numpy
 from klt_tpu_torch.ops.convolve import convolve_1d
 from klt_tpu_torch.ops.pyramid import (build_pyramid_stacks_batched,
                                        build_pyramid_stacks_plain)
-from klt_tpu_torch.ops.replace import replace_lost_features_device
-from klt_tpu_torch.ops.selection import corner_response_plain
+from klt_tpu_torch.ops.replace import (replace_lost_features_device,
+                                       replace_lost_plain_)
+from klt_tpu_torch.ops.selection import (_candidate_borders,
+                                         corner_response_plain)
 from klt_tpu_torch.runtime import pipeline
 from klt_tpu_torch.runtime.pipeline import (track_sequence,
                                             track_sequence_replace,
@@ -201,6 +203,115 @@ def test_replace_device_equals_host_tier(frames):
                            .numpy(), cfg, 320, 240)
     for v in host.val[moved]:
         assert (pts[:, 2] == v).sum() > 1
+
+
+def tiled_replace_model(resp, x, y, val, cfg, tile):
+    """Kernel R's algorithm (csrc/replace.cu) written out in numpy, on
+    tiles of `tile` x `tile` cells; x, y, val are updated in place.
+    First pass, tile by tile: the features whose square meets the tile,
+    the masked int cells less those inside a listed square, the tile's
+    best (value, lowest flat index).  Then the greedy loop: the best of
+    the tiles' bests fills the first lost slot, its square is killed, and
+    of the tiles the square meets those whose best was killed are scanned
+    again.  Returns how many tiles were scanned again."""
+    h, w = resp.shape
+    borderx, bordery, step = _candidate_borders(cfg)
+    floor = max(1, int(cfg.min_eigenvalue))
+    stamp = max(int(cfg.mindist) - 1, 0)
+    n = len(val)
+    cx, cy = np.trunc(x).astype(np.int64), np.trunc(y).astype(np.int64)
+    live = (val >= 0) & (cx >= 0) & (cx < w) & (cy >= 0) & (cy < h)
+    yy, xx = np.mgrid[0:h, 0:w]
+    ok = ((yy >= bordery) & (yy < h - bordery) & (xx >= borderx) &
+          (xx < w - borderx) & ((yy - bordery) % step == 0) &
+          ((xx - borderx) % step == 0))
+    trunc = np.trunc(resp).astype(np.int64)
+    flat = yy * w + xx
+    m = np.full((h, w), -1, np.int64)
+    tiles_y, tiles_x = -(-h // tile), -(-w // tile)
+    best = {}
+
+    def scan(ty, tx):
+        sl = (slice(ty * tile, (ty + 1) * tile),
+              slice(tx * tile, (tx + 1) * tile))
+        v = m[sl].max()
+        best[ty, tx] = (int(v), int(flat[sl][m[sl] == v].min()))
+
+    if not (val < 0).any():
+        return 0
+    for ty in range(tiles_y):
+        for tx in range(tiles_x):
+            y0, x0 = ty * tile, tx * tile
+            sl = (slice(y0, y0 + tile), slice(x0, x0 + tile))
+            meets = live & (cx >= x0 - stamp) & (cx <= x0 + tile - 1 + stamp) \
+                & (cy >= y0 - stamp) & (cy <= y0 + tile - 1 + stamp)
+            killed = np.zeros(m[sl].shape, bool)
+            for f in np.flatnonzero(meets):
+                killed |= (np.abs(xx[sl] - cx[f]) <= stamp) & \
+                    (np.abs(yy[sl] - cy[f]) <= stamp)
+            m[sl] = np.where(ok[sl] & ~killed & (trunc[sl] >= floor),
+                             trunc[sl], -1)
+            scan(ty, tx)
+
+    slot, rescans = 0, 0
+    while True:
+        while slot < n and val[slot] >= 0:
+            slot += 1
+        # the larger value, the lower flat index at equal value
+        bv, bi = max(best.values(), key=lambda b: (b[0], -b[1]))
+        if slot >= n or bv < floor:
+            break
+        py, px = divmod(bi, w)
+        x[slot], y[slot], val[slot] = px, py, bv
+        x0, x1 = max(px - stamp, 0), min(px + stamp, w - 1)
+        y0, y1 = max(py - stamp, 0), min(py + stamp, h - 1)
+        m[y0:y1 + 1, x0:x1 + 1] = -1
+        for ty in range(y0 // tile, y1 // tile + 1):
+            for tx in range(x0 // tile, x1 // tile + 1):
+                ov, oi = best[ty, tx]
+                oy, ox = divmod(oi, w)
+                if ov >= 0 and x0 <= ox <= x1 and y0 <= oy <= y1:
+                    scan(ty, tx)
+                    rescans += 1
+    lost = val < 0
+    x[lost] = y[lost] = -1.0
+    val[lost] = kt.NOT_FOUND
+    return rescans
+
+
+REPLACE_CASES = replace_cases()
+
+
+@pytest.mark.parametrize("tile", [7, 16, 32])
+@pytest.mark.parametrize("case", range(len(REPLACE_CASES)),
+                         ids=[c[0] for c in REPLACE_CASES])
+def test_tiled_replace_model_equals_plain(case, tile):
+    """The tile hierarchy picks what the argmax over the whole map picks,
+    ties across tiles and rows included, whatever the tile size."""
+    name, kw, resp, x, y, val = REPLACE_CASES[case]
+    cfg = kt.TrackingConfig(**kw)
+    mx, my, mval = x.copy(), y.copy(), val.copy()
+    rescans = tiled_replace_model(resp, mx, my, mval, cfg, tile)
+    px, py, pval = features_from_numpy(x, y, val)
+    replace_lost_plain_(torch.from_numpy(resp), px, py, pval, cfg)
+    np.testing.assert_array_equal(mval, pval.numpy())
+    np.testing.assert_array_equal(mx, px.numpy())
+    np.testing.assert_array_equal(my, py.numpy())
+    lost = val < 0
+    filled = int((lost & (mval > 0)).sum())
+    assert not ((mval < 0) & (mval != kt.NOT_FOUND)).any()
+    if name.startswith("no slot"):
+        assert filled == 0 and rescans == 0
+        np.testing.assert_array_equal(mval, val)
+    else:
+        assert filled > 0 and rescans >= filled
+    if name.startswith(("more lost", "all slots")):
+        assert (mval[lost] == kt.NOT_FOUND).any()  # candidates ran out
+    if name.startswith("ties"):
+        # equal values were picked from several tiles and rows
+        top = mval[lost & (mval > 0)]
+        rows = my[lost & (mval > 0)][top == top.max()]
+        assert (top == top.max()).sum() > 3 and len(set(rows // 32)) > 1
 
 
 def assert_same_tracks(ours, ref):
