@@ -24,6 +24,14 @@ paths:
 * level-by-level tracking (track_features_pyramid_levels: the torch level
   loop over the level entries of kernels B and C, one launch per level),
   held against the one-launch pyramid entries on the same frames;
+* tracking with the affine consistency check (the reference's laptops
+  configuration: 640x480, 2000 features requested, mode 2, 4 pyramid
+  levels of subsampling 2) over 100 frames in which a region is slowly
+  covered and zoomed (affine_frames), through track_sequence_affine and
+  through KLTracker: kernel F verifies every tracked feature against its
+  saved patch and kills the ones that drifted;
+* selection from the response computed on the card (KLT_TPU_EXACT_SELECT=0)
+  with the default window and with one that no tile of kernel D holds;
 
 checks the tracks against the known motion of the synthetic frames and
 against the plain versions on the CPU, checks that the replacement loop
@@ -68,7 +76,9 @@ import torch
 import klt_tpu_torch as klt
 from klt_tpu_torch import cuda
 from klt_tpu_torch.config import pyramid_shapes
-from klt_tpu_torch.cuda.corner_response import corner_response_cuda
+from klt_tpu_torch.cuda.affine import affine_step_cuda_, track_affine_cuda
+from klt_tpu_torch.cuda.corner_response import (corner_response_cuda,
+                                                library_tile_rows)
 from klt_tpu_torch.cuda.lk_level import (lk_level_batched_cuda, lk_level_cuda,
                                          lk_pyramid_batched_cuda,
                                          lk_pyramid_cuda)
@@ -77,18 +87,24 @@ from klt_tpu_torch.cuda.pyramid import (build_pyramid_stacks_batched_cuda,
 from klt_tpu_torch.cuda.replace import replace_lost_cuda_
 from klt_tpu_torch.io.pnm import read_pgm
 from klt_tpu_torch.kernels import gaussian_kernels
+from klt_tpu_torch.ops.affine import (AffineState,
+                                      affine_consistency_step_plain,
+                                      track_affine_plain, verification_inputs)
 from klt_tpu_torch.ops.lk import (lk_level_batched_plain, lk_level_plain,
                                   track_features_pyramid_levels,
                                   track_features_pyramid_stacks)
 from klt_tpu_torch.ops.pyramid import (build_pyramid_stacks_batched_plain,
                                        build_pyramid_stacks_plain)
 from klt_tpu_torch.ops.replace import replace_lost_plain_
-from klt_tpu_torch.ops.selection import corner_response_plain
+from klt_tpu_torch.ops.selection import (corner_response_plain,
+                                         response_tile_rows)
 from klt_tpu_torch.parallel import track_sequences_batched
 from klt_tpu_torch.runtime.pipeline import (PRECOMP_FRAMES, track_sequence,
+                                            track_sequence_affine,
                                             track_sequence_replace)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+PROCESS_START = time.perf_counter()
 FIXTURE = os.path.join(HERE, "tests", "fixtures", "smoothed_img0.f32")
 # images_traffic, the reference's traffic sequence: 551 frames of 640x480
 TRAFFIC_FRAMES = 551
@@ -99,6 +115,14 @@ MIN_YOUNG = 20
 # (640x480, 4096 features requested)
 BATCHED_FLAGSHIP = (32, 10)
 BATCHED_REAL = (3, 10)
+# the affine run: frames of klt_tpu's bench row laptops_2000feat_affine_4level
+# cut to 100, and the frames of it the plain CPU run repeats
+AFFINE_FRAMES = 100
+AFFINE_CPU_FRAMES = 12
+# steps of the affine run whose states kernel F is held against its plain
+# version on (none verified yet, the first verification, one timed, a late
+# one with killed lanes)
+AFFINE_STEPS = (0, 1, 10, 60)
 
 
 # ------------------------------------------------------------------ #
@@ -171,6 +195,52 @@ def batched_frames(n_seq: int, n_frames: int, scale: int = 1) -> np.ndarray:
         for k in range(n_frames):
             out[b, k] = _warp_u8(img, xx, yy, lane_shift(b, k))
     return out
+
+
+# The deforming region of affine_frames, in the 320x240 scene's
+# coordinates: centre and half sides.
+AFFINE_REGION = (160.0, 120.0, 28.0, 24.0)
+
+
+def in_affine_region(x, y, scale: int = 1, margin: float = 0.0):
+    """Whether frame-0 positions (numpy) lie in the deforming region of
+    affine_frames, widened by `margin` pixels."""
+    cx, cy, hx, hy = (v * scale for v in AFFINE_REGION)
+    return (np.abs(x - cx) <= hx + margin) & (np.abs(y - cy) <= hy + margin)
+
+
+def affine_frames(n_frames: int, scale: int = 1, rate: float = 0.01,
+                  seed: int = 5) -> np.ndarray:
+    """uint8 [T, 240*scale, 320*scale] for the affine consistency check:
+    the fixture scene translated by shift(k), and inside AFFINE_REGION
+    (which moves with the scene) slowly covered and deformed: there frame
+    k shows the scene zoomed about the region's centre by 1 + 0.2 rate k
+    and blended with a smooth noise texture (made from `seed`) of weight
+    min(1, rate k).  Frame to frame the region changes little, so the
+    translation tracker follows it; against the patch saved at a
+    feature's first track it drifts apart, which is what the check
+    kills.  Outside the region the motion is the known shift(k)."""
+    base, xx, yy = _scene(scale)
+    h, w = base.shape
+    rng = np.random.RandomState(seed)
+    coarse = rng.uniform(40.0, 215.0, (h // (8 * scale) + 2,
+                                       w // (8 * scale) + 2))
+    texture = bilinear_warp(coarse, xx / (8 * scale), yy / (8 * scale))
+    cx, cy, hx, hy = (v * scale for v in AFFINE_REGION)
+    out = []
+    for k in range(n_frames):
+        tx, ty = shift(k)
+        sx, sy = xx - tx, yy - ty          # scene coordinates of a pixel
+        inside = (np.abs(sx - cx) <= hx) & (np.abs(sy - cy) <= hy)
+        zoom = 1.0 + 0.2 * rate * k
+        zx = np.where(inside, cx + (sx - cx) / zoom, sx)
+        zy = np.where(inside, cy + (sy - cy) / zoom, sy)
+        alpha = min(1.0, rate * k)
+        img = bilinear_warp(base, zx, zy)
+        img = np.where(inside, (1 - alpha) * img +
+                       alpha * bilinear_warp(texture, zx, zy), img)
+        out.append(np.clip(np.rint(img), 0, 255).astype(np.uint8))
+    return np.stack(out)
 
 
 def provided_frames():
@@ -250,6 +320,94 @@ def pyramid_cases():
         ("a frame smaller than a tile plus halo", {}, (20, 27)),
         ("gradient taps of two widths", {"grad_sigma": 0.9}, (64, 80)),
     ]
+
+
+def response_cases():
+    """Maps and windows of kernel D beside the main paths': (name, gradx,
+    grady f32 [H, W], (window_width, window_height)), noise gradients made
+    from a seed.  Flat and tall tiles, windows the kernel unrolls and
+    windows it loops over, maps that are no multiple of a tile or smaller
+    than one, values whose eigenvalue passes the 2147483583 clamp, and a
+    window that no tile holds."""
+    rng = np.random.RandomState(31)
+
+    def case(name, hw, win, scale=40.0):
+        gx, gy = ((rng.standard_normal(hw) * scale).astype(np.float32)
+                  for _ in range(2))
+        return name, gx, gy, win
+
+    return [
+        case("333x251, 7x7", (251, 333), (7, 7)),
+        case("333x251, 3x3", (251, 333), (3, 3)),
+        case("333x251, 5x9", (251, 333), (5, 9)),
+        case("333x251, 15x15", (251, 333), (15, 15)),
+        case("27x20, 7x7, a map smaller than one tile", (20, 27), (7, 7)),
+        case("27x20, 3x3", (20, 27), (3, 3)),
+        case("27x20, 15x15", (20, 27), (15, 15)),
+        case("27x20, 5x9", (20, 27), (5, 9)),
+        case("640x480, 7x7, tall tiles, values up to the clamp", (480, 640),
+             (7, 7), scale=7e3),
+        case("640x480, 5x9, tall tiles", (480, 640), (5, 9)),
+        case("333x251, 111x111, no tile: the global-memory entry",
+             (251, 333), (111, 111)),
+    ]
+
+
+def affine_cases():
+    """Made states of kernel F beside the ones taken from the affine run:
+    (name, TrackingConfig keywords, patches f32 [3, N, ph, pw], stack2 f32
+    [3, H, W], x1, y1, x2, y2 f32 [N], (axx, ayx, axy, ayy) f32 [N],
+    active bool [N]), made from a seed; each is run in modes 0, 1 and 2.
+    The image is smooth noise with a flat rectangle; a lane's patch is cut
+    around its position, which then moves by up to 0.7 px under a map up to
+    3% off the identity.  Lanes 0-3 sit in the flat rectangle (zero
+    gradients: a zero pivot), lanes 4-7 at the image's border under a map
+    of scale 1.25 (a warped corner leaves the image), lanes 8-10 hold the
+    patch of another place (a large residue), every seventh lane is
+    inactive."""
+    rng = np.random.RandomState(17)
+    h, w = 120, 160
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    img = bilinear_warp(rng.uniform(0.0, 255.0, (h // 6 + 2, w // 6 + 2)),
+                        xx / 6, yy / 6)
+    img[40:75, 60:110] = 100.0
+    gy, gx = np.gradient(img)
+    stack = np.stack([img, gx, gy]).astype(np.float32)
+
+    def case(name, kw, n=28):
+        aw = kw.get("affine_window_width", 15)
+        ah = kw.get("affine_window_height", 15)
+        ph, pw = ah + 2, aw + 2
+        cx = rng.uniform(pw, w - pw, n)
+        cy = rng.uniform(ph, h - ph, n)
+        cx[:4], cy[:4] = rng.uniform(75, 95, 4), rng.uniform(52, 62, 4)
+        cx[4:8] = [aw / 2 + 0.6, w - aw / 2 - 1.4, 40.3, 90.8]
+        cy[4:8] = [30.2, 70.7, ah / 2 + 0.4, h - ah / 2 - 1.2]
+        px0 = np.clip(cx.astype(np.int64) - pw // 2, 0, w - pw)
+        py0 = np.clip(cy.astype(np.int64) - ph // 2, 0, h - ph)
+        src = np.arange(n)
+        src[8:11] = [20, 21, 22]    # another place's patch
+        patches = np.stack([stack[:, py0[i]:py0[i] + ph, px0[i]:px0[i] + pw]
+                            for i in src], axis=1)
+        f32 = lambda a: np.ascontiguousarray(a, dtype=np.float32)
+        x1 = f32(cx - np.trunc(cx) + pw // 2)
+        y1 = f32(cy - np.trunc(cy) + ph // 2)
+        x2 = f32(cx + rng.uniform(-0.7, 0.7, n))
+        y2 = f32(cy + rng.uniform(-0.7, 0.7, n))
+        maps = [f32(d + rng.uniform(-0.03, 0.03, n)) for d in (1, 0, 0, 1)]
+        maps[0][4:8] = 1.25
+        maps[3][4:8] = 1.25
+        active = np.arange(n) % 7 != 6
+        return (name, kw, f32(patches), stack, x1, y1, x2, y2, tuple(maps),
+                active)
+
+    return [case("15x15 window", {}),
+            case("9x9 window", {"affine_window_width": 9,
+                                "affine_window_height": 9}),
+            case("11x5 window, 3 iterations",
+                 {"affine_window_width": 11, "affine_window_height": 5,
+                  "affine_max_iterations": 3}),
+            case("no active lane", {}, n=24)[:9] + (np.zeros(24, bool),)]
 
 
 def noise_frames(n: int, hw, seed: int) -> np.ndarray:
@@ -399,6 +557,31 @@ def lk_pyramid_work(stacks1, stacks2, feats, cfg) -> tuple[float, float]:
     return n_bytes, n_flops
 
 
+def affine_work(act: int, iters: int, lanes: int, cfg,
+                frame_px: int) -> tuple[float, float]:
+    """(bytes, flops) of one verify pass of kernel F for `act` live lanes
+    that ran `iters` Gauss-Newton iterations together, in a frame of
+    frame_px pixels.  Bytes: each live lane's three patch planes once, its
+    (w+1)x(h+1) 3-channel footprint in image 2 once (the window moves by
+    under a pixel from one iteration to the next, so later iterations need
+    no new bytes), all footprints together at most the frame's three
+    planes, and the lanes' state in and out.  Operations: per cell the
+    patch samples once, per iteration 3 samples, the design columns and the
+    products and sums of the normal equations, and once the residue's
+    sample; per iteration the elimination."""
+    aw, ah = cfg.affine_window_width, cfg.affine_window_height
+    mode = cfg.affine_consistency_check
+    n_par = (2, 4, 6)[mode]
+    n_bytes = act * 3 * (aw + 2) * (ah + 2) * 4 + \
+        min(act * 3 * (aw + 1) * (ah + 1) * 4, 3 * frame_px * 4) + \
+        lanes * (8 * 4 + 1 + 8 * 4)
+    per_iter = 3 * SAMPLE_FLOPS + 1 + 2 * n_par + \
+        2 * (n_par * (n_par + 1) // 2 + n_par)
+    per_cell = act * (3 if mode == 0 else 1) * SAMPLE_FLOPS + \
+        iters * per_iter + act * (SAMPLE_FLOPS + 2)
+    return n_bytes, aw * ah * per_cell + iters * 2 * n_par ** 3
+
+
 def launches_per_step(run, steps: int) -> dict:
     """Each kernel's launches per step of run(), counted on one run."""
     cuda.reset_launch_counts()
@@ -450,7 +633,8 @@ def phase_build(card: str) -> None:
     lk = ("lk_level_batched_kernel", "lk_pyramid_batched_kernel",
           "lk_level_kernel", "lk_pyramid_kernel", "pyramid_tiles",
           "hpass_global", "vpass_global", "replace_lost", "hsum_products",
-          "vsum_eigen")
+          "vsum_eigen", "response_tiles", "affine_track_kernel",
+          "affine_step_kernel")
     for line in cuda.build_log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
@@ -738,12 +922,16 @@ def phase_times(card, frames_by_size, cfg, n_feats, times, per_step):
 
 
 def phase_corner_response(frames_by_size, cfg, errs) -> None:
-    """Kernel D against its plain version on kernel A's level-0 gradients."""
+    """Kernel D against its plain version on kernel A's level-0 gradients:
+    the tiled entry, one launch."""
     for frames in frames_by_size:
         img = torch.from_numpy(frames[1]).cuda()
         _, gx, gy = build_pyramid_stacks_cuda(img, cfg)[0]
         win = (cfg.window_width, cfg.window_height)
+        before = cuda.CORNER_RESPONSE.launches
         got = corner_response_cuda(gx, gy, *win)
+        check(cuda.CORNER_RESPONSE.launches == before + 1,
+              "kernel D did not take its tiled entry on a main path's frame")
         ref = corner_response_plain(gx, gy, *win)
         torch.cuda.synchronize()
         check(torch.isfinite(got).all().item(), "non-finite response")
@@ -754,6 +942,41 @@ def phase_corner_response(frames_by_size, cfg, errs) -> None:
               f"|kernel - plain| {err:.3g}, truncated int maps equal: {ints}; "
               f"response max {got.max().item():.1f}")
         check(err == 0 and ints, "kernel D differs from its plain version")
+
+
+def phase_response_cases(errs, errs_global) -> None:
+    """Kernel D's two entries on the maps and windows of response_cases
+    (flat and tall tiles, unrolled and looped windows, maps smaller than a
+    tile, the clamp; a window no tile holds through the global-memory
+    entry): the bits of the plain version."""
+    for name, gx, gy, win in response_cases():
+        gx, gy = torch.from_numpy(gx).cuda(), torch.from_numpy(gy).cuda()
+        counts = (cuda.CORNER_RESPONSE.launches,
+                  cuda.CORNER_RESPONSE_GLOBAL.launches)
+        got = corner_response_cuda(gx, gy, *win)
+        took = (cuda.CORNER_RESPONSE.launches - counts[0],
+                cuda.CORNER_RESPONSE_GLOBAL.launches - counts[1])
+        ref = corner_response_plain(gx, gy, *win)
+        torch.cuda.synchronize()
+        untiled = library_tile_rows(*win) == 0
+        check(response_tile_rows(*win, 1 << 12, 1 << 12) ==
+              library_tile_rows(*win), "the tile rule of the plain model "
+              "differs from the library's")
+        err = (got - ref).abs().max().item()
+        bits = torch.equal(got.view(torch.int32), ref.view(torch.int32))
+        clamped = int((got == 2147483583.0).sum())
+        (errs_global if untiled else errs).append(err)
+        print(f"[7 kernel D] {name}: window {win[0]}x{win[1]}, "
+              f"{'global-memory' if untiled else 'tiled'} entry: max "
+              f"|kernel - plain| {err:.3g}, the plain version's bits: "
+              f"{bits}; {clamped} pixels at the clamp")
+        check(err == 0 and bits and torch.isfinite(got).all().item(),
+              f"kernel D differs from its plain version ({name})")
+        check(took == ((0, 1) if untiled else (1, 0)) and
+              untiled == ("no tile" in name),
+              f"unexpected choice of kernel D's entry ({name})")
+        check(("clamp" in name) == (clamped > 0),
+              f"unexpected count of clamped pixels ({name})")
 
 
 def phase_batched_pyramid(batches, cfg, errs) -> None:
@@ -1100,7 +1323,7 @@ def phase_replace_times(card, frames, n_feats, cfg, times,
     rows, cols = frames.shape[1:]
     _, gx, gy = build_pyramid_stacks_cuda(dev_frames[1], cfg)[0]
     d_ms, d_host = kernel_times(lambda: corner_response_cuda(gx, gy, *win),
-                                200, launches=2)
+                                200)
     d_plain = cuda_ms(lambda: corner_response_plain(gx, gy, *win), 20)
     d_bound = bound(*response_work(rows, cols, cfg))
     batch = dev_frames[1:1 + PRECOMP_FRAMES]
@@ -1124,7 +1347,8 @@ def phase_replace_times(card, frames, n_feats, cfg, times,
     r_bound = bound(*replace_work(rows, cols, n_feats, n_lost))
     us = lambda ms: f"{ms * 1e3:.1f}"
     print(f"[13 times] {card} | {size}, device us per call (bound; host "
-          f"enqueue; plain version on the card): kernel D {us(d_ms)} "
+          f"enqueue; plain version on the card): kernel D {us(d_ms)} = "
+          f"{d_bound[0] / d_ms:.3f} of its bound "
           f"({us(d_bound[0])} by {d_bound[1]}; {us(d_host)}; {us(d_plain)}); "
           f"kernel E {us(e_ms)} per launch of {len(batch)} frames = "
           f"{e_ms * 1e3 / len(batch):.2f} per frame ({us(e_bound[0])} by "
@@ -1146,34 +1370,71 @@ PYRAMID_KERNELS = ("pyramid_tiles", "hpass_global", "vpass_global")
 
 
 def profile_device(run, steps: int, tag: str, label: str, groups,
-                   expect=None) -> None:
+                   expect=None, per_step=None) -> None:
     """torch.profiler over run() (after one warm-up run): device busy
     share of the wall time, and each group of kernels' share of device
     time; groups maps a name to the kernel-name substrings it covers,
     expect a group's name to the device launches the run must make of
-    it."""
-    from torch.profiler import ProfilerActivity, profile
+    it, per_step is the number of all device launches a step that the run
+    must make, to a tenth.
+
+    The profiler now and then drops the first device events of its
+    window (none in a process's first seconds, a handful in one that has
+    tracked for a minute or two, a marker kernel at the head of the window
+    among them; a pause at the window's edges does not help).  So the
+    window opens with a run that is not read, and the run that is
+    read lies between two marker kernels: only the device events between
+    them are counted, the events before the first marker are counted to
+    show the loss, and a profile without both markers is not read at all.
+    A profile that differs from the expected counts is taken once more,
+    and the second one must match."""
     run()
     torch.cuda.synchronize()
+    for attempt in (1, 2):
+        wrong = _profile_once(run, steps, tag, label, groups, expect,
+                              per_step)
+        if not wrong:
+            return
+        print(f"[{tag}] {'; '.join(wrong)}"
+              f"{': profiling once more' if attempt == 1 else ''}")
+    check(False, "; ".join(wrong))
+
+
+def _profile_once(run, steps, tag, label, groups, expect, per_step) -> list:
+    """One profiled run of profile_device, printed; returns what differs
+    from the expected launch counts, a list of messages."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def marker():
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        run()   # not read: the window's first device events may be lost
+        marker()
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev_us, dev_n = {}, {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0))
-        if us > 0 and "CUDA" in str(ev.device_type):
-            dev_us[ev.key] = dev_us.get(ev.key, 0.0) + us
-            dev_n[ev.key] = dev_n.get(ev.key, 0) + ev.count
-    total = sum(dev_us.values())
-    if total <= 0:
-        print(f"[{tag}] the profiler recorded no device time: device "
+        marker()
+    events = sorted((ev for ev in prof.events()
+                     if "CUDA" in str(ev.device_type)),
+                    key=lambda ev: ev.time_range.start)
+    if not events:
+        print(f"[{tag}] the profiler recorded no device event: device "
               "busy share not measured")
-        return
-    shares, covered, ours = [], 0.0, 0
+        return []
+    marks = [i for i, ev in enumerate(events) if "spin_kernel" in ev.name]
+    if len(marks) != 2:
+        return [f"{len(marks)} of the 2 marker kernels in the profile"]
+    dev_us, dev_n = {}, {}
+    for ev in events[marks[0] + 1:marks[1]]:
+        dev_us[ev.name] = dev_us.get(ev.name, 0.0) + \
+            ev.time_range.elapsed_us()
+        dev_n[ev.name] = dev_n.get(ev.name, 0) + 1
+    total = sum(dev_us.values())
+    shares, covered, ours, wrong = [], 0.0, 0, []
     for name, keys in groups.items():
         keys = keys if isinstance(keys, tuple) else (keys,)
         mine = [k for k in dev_us if any(s in k for s in keys)]
@@ -1184,8 +1445,13 @@ def profile_device(run, steps: int, tag: str, label: str, groups,
         shares.append(f"{name} {us / total:.3f} ({us / steps:.1f} us/step, "
                       f"{n_mine} device launches)")
         want = (expect or {}).get(name)
-        check(want is None or n_mine == want, f"{name}: {n_mine} device "
-              f"launches, expected {want}")
+        if want is not None and n_mine != want:
+            wrong.append(f"{name}: {n_mine} device launches, expected "
+                         f"{want}")
+    print(f"[{tag}] the same run at the head of the profiler's window, not "
+          f"read: {marks[0]} of {marks[1] - marks[0] - 1} device events "
+          f"recorded, {time.perf_counter() - PROCESS_START:.0f} s into the "
+          f"process")
     print(f"[{tag}] {label}, {steps} steps (profiler on): wall "
           f"{wall * 1e6 / steps:.1f} us per step, device busy "
           f"{total / (wall * 1e6):.3f} of the wall time "
@@ -1198,6 +1464,11 @@ def profile_device(run, steps: int, tag: str, label: str, groups,
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
     for k, v in top:
         print(f"[{tag}]   {v / steps:9.1f} us/step  {k[:90]}")
+    if per_step is not None and \
+            abs(sum(dev_n.values()) / steps - per_step) > 0.1:
+        wrong.append(f"{sum(dev_n.values()) / steps:.2f} device launches "
+                     f"per step, expected {per_step}")
+    return wrong
 
 
 def phase_profile(frames, n_feats, cfg) -> None:
@@ -1211,15 +1482,19 @@ def phase_profile(frames, n_feats, cfg) -> None:
         len(frames) - 1, "14 profile",
         f"track_sequence_replace of {frames.shape[2]}x{frames.shape[1]}",
         {"kernel R (replace_lost)": "replace_lost",
-         "kernel D (hsum_products, vsum_eigen)": ("hsum_products",
-                                                  "vsum_eigen"),
+         "kernel D (response_tiles)": ("response_tiles", "hsum_products",
+                                       "vsum_eigen"),
          "kernel B (lk_pyramid_kernel)": "lk_pyramid_kernel",
          "kernel A (pyramid_tiles)": PYRAMID_KERNELS},
-        # one launch of R a step; the pre-smoothing and one launch per level
-        # for each frame's pyramid
+        # one launch of R and one of D a step; the pre-smoothing and one
+        # launch per level for each frame's pyramid; with B and torch's
+        # three copies of the table's rows 9.0 launches a step (the first
+        # frame's pyramid adds 3 / steps)
         expect={"kernel R (replace_lost)": len(frames) - 1,
+                "kernel D (response_tiles)": len(frames) - 1,
                 "kernel A (pyramid_tiles)":
-                    len(frames) * (1 + cfg.n_pyramid_levels)})
+                    len(frames) * (1 + cfg.n_pyramid_levels)},
+        per_step=9.0 + (1 + cfg.n_pyramid_levels) / (len(frames) - 1))
 
 
 def phase_profile_tracking(frames, n_feats, cfg) -> None:
@@ -1669,6 +1944,467 @@ def run_level_path(frames, n_feats, frames_b, feats_b, cfg, tag,
     return launches
 
 
+# ------------------------------------------------------------------ #
+# the affine consistency check, and selection from the card's response #
+# ------------------------------------------------------------------ #
+
+def affine_config(mode: int = 2, **kw):
+    """klt_tpu's bench configuration laptops_2000feat_affine_4level."""
+    return klt.TrackingConfig(sequential_mode=True,
+                              affine_consistency_check=mode,
+                              n_pyramid_levels=4, subsampling=2, **kw)
+
+
+def select_on(frame, n_feats: int, cfg):
+    fl = klt.FeatureList.create(n_feats)
+    klt.KLTracker(cfg).select_good_features(frame, fl)
+    return fl
+
+
+def affine_state_tensors(state) -> list:
+    return [state.valid, state.patches, state.x, state.y, state.axx,
+            state.ayx, state.axy, state.ayy]
+
+
+def run_affine_steps(frames, fl, cfg, steps, tag=None, errs=None):
+    """The affine run step by step on the card, launches counted: per
+    frame pair kernels A and B, then kernel F's step entry; at the step
+    indices in `steps` the verification alone is first taken by kernel F's
+    track entry, on the step's verification inputs.  Returns (for each of
+    those steps the verification's inputs (patches, stack2, x1, y1, x2, y2,
+    maps, active), the iterations each lane ran, the state's tensors before
+    the step and the step's inputs (stack1, stack2, x_old, y_old, xn, yn,
+    vn); the launch counts).
+
+    With a tag the same steps are then taken (not counted) by the step
+    entry's plain version on the card: after every step the features and
+    the per-feature state of both must be bit-equal."""
+    n_steps = max(steps) + 1
+    dev_frames = torch.from_numpy(frames[:n_steps + 1]).cuda()
+    start = [torch.from_numpy(a).cuda() for a in (fl.x, fl.y, fl.val)]
+    stacks = lambda t: build_pyramid_stacks_cuda(dev_frames[t], cfg)
+    torch.cuda.synchronize()
+
+    cuda.reset_launch_counts()
+    state = AffineState.create(len(fl.x), cfg, "cuda")
+    x, y, val = start
+    st1 = stacks(0)
+    captured, rows = {}, []
+    for t in range(n_steps):
+        st2 = stacks(t + 1)
+        xn, yn, vn = lk_pyramid_cuda(st1, st2, x, y, val, cfg)
+        if t in steps:
+            before = [a.clone() for a in affine_state_tensors(state)]
+            args = verification_inputs(state, st1[0], x, y, xn, yn, vn, cfg)
+            args = (args[0], st2[0]) + args[1:]
+            iters = track_affine_cuda(*args, cfg)[4]
+            captured[t] = args + (iters, before,
+                                  (st1[0], st2[0], x, y, xn, yn, vn))
+        x, y, val = affine_step_cuda_(state, st1[0], st2[0], x, y, xn, yn,
+                                      vn, cfg)[:3]
+        rows.append([x, y, val] + [a.clone() for a in
+                                   affine_state_tensors(state)[2:]] +
+                    [state.valid.clone()])
+        st1 = st2
+    torch.cuda.synchronize()
+    launches = {k.symbol: k.launches for k in cuda.KERNELS}
+    want = {k.symbol: 0 for k in cuda.KERNELS} | {
+        cuda.PYRAMID.symbol: n_steps + 1, cuda.LK_PYRAMID.symbol: n_steps,
+        cuda.AFFINE_STEP.symbol: n_steps,
+        cuda.AFFINE_TRACK.symbol: len(steps)}
+    check(launches == want, f"step-by-step launch counts {launches} differ "
+          f"from the expected {want}")
+    if tag is None:
+        return captured, launches
+
+    by_plain = AffineState.create(len(fl.x), cfg, "cuda")
+    x, y, val = start
+    st1 = stacks(0)
+    same, err = True, 0.0
+    for t in range(n_steps):
+        st2 = stacks(t + 1)
+        xn, yn, vn = lk_pyramid_cuda(st1, st2, x, y, val, cfg)
+        out = affine_consistency_step_plain(by_plain, st1[0], st2[0], x, y,
+                                            val, xn, yn, vn, cfg)
+        got = list(out) + affine_state_tensors(by_plain)[2:] + \
+            [by_plain.valid]
+        same &= all(torch.equal(a, b) for a, b in zip(got, rows[t]))
+        err = max(err, max((a.double() - b.double()).abs().max().item()
+                           for a, b in zip(got, rows[t])))
+        x, y, val = rows[t][:3]
+        st1 = st2
+    same_patches = torch.equal(by_plain.patches, state.patches)
+    torch.cuda.synchronize()
+    if errs is not None:
+        errs.append(err)
+    print(f"[{tag}] {n_steps} steps of {frames.shape[2]}x{frames.shape[1]}, "
+          f"{int((fl.val >= 0).sum())} features, mode "
+          f"{cfg.affine_consistency_check}, step by step: launches "
+          f"{launches}; the step entry bit-equal to its plain version on "
+          f"the card after every step (features, valid, centres, maps): "
+          f"{same}, max |step entry - plain step| {err:.3g}; all patches "
+          f"equal at the end: {same_patches}; features alive at the end "
+          f"{int((val >= 0).sum())}, with a patch "
+          f"{int(state.valid.sum())}")
+    check(same and same_patches and err == 0,
+          "kernel F's step entry and its plain version differ")
+    return captured, launches
+
+
+def flat_affine(out) -> list:
+    return [out[0], out[1], *out[2], out[3], out[4]]
+
+
+def phase_affine_kernel(states, errs) -> None:
+    """Kernel F against its plain version on the card, modes 0, 1 and 2:
+    on states of the affine run (no active lane, the first verification, a
+    later one with killed lanes) and on the made states of affine_cases
+    (zero pivots, corners that leave the image, foreign patches, small
+    windows).  Positions, maps, statuses and iteration counts bit-equal."""
+    cases = [(f"640x480 x {len(s[2])}, step {t} of the affine run", {},
+              s[:8]) for t, s in sorted(states.items())]
+    for name, kw, *arrs in affine_cases():
+        dev = [tuple(torch.from_numpy(m).cuda() for m in a)
+               if isinstance(a, tuple) else torch.from_numpy(a).cuda()
+               for a in arrs]
+        cases.append((name, kw, dev))
+    for name, kw, args in cases:
+        for mode in (0, 1, 2):
+            cfg = affine_config(mode, **kw)
+            before = cuda.AFFINE_TRACK.launches
+            got = flat_affine(track_affine_cuda(*args, cfg))
+            check(cuda.AFFINE_TRACK.launches == before + 1,
+                  "kernel F was not launched once")
+            ref = flat_affine(track_affine_plain(*args, cfg))
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, ref))
+            err = max((a.double() - b.double()).abs().max().item()
+                      for a, b in zip(got[:6], ref[:6]))
+            errs.append(err)
+            act = args[7]
+            codes, counts = np.unique(got[6][act].cpu().numpy(),
+                                      return_counts=True)
+            print(f"[22 kernel F] {name}, mode {mode}: {int(act.sum())} "
+                  f"active of {act.numel()} lanes, "
+                  f"{int(got[7].sum())} iterations; max |kernel - plain| "
+                  f"{err:.3g}, positions, maps, statuses and iterations "
+                  f"bit-equal: {same}; statuses "
+                  f"{dict(zip(codes.tolist(), counts.tolist()))}")
+            check(same and err == 0 and
+                  all(torch.isfinite(t).all().item() for t in got[:6]),
+                  f"kernel F differs from its plain version ({name}, mode "
+                  f"{mode})")
+            check(torch.equal(got[6][~act], torch.zeros_like(got[6][~act])),
+                  "an inactive lane is not TRACKED")
+
+
+def run_affine(frames, n_feats, cfg, tag, n_cpu) -> dict:
+    """The affine main path: the KLTracker loop and track_sequence_affine
+    (also with precomp) on the card, launches counted; then the plain CPU
+    run over the first n_cpu frames, the features the check killed, the
+    share still TRACKED and the known motion outside the deforming region,
+    and a run under sync debug mode.  Returns the launch counts."""
+    t_len = frames.shape[0]
+    scale = frames.shape[1] // 240
+    fl = select_on(frames[0], n_feats, cfg)
+    start = fl.copy()
+    sel = start.val >= 0
+    dev_frames = torch.from_numpy(frames).cuda()
+    feats = [torch.from_numpy(a).cuda() for a in
+             (start.x, start.y, start.val)]
+    torch.cuda.synchronize()
+
+    cuda.reset_launch_counts()
+    tracker = klt.KLTracker(cfg)
+    check(tracker.device.type == "cuda", "KLTracker did not take the card")
+    table = klt.FeatureTable.create(t_len, n_feats)
+    table.store_list(fl, 0)
+    t0 = time.perf_counter()
+    for i in range(1, t_len):
+        tracker.track_features(frames[i - 1], frames[i], fl)
+        table.store_list(fl, i)
+    t_tracker = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = track_sequence_affine(dev_frames, *feats, cfg)
+    torch.cuda.synchronize()
+    t_kern = time.perf_counter() - t0
+    pre = track_sequence_affine(dev_frames, *feats, cfg, precomp=True)
+    torch.cuda.synchronize()
+    launches = {k.symbol: k.launches for k in cuda.KERNELS}
+    steps = t_len - 1
+    want = {k.symbol: 0 for k in cuda.KERNELS} | {
+        cuda.PYRAMID.symbol: 2 * t_len + 1,
+        cuda.PYRAMID_BATCHED.symbol: -(-steps // PRECOMP_FRAMES),
+        cuda.LK_PYRAMID.symbol: 3 * steps,
+        cuda.AFFINE_STEP.symbol: 3 * steps}
+    print(f"[{tag}] launches {launches} (expected {want})")
+    check(launches == want, "affine path launch counts differ from the "
+          "expected")
+
+    xs, ys, vs = (a.cpu().numpy() for a in out)
+    check(xs.shape == (steps, n_feats) and np.isfinite(xs).all() and
+          np.isfinite(ys).all(), "bad track_sequence_affine table")
+    same_pre = all(torch.equal(a, b) for a, b in zip(out, pre))
+    agree = float(np.mean(vs == table.val[:, 1:].T))
+    same_tracker = (np.array_equal(xs, table.x[:, 1:].T) and
+                    np.array_equal(ys, table.y[:, 1:].T) and
+                    np.array_equal(vs, table.val[:, 1:].T))
+    n_cpu = min(n_cpu, steps)
+    cpu = [a.numpy() for a in track_sequence_affine(
+        torch.from_numpy(frames[:n_cpu + 1]),
+        *[torch.from_numpy(a) for a in (start.x, start.y, start.val)], cfg)]
+    card_cpu = all(np.array_equal(a[:n_cpu], b)
+                   for a, b in zip((xs, ys, vs), cpu))
+    print(f"[{tag}] {frames.shape[2]}x{frames.shape[1]}, {t_len} frames, "
+          f"mode {cfg.affine_consistency_check}, {cfg.n_pyramid_levels} "
+          f"levels of subsampling {cfg.subsampling}: {int(sel.sum())} of "
+          f"{n_feats} requested features selected; track_sequence_affine "
+          f"{t_kern:.3f} s, precomp bit-equal: {same_pre}; KLTracker loop "
+          f"{t_tracker:.3f} s, status agreement {agree:.4f}, tables "
+          f"identical: {same_tracker}; card bit-equal to the CPU plain run "
+          f"over {n_cpu} frames: {card_cpu}")
+    check(same_pre, "precomp=True differs from precomp=False")
+    check(agree >= 0.97 and same_tracker,
+          "track_sequence_affine and KLTracker disagree")
+    check(card_cpu, "card run differs from the plain CPU run")
+
+    # what the check killed: TRACKED to the end without it, lost with it
+    free = track_sequence(dev_frames, *feats, dataclasses.replace(
+        cfg, affine_consistency_check=-1))[2].cpu().numpy()
+    killed = sel & (free[-1] == klt.TRACKED) & (vs[-1] < 0)
+    inside = in_affine_region(start.x, start.y, scale,
+                              margin=cfg.affine_window_width)
+    outside = sel & ~inside
+    codes, counts = np.unique(vs[-1][killed], return_counts=True)
+    first = (vs < 0).argmax(axis=0)[killed] + 1
+    tracked_out = float((vs[-1][outside] == klt.TRACKED).mean())
+    tracked_in = float((vs[-1][sel & inside] == klt.TRACKED).mean())
+    free_out = float((free[-1][outside] == klt.TRACKED).mean())
+    print(f"[{tag}] killed by the check (TRACKED to frame {steps} without "
+          f"it): {int(killed.sum())} features, "
+          f"{int((killed & inside).sum())} of them in the deforming region "
+          f"(which holds {int((sel & inside).sum())}), as "
+          f"{dict(zip(codes.tolist(), counts.tolist()))}, at frames "
+          f"{int(first.min()) if first.size else 0}-"
+          f"{int(first.max()) if first.size else 0}; still TRACKED at frame "
+          f"{steps}: {tracked_out:.4f} of the {int(outside.sum())} outside "
+          f"the region ({free_out:.4f} without the check: the translation "
+          f"tracker loses the features that the scene's motion carries "
+          f"over the {cfg.borderx} px border), {tracked_in:.4f} inside")
+    check(killed.sum() >= 5 and (killed & inside).sum() >= 5,
+          "the check killed too few features")
+    check(tracked_out >= 0.90, f"only {tracked_out} of the features "
+          "outside the deforming region still tracked")
+
+    worst_med, worst_frac, errs_1 = 0.0, 1.0, None
+    for k in range(1, t_len):
+        tx, ty = shift(k)
+        ok = outside & (vs[k - 1] == klt.TRACKED)
+        err = np.maximum(np.abs(xs[k - 1][ok] - start.x[ok] - tx),
+                         np.abs(ys[k - 1][ok] - start.y[ok] - ty))
+        errs_1 = err if errs_1 is None else errs_1
+        worst_med = max(worst_med, float(np.median(err)))
+        worst_frac = min(worst_frac, float((err <= 1.0).mean()))
+    print(f"[{tag}] error against the known motion outside the region: "
+          f"frame 1 median {np.median(errs_1):.4f} px; worst frame median "
+          f"{worst_med:.4f} px, worst share within 1 px {worst_frac:.4f}")
+    check(np.median(errs_1) <= 0.15, "frame 1 median error above 0.15 px")
+    check(worst_med <= 0.5, "a frame's median error is above 0.5 px")
+    check(worst_frac >= 0.90, "under 90% of a frame's tracks within 1 px")
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        track_sequence_affine(dev_frames[:12], *feats, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"[{tag}] track_sequence_affine ran under sync debug mode "
+          f"\"error\": no host sync")
+    return launches
+
+
+def phase_affine_times(card, frames, n_feats, cfg, states, small, times,
+                       per_step) -> None:
+    """Frames/s of the affine run, its launches per step, and kernel F
+    alone on states of the run at 640x480 and (`small`) at 320x240 with
+    150 features."""
+    size = f"{frames.shape[2]}x{frames.shape[1]}"
+    fl = select_on(frames[0], n_feats, cfg)
+    dev_frames = torch.from_numpy(frames).cuda()
+    feats = [torch.from_numpy(a).cuda() for a in (fl.x, fl.y, fl.val)]
+    n_plain = min(11, len(frames))
+    runs = lambda v: [round(f, 1) for f in v]
+    k_fps = sequence_fps(dev_frames, feats, cfg, False, 5,
+                         seq=track_sequence_affine)
+    p_fps = sequence_fps(dev_frames, feats, cfg, False, 5,
+                         seq=track_sequence_affine, precomp=True)
+    c_fps = sequence_fps(dev_frames[:n_plain], feats, cfg, True, 1,
+                         seq=track_sequence_affine)
+    spread = max(k_fps) / min(k_fps)
+    print(f"[24 times] {card} | track_sequence_affine {size}, "
+          f"{len(frames)} frames, {int((fl.val >= 0).sum())} features, mode "
+          f"{cfg.affine_consistency_check}: kernels "
+          f"{np.median(k_fps):.1f} frames/s = "
+          f"{1e6 / np.median(k_fps):.1f} us of wall per step (runs "
+          f"{runs(k_fps)}, max / min {spread:.2f}"
+          f"{': unresolved' if spread > 1.2 else ''}), precomp "
+          f"{np.median(p_fps):.1f} frames/s (runs {runs(p_fps)}), plain "
+          f"torch on the card {np.median(c_fps):.1f} frames/s over "
+          f"{n_plain} frames (runs {runs(c_fps)})", flush=True)
+    per_step["track_sequence_affine"] = launches_per_step(
+        lambda: track_sequence_affine(dev_frames, *feats, cfg),
+        len(frames) - 1)
+
+    us = lambda ms: f"{ms * 1e3:.1f}"
+    for label, state, key in (
+            (f"{size}, step {AFFINE_STEPS[2]} of the run", states,
+             "affine_track"),
+            ("320x240 x 150 requested, step 5 of its run", small, None)):
+        args, iters = state[:8], state[8]
+        f_ms, f_host = kernel_times(lambda: track_affine_cuda(*args, cfg),
+                                    200)
+        f_plain = cuda_ms(lambda: track_affine_plain(*args, cfg), 3)
+        act = int(args[7].sum())
+        f_bound = bound(*affine_work(act, int(iters.sum()), args[7].numel(),
+                                     cfg, args[1][0].numel()))
+        print(f"[24 times] {card} | kernel F, {label}: {act} active of "
+              f"{args[7].numel()} lanes, {int(iters.sum())} iterations "
+              f"({int(iters.sum()) / max(act, 1):.2f} a lane), device us per "
+              f"call {us(f_ms)} = {f_bound[0] / f_ms:.4f} of its bound "
+              f"({us(f_bound[0])} by {f_bound[1]}; host enqueue "
+              f"{us(f_host)}; plain version on the card {us(f_plain)}); 1 "
+              f"launch a call", flush=True)
+        if key:
+            times[key] = {"ms": f_ms, "plain_ms": f_plain,
+                          "bound_ms": f_bound[0], "bound_by": f_bound[1]}
+
+    # the step entry on the same step: it updates the state in place, so
+    # every call gets its own copy of the state before the step, made
+    # before the timed window
+    before, inputs = states[9], states[10]
+    x_old, y_old = inputs[2], inputs[3]
+    reps = 100
+
+    def copies(n):
+        return iter([AffineState(*(a.clone() for a in before))
+                     for _ in range(n)])
+
+    run = inputs[6] == klt.TRACKED
+    n_init = int((run & ~before[0]).sum())
+    act, iters = int((run & before[0]).sum()), int(states[8].sum())
+    by, fl_ = affine_work(act, iters, run.numel(), cfg, inputs[0][0].numel())
+    ph, pw = before[1].shape[-2:]
+    s_bound = bound(by + n_init * 2 * 3 * ph * pw * 4 + run.numel() * 8 * 4,
+                    fl_)
+    ring = copies(2 * reps + 1)
+    s_ms, s_host = kernel_times(
+        lambda: affine_step_cuda_(next(ring), inputs[0], inputs[1], x_old,
+                                  y_old, *inputs[4:], cfg), reps)
+    ring = copies(4)
+    s_plain = cuda_ms(lambda: affine_consistency_step_plain(
+        next(ring), inputs[0], inputs[1], x_old, y_old, None, *inputs[4:],
+        cfg), 3)
+    print(f"[24 times] {card} | kernel F's step entry, {size}, step "
+          f"{AFFINE_STEPS[2]} of the run: {act} lanes verified, {n_init} "
+          f"save a patch, device us per call {us(s_ms)} = "
+          f"{s_bound[0] / s_ms:.4f} of its bound ({us(s_bound[0])} by "
+          f"{s_bound[1]}; host enqueue {us(s_host)}; plain version on the "
+          f"card {us(s_plain)}), each call on its own copy of the state "
+          f"made beforehand; 1 launch a step and no torch operation",
+          flush=True)
+    times["affine_step"] = {"ms": s_ms, "plain_ms": s_plain,
+                            "bound_ms": s_bound[0], "bound_by": s_bound[1]}
+
+
+def phase_affine_profile(frames, n_feats, cfg) -> None:
+    """torch.profiler over track_sequence_affine with kernels."""
+    fl = select_on(frames[0], n_feats, cfg)
+    dev_frames = torch.from_numpy(frames).cuda()
+    feats = [torch.from_numpy(a).cuda() for a in (fl.x, fl.y, fl.val)]
+    profile_device(
+        lambda: track_sequence_affine(dev_frames, *feats, cfg),
+        len(frames) - 1, "25 profile",
+        f"track_sequence_affine of {frames.shape[2]}x{frames.shape[1]}, "
+        f"{int((fl.val >= 0).sum())} features, mode "
+        f"{cfg.affine_consistency_check}",
+        {"kernel F (affine_step_kernel)": "affine_step_kernel",
+         "kernel B (lk_pyramid_kernel)": "lk_pyramid_kernel",
+         "kernel A (pyramid_tiles)": PYRAMID_KERNELS},
+        expect={"kernel F (affine_step_kernel)": len(frames) - 1,
+                "kernel A (pyramid_tiles)":
+                    len(frames) * (1 + cfg.n_pyramid_levels)})
+
+
+# A selection window no tile of kernel D holds, in a configuration whose
+# smoothing taps and borders stay legal.
+WIDE_WINDOW = {"window_width": 111, "window_height": 111,
+               "smooth_sigma_fact": 0.02, "borderx": 60, "bordery": 60,
+               "n_pyramid_levels": 2, "subsampling": 4}
+
+
+def run_device_selection(frame, n_feats, tag, card, times) -> dict:
+    """KLTracker.select_good_features from the response computed on the
+    card (KLT_TPU_EXACT_SELECT=0: kernel A's level 0, then kernel D), with
+    the default window (the tiled entry) and with a 111x111 window (the
+    global-memory entry); picks equal to the same selection on the CPU.
+    Returns the launch counts."""
+    saved = os.environ.get("KLT_TPU_EXACT_SELECT")
+    os.environ["KLT_TPU_EXACT_SELECT"] = "0"
+    try:
+        cuda.reset_launch_counts()
+        picks = []
+        for kw in ({}, WIDE_WINDOW):
+            fl = select_on(frame, n_feats, klt.TrackingConfig(**kw))
+            picks.append(fl)
+        torch.cuda.synchronize()
+        launches = {k.symbol: k.launches for k in cuda.KERNELS}
+        for kw, fl in zip(({}, WIDE_WINDOW), picks):
+            cfg = klt.TrackingConfig(**kw)
+            ref = klt.FeatureList.create(n_feats)
+            klt.KLTracker(cfg, device="cpu").select_good_features(frame, ref)
+            same = (np.array_equal(fl.x, ref.x) and
+                    np.array_equal(fl.y, ref.y) and
+                    np.array_equal(fl.val, ref.val))
+            print(f"[{tag}] {frame.shape[1]}x{frame.shape[0]}, window "
+                  f"{cfg.window_width}x{cfg.window_height}: "
+                  f"{fl.count_remaining()} of {n_feats} features selected "
+                  f"from the card's response; picks equal to the CPU's: "
+                  f"{same}")
+            check(same and fl.count_remaining() > 0,
+                  "selection from the card's response differs from the CPU's")
+    finally:
+        if saved is None:
+            os.environ.pop("KLT_TPU_EXACT_SELECT")
+        else:
+            os.environ["KLT_TPU_EXACT_SELECT"] = saved
+    want = {k.symbol: 0 for k in cuda.KERNELS} | {
+        cuda.PYRAMID.symbol: 2, cuda.CORNER_RESPONSE.symbol: 1,
+        cuda.CORNER_RESPONSE_GLOBAL.symbol: 1}
+    print(f"[{tag}] launches {launches} (expected {want})")
+    check(launches == want, "selection path launch counts differ from the "
+          "expected")
+
+    # the global-memory entry alone, on this frame's gradients
+    cfg = klt.TrackingConfig(**WIDE_WINDOW)
+    win = (cfg.window_width, cfg.window_height)
+    _, gx, gy = build_pyramid_stacks_cuda(torch.from_numpy(frame).cuda(),
+                                          klt.TrackingConfig())[0]
+    check(library_tile_rows(*win) == 0, "the wide window fits a tile")
+    g_ms, g_host = kernel_times(lambda: corner_response_cuda(gx, gy, *win),
+                                50, launches=2)
+    g_plain = cuda_ms(lambda: corner_response_plain(gx, gy, *win), 3)
+    g_bound = bound(*response_work(*frame.shape, cfg))
+    print(f"[{tag}] {card} | kernel D's global-memory entry, "
+          f"{frame.shape[1]}x{frame.shape[0]}, window {win[0]}x{win[1]}, "
+          f"device us per call {g_ms * 1e3:.1f} ({g_bound[0] * 1e3:.1f} by "
+          f"{g_bound[1]}; host enqueue {g_host * 1e3:.1f}; plain version on "
+          f"the card {g_plain * 1e3:.1f}), 2 device launches")
+    times["corner_response_global"] = {
+        "ms": g_ms, "plain_ms": g_plain, "bound_ms": g_bound[0],
+        "bound_by": g_bound[1]}
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -1692,6 +2428,8 @@ def main() -> int:
         real_b = batched_frames(*BATCHED_REAL, scale=2)
         flag_feats = batched_features(flag_b, 150, cfg)
         real_feats = batched_features(real_b, 4096, cfg)
+        aff = affine_frames(AFFINE_FRAMES, scale=2)
+        aff_small = affine_frames(10)
     print("[inputs] synthetic frames: fixture scene translated by "
           "(3.2 sin 0.3k, 2.1 sin 0.23k) px, bilinear, u8; "
           f"{len(qvga)} x 320x240 and {len(traffic)} x 640x480 (scene "
@@ -1699,8 +2437,13 @@ def main() -> int:
           f"320x240 and {len(real_b)} x {real_b.shape[1]} x 640x480, "
           "sequence b the scene flipped by b % 4 (none, x, y, both) and "
           "moved along its own path (lane_shift), features selected on "
-          "each sequence's frame 0", flush=True)
+          "each sequence's frame 0; affine: "
+          f"{len(aff)} x 640x480 and {len(aff_small)} x 320x240, the same "
+          "motion with a region of 112x96 (56x48) px slowly covered by a "
+          "noise texture (weight 0.01 k) and zoomed (1 + 0.002 k)",
+          flush=True)
     errs = {k.symbol: [] for k in cuda.KERNELS}
+    times = {}
     with phase("2 kernel A"):
         phase_pyramid((qvga, vga), cfg, errs[cuda.PYRAMID.symbol])
     with phase("2, 8 kernels A, E, configurations"):
@@ -1712,6 +2455,8 @@ def main() -> int:
     with phase("7 kernel D"):
         phase_corner_response((qvga, vga), cfg,
                               errs[cuda.CORNER_RESPONSE.symbol])
+        phase_response_cases(errs[cuda.CORNER_RESPONSE.symbol],
+                             errs[cuda.CORNER_RESPONSE_GLOBAL.symbol])
     with phase("8 kernel E"):
         phase_batched_pyramid((qvga[:10], traffic[:PRECOMP_FRAMES]), cfg,
                               errs[cuda.PYRAMID_BATCHED.symbol])
@@ -1737,6 +2482,20 @@ def main() -> int:
              ("one level", one_level)),
             errs[cuda.LK_PYRAMID.symbol],
             errs[cuda.LK_PYRAMID_BATCHED.symbol])
+
+    acfg = affine_config()
+    # path 7: the affine run step by step, with the verification alone
+    # (kernel F's track entry) at some of its steps; their states feed the
+    # kernel's checks and times
+    with phase("22 kernel F"):
+        aff_states, step_launches = run_affine_steps(
+            aff, select_on(aff[0], 2000, acfg), acfg, AFFINE_STEPS,
+            "22 kernel F", errs[cuda.AFFINE_STEP.symbol])
+        small_state = run_affine_steps(
+            aff_small, select_on(aff_small[0], 150, acfg), acfg, (5,))[0][5]
+        phase_affine_kernel({t: aff_states[t] for t in AFFINE_STEPS
+                             if t != AFFINE_STEPS[2]},
+                            errs[cuda.AFFINE_TRACK.symbol])
 
     # main path 1: tracking (example3)
     cuda.reset_launch_counts()
@@ -1799,10 +2558,21 @@ def main() -> int:
         level_launches = run_level_path(vga[:20], 2000, flag_b, flag_feats,
                                         cfg, "21 level path", per_step)
 
+    # main path 5: tracking with the affine consistency check (laptops);
+    # run_affine counts and checks its launches
+    with phase("23 affine"):
+        affine_launches = run_affine(aff, 2000, acfg, "23 affine",
+                                     n_cpu=AFFINE_CPU_FRAMES)
+
+    # path 6: selection from the card's response, both entries of kernel D
+    with phase("26 device selection"):
+        select_launches = run_device_selection(vga[0], 500,
+                                               "26 device selection", card,
+                                               times)
+
     with phase("12 no sync"):
         phase_no_sync(traffic[:PRECOMP_FRAMES + 2], 500, cfg)
 
-    times = {}
     with phase("6 times"):
         phase_times(card, (qvga, vga), cfg, (150, 2000), times, per_step)
     with phase("13 times"):
@@ -1816,13 +2586,21 @@ def main() -> int:
                             per_step)
     with phase("19 profile"):
         phase_batched_profile(flag_b, flag_feats, cfg)
+    with phase("24 times"):
+        phase_affine_times(card, aff, 2000, acfg,
+                           aff_states[AFFINE_STEPS[2]], small_state, times,
+                           per_step)
+    with phase("25 profile"):
+        phase_affine_profile(aff[:PRECOMP_FRAMES + 1], 2000, acfg)
 
     # A and B's entries at 640x480 with 2000 features requested, D, E and
-    # R at the traffic run's 640x480 with 500, C's entries at 32 x 320x240
-    # x 150.  No single PyTorch call computes any of these functions (a
-    # chain of separable passes with decimation, a Newton loop that ends by
-    # the data, a fused product, box sum and eigenvalue, a greedy loop), so
-    # library_ms is null throughout.
+    # R at the traffic run's 640x480 with 500 (D's global-memory entry with
+    # a 111x111 window), C's entries at 32 x 320x240 x 150, F at step 10 of
+    # the affine run's 640x480 with 2000 requested.  No single PyTorch call
+    # computes any of these functions (a chain of separable passes with
+    # decimation, a Newton loop that ends by the data, a fused product, box
+    # sum and eigenvalue, a greedy loop, a Gauss-Newton loop with an
+    # elimination per step), so library_ms is null throughout.
     report = {"kernels": []}
     names = {cuda.PYRAMID: "pyramid", cuda.LK_LEVEL: "lk_level",
              cuda.LK_PYRAMID: "lk_pyramid",
@@ -1830,14 +2608,19 @@ def main() -> int:
              cuda.PYRAMID_BATCHED: "pyramid_batched",
              cuda.REPLACE_LOST: "replace_lost",
              cuda.LK_LEVEL_BATCHED: "lk_level_batched",
-             cuda.LK_PYRAMID_BATCHED: "lk_pyramid_batched"}
+             cuda.LK_PYRAMID_BATCHED: "lk_pyramid_batched",
+             cuda.CORNER_RESPONSE_GLOBAL: "corner_response_global",
+             cuda.AFFINE_TRACK: "affine_track",
+             cuda.AFFINE_STEP: "affine_step"}
     for k in cuda.KERNELS:
         name = names[k]
         report["kernels"].append({
             "name": name, "route": "cuda", "source": k.source,
             "replaces": k.replaces,
             "launches": track_launches[k.symbol] + replace_launches[k.symbol]
-            + batched_launches[k.symbol] + level_launches[k.symbol],
+            + batched_launches[k.symbol] + level_launches[k.symbol]
+            + affine_launches[k.symbol] + select_launches[k.symbol]
+            + step_launches[k.symbol],
             "max_abs_err": max(errs[k.symbol]), **times[name],
             "library_ms": None,
             "launches_per_step": {path: counts[k.symbol]

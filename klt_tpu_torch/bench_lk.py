@@ -1,7 +1,7 @@
 """Times of the kernels inside the sequence entry points, on one GPU.
 
     python3 -m klt_tpu_torch.bench_lk [--tag NAME] [--reps N]
-                                      [--wrapper-only]
+                                      [--wrapper-only] [--kernels-only]
 
 run from the root of a checkout (it takes its synthetic frames from
 chip_smoke.py).  For each cell it prints one JSON line: frames/s and wall
@@ -11,12 +11,14 @@ the LK kernels, of the pyramid kernels (A, E), of the replacement (R) and
 the corner response (D) and of everything else, the device launches per
 step, and the device-busy share of the wall time.
 
-Then one JSON line of device us per call of kernels A, E and R alone
+Then one JSON line of device us per call of kernels A, E, R and D alone
 (CUDA events around back-to-back calls with the host enqueued ahead):
 A at 320x240 and 640x480, E at 32 x 320x240 and 64 x 640x480, R at
 640x480 with 500 slots on a tracked state with lost slots and on one with
-none; and, from torch.profiler, the device us of each launch of one call
-of A and of E, in order.
+none, D on kernel A's level-0 gradients at 320x240 and 640x480 (7x7
+window); and, from torch.profiler, the device us of each launch of one
+call of A, of E and of D, in order.  --kernels-only prints that line
+alone.
 
 A last JSON line gives the host's cost of enqueueing one frame pair at
 640x480 (clock around a tight loop of calls, nothing awaited): the LK
@@ -74,7 +76,7 @@ def profile(run, steps: int) -> dict:
     lk_n = all_n = 0
     groups = {"pyramid": ("hpass", "vpass", "pyramid_tiles"),
               "replace": ("replace_lost",),
-              "response": ("hsum_products", "vsum_eigen")}
+              "response": ("hsum_products", "vsum_eigen", "response_tiles")}
     group_us = dict.fromkeys(groups, 0.0)
     group_n = dict.fromkeys(groups, 0)
     for ev in prof.key_averages():
@@ -182,8 +184,9 @@ def launch_times(fn) -> list:
 
 
 def kernel_costs(cfg, tag: str, card: str) -> None:
-    """Device us per call of kernels A, E and R alone."""
+    """Device us per call of kernels A, E, R and D alone."""
     from chip_smoke import kernel_times, lost_state
+    from klt_tpu_torch.cuda.corner_response import corner_response_cuda
     from klt_tpu_torch.cuda.pyramid import (
         build_pyramid_stacks_batched_cuda, build_pyramid_stacks_cuda)
     from klt_tpu_torch.cuda.replace import replace_lost_cuda_
@@ -209,6 +212,11 @@ def kernel_costs(cfg, tag: str, card: str) -> None:
     out["the input copies"] = us(fresh, 100)
     out["R 640x480, no slot lost"] = us(
         lambda: replace_lost_cuda_(resp, *live, cfg), 100)
+    win = (cfg.window_width, cfg.window_height)
+    grads = {"D 320x240": build_pyramid_stacks_cuda(qvga[0], cfg)[0][1:],
+             "D 640x480": build_pyramid_stacks_cuda(vga[1], cfg)[0][1:]}
+    for name, (gx, gy) in grads.items():
+        out[name] = us(lambda: corner_response_cuda(gx, gy, *win), 200)
     per_launch = {
         "A 320x240": launch_times(
             lambda: build_pyramid_stacks_cuda(qvga[0], cfg)),
@@ -217,7 +225,9 @@ def kernel_costs(cfg, tag: str, card: str) -> None:
         "E 32 x 320x240": launch_times(
             lambda: build_pyramid_stacks_batched_cuda(qvga, cfg)),
         "E 64 x 640x480": launch_times(
-            lambda: build_pyramid_stacks_batched_cuda(vga[1:], cfg))}
+            lambda: build_pyramid_stacks_batched_cuda(vga[1:], cfg)),
+        **{name: launch_times(lambda: corner_response_cuda(gx, gy, *win))
+           for name, (gx, gy) in grads.items()}}
     print(json.dumps({"tag": tag, "card": card, "device_us_per_call": out,
                       "device_us_per_launch": per_launch}), flush=True)
 
@@ -227,6 +237,7 @@ def main() -> int:
     ap.add_argument("--tag", default="this")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--wrapper-only", action="store_true")
+    ap.add_argument("--kernels-only", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("bench_lk: no CUDA device", file=sys.stderr)
@@ -240,6 +251,9 @@ def main() -> int:
     dev = lambda arrs: [torch.from_numpy(a).cuda() for a in arrs]
     if args.wrapper_only:
         wrapper_costs(cfg, args.tag, card)
+        return 0
+    if args.kernels_only:
+        kernel_costs(cfg, args.tag, card)
         return 0
 
     qvga = synthetic_frames(10)

@@ -29,7 +29,7 @@ from .._build import BUILD_DIR, compile_shared, is_stale, repo_path
 
 SOURCES = [repo_path("klt_tpu_torch", "csrc", name)
            for name in ("pyramid.cu", "lk_level.cu", "corner_response.cu",
-                        "replace.cu")]
+                        "replace.cu", "affine.cu")]
 LIB = os.path.join(BUILD_DIR, "libklt_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
@@ -97,6 +97,13 @@ def load_library() -> ctypes.CDLL:
             getattr(lib, name).restype = ctypes.c_int
         lib.klt_pyramid_needs_scratch.argtypes = [_I, _I, _I]
         lib.klt_pyramid_needs_scratch.restype = ctypes.c_int
+        lib.klt_corner_response_tile.argtypes = [_I, _I]
+        lib.klt_corner_response_tile.restype = ctypes.c_int
+        lib.klt_affine_max_cells.argtypes = []
+        lib.klt_affine_max_cells.restype = ctypes.c_int
+        if lib.klt_affine_max_cells() != AFFINE_MAX_CELLS:
+            raise RuntimeError("AFFINE_MAX_CELLS differs from the library's "
+                               "KLT_AFFINE_MAX_CELLS")
         if lib.klt_lk_max_levels() != LK_MAX_LEVELS:
             raise RuntimeError("LK_MAX_LEVELS differs from the library's "
                                "KLT_MAX_LEVELS")
@@ -170,8 +177,17 @@ PYRAMID_BATCHED = Kernel(
     source="klt_tpu_torch/csrc/pyramid.cu",
     replaces="klt_tpu/pallas/pyramid.py:247")
 
+# Kernel D, tiled in shared memory: one launch, no scratch.
 CORNER_RESPONSE = Kernel(
     "klt_corner_response",
+    # gradx, grady, rows, cols, window w/h, out, stream
+    [_P, _P, _I, _I, _I, _I, _P, _P],
+    source="klt_tpu_torch/csrc/corner_response.cu",
+    replaces="klt_tpu/pallas/selection.py:28")
+
+# Kernel D for a window that no tile holds: two global-memory passes.
+CORNER_RESPONSE_GLOBAL = Kernel(
+    "klt_corner_response_global",
     # gradx, grady, rows, cols, window w/h, out, scratch, stream
     [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     source="klt_tpu_torch/csrc/corner_response.cu",
@@ -228,13 +244,43 @@ LK_PYRAMID_BATCHED = Kernel(
     source="klt_tpu_torch/csrc/lk_level.cu",
     replaces="klt_tpu/pallas/lk.py:60")
 
+# Kernel F, not a TPU kernel either: klt_tpu runs the Gauss-Newton loop of
+# the affine consistency check as XLA only.
+AFFINE_TRACK = Kernel(
+    "klt_affine_track",
+    # patches, stack2, rows, cols, x1, y1, x2, y2, axx, ayx, axy, ayy,
+    # active, n, mode, window w/h, max_iterations, min_displacement,
+    # affine_min_displacement, max_displacement_differ, max_residue,
+    # step_factor, min_determinant, x2, y2, axx, ayx, axy, ayy out,
+    # status, iters, stream
+    [_P, _P, _I, _I] + [_P] * 9 + [_I] * 5 + [_F] * 6 + [_P] * 9,
+    source="klt_tpu_torch/csrc/affine.cu",
+    replaces="klt_tpu/ops/affine.py:235")
+
+# Kernel F with the tracker's step around it: which lanes save a patch,
+# which are verified, and the state's update, all in the one launch.
+AFFINE_STEP = Kernel(
+    "klt_affine_step",
+    # patches, stack1, stack2, rows, cols, valid, patch centre x/y, axx,
+    # ayx, axy, ayy (the state, in place), x_old, y_old, xn, yn, vn, n,
+    # mode, window w/h, max_iterations, the six constants of
+    # klt_affine_track, x, y, val out, iters, stream
+    [_P, _P, _P, _I, _I] + [_P] * 12 + [_I] * 5 + [_F] * 6 + [_P] * 5,
+    source="klt_tpu_torch/csrc/affine.cu",
+    replaces="klt_tpu/ops/affine.py:860")
+
 KERNELS = (PYRAMID, LK_LEVEL, CORNER_RESPONSE, PYRAMID_BATCHED, REPLACE_LOST,
-           LK_LEVEL_BATCHED, LK_PYRAMID, LK_PYRAMID_BATCHED)
+           LK_LEVEL_BATCHED, LK_PYRAMID, LK_PYRAMID_BATCHED,
+           CORNER_RESPONSE_GLOBAL, AFFINE_TRACK, AFFINE_STEP)
 
 # The side of kernel R's tiles and the most tiles its map may have (kTile
 # and kMaxTiles of csrc/replace.cu; the library returns both).
 REPLACE_TILE = 32
 REPLACE_MAX_TILES = 25000
+
+# The most cells of an affine window kernel F takes (KLT_AFFINE_MAX_CELLS
+# of csrc/affine.cu; the library's klt_affine_max_cells() returns it).
+AFFINE_MAX_CELLS = 256
 
 # The most pyramid levels a pyramid entry takes (KLT_MAX_LEVELS of
 # csrc/lk_level.cu; the library's klt_lk_max_levels() returns it).

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from .config import TrackingConfig
+from .ops.affine import AffineState
 
 # TrackingConfig fields that only steer klt_tpu's TPU kernels (re-anchor
 # rounds of the VMEM patch canvas) and have no counterpart here.
@@ -44,3 +45,28 @@ def features_from_numpy(x, y, val, device="cpu"):
     return (torch.from_numpy(np.array(x, dtype=np.float32)).to(device),
             torch.from_numpy(np.array(y, dtype=np.float32)).to(device),
             torch.from_numpy(np.array(val, dtype=np.int32)).to(device))
+
+
+_AFFINE_FIELDS = ("valid", "img", "gradx", "grady", "x", "y", "axx", "ayx",
+                  "axy", "ayy")
+
+
+def affine_state_from_numpy(fields: dict, device="cpu") -> AffineState:
+    """An AffineState on `device` from numpy arrays of the ten fields of
+    klt_tpu's `AffineState` (valid bool [N]; img, gradx, grady f32
+    [N, ph, pw]; x, y, axx, ayx, axy, ayy f32 [N])."""
+    if set(fields) != set(_AFFINE_FIELDS):
+        raise ValueError(f"expected the fields {_AFFINE_FIELDS}, got "
+                         f"{sorted(fields)}")
+    f32 = lambda name: torch.from_numpy(
+        np.array(fields[name], dtype=np.float32)).to(device)
+    return AffineState(
+        valid=torch.from_numpy(np.array(fields["valid"], dtype=bool))
+        .to(device),
+        patches=torch.stack([f32("img"), f32("gradx"), f32("grady")]),
+        **{k: f32(k) for k in ("x", "y", "axx", "ayx", "axy", "ayy")})
+
+
+def affine_state_to_numpy(state: AffineState) -> dict:
+    """The ten fields of klt_tpu's `AffineState` as numpy arrays."""
+    return {k: getattr(state, k).cpu().numpy() for k in _AFFINE_FIELDS}

@@ -10,6 +10,9 @@ as stacked [3, H_l, W_l] tensors, the pyramid kernel's output.
 * `track_sequence_replace`: tracking, then lost-feature replacement from
   the new frame's level-0 gradients, every frame (the reference's example3
   REPLACE loop, src/V3/example3GPU.c:34-88);
+* `track_sequence_affine`: tracking, then the affine consistency check
+  of every tracked feature against its saved reference patch, every frame
+  (klt_tpu's `track_sequence_affine`);
 * `track_sequence_stream`: tracking of an iterable of frames of any
   length in chunks, carrying the last pyramid on the device.
 
@@ -27,9 +30,11 @@ import itertools
 import torch
 
 from ..config import TrackingConfig
+from ..device import default_device
 from ..ops.pyramid import (build_pyramid_stacks, build_pyramid_stacks_plain,
                            build_pyramid_stacks_batched,
                            build_pyramid_stacks_batched_plain)
+from ..ops.affine import AffineState, affine_consistency_step
 from ..ops.lk import track_features_pyramid_stacks
 from ..ops.replace import replace_lost_
 from ..ops.selection import corner_response, corner_response_plain
@@ -60,7 +65,7 @@ def _frame_stacks(frames: torch.Tensor, cfg: TrackingConfig, plain: bool,
 
 
 def _run(frames, x, y, val, cfg: TrackingConfig, plain: bool,
-         precomp: bool, replace: bool):
+         precomp: bool, replace: bool = False, affine: bool = False):
     if frames.dim() != 3:
         raise ValueError(f"frames must be [T, H, W], got "
                          f"{tuple(frames.shape)}")
@@ -75,9 +80,16 @@ def _run(frames, x, y, val, cfg: TrackingConfig, plain: bool,
     build = build_pyramid_stacks_plain if plain else build_pyramid_stacks
     respond = corner_response_plain if plain else corner_response
     st1 = build(frames[0], cfg)
+    state = AffineState.create(n, cfg, frames.device) if affine else None
     for t, st2 in enumerate(_frame_stacks(frames[1:], cfg, plain, precomp)):
-        x, y, val = track_features_pyramid_stacks(st1, st2, x, y, val, cfg,
-                                                  plain=plain)
+        xn, yn, vn = track_features_pyramid_stacks(st1, st2, x, y, val, cfg,
+                                                   plain=plain)
+        if affine:
+            # level 0 of both frames, the positions before the track
+            xn, yn, vn = affine_consistency_step(
+                state, st1[0], st2[0], x, y, val, xn, yn, vn, cfg,
+                plain=plain)
+        x, y, val = xn, yn, vn
         xs[t], ys[t], vals[t] = x, y, val
         if replace:
             # the table rows are the state carried on: replacement fills
@@ -99,7 +111,7 @@ def track_sequence(frames: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     device.  Returns (xs, ys, vals) of shape [T-1, N]: the state after
     tracking into each frame t (t = 1..T-1).
     """
-    return _run(frames, x, y, val, cfg, plain, precomp, replace=False)
+    return _run(frames, x, y, val, cfg, plain, precomp)
 
 
 def track_sequence_replace(frames: torch.Tensor, x: torch.Tensor,
@@ -120,13 +132,52 @@ def track_sequence_replace(frames: torch.Tensor, x: torch.Tensor,
     return _run(frames, x, y, val, cfg, plain, precomp, replace=True)
 
 
+def _features_on(x, y, val, device):
+    """(x f32, y f32, val i32) tensors and the device they run on:
+    tensors run where they lie, numpy arrays go to the card, and `device`
+    overrides both (device="cpu" asks for the plain torch versions)."""
+    if device is None and isinstance(x, torch.Tensor):
+        dev = x.device
+    else:
+        dev = default_device(device)
+    return tuple(torch.as_tensor(a, dtype=dt).to(dev)
+                 for a, dt in ((x, torch.float32), (y, torch.float32),
+                               (val, torch.int32))), dev
+
+
+def track_sequence_affine(frames: torch.Tensor, x: torch.Tensor,
+                          y: torch.Tensor, val: torch.Tensor,
+                          cfg: TrackingConfig, plain: bool = False,
+                          precomp: bool = False):
+    """Whole-sequence tracking with the affine consistency check after
+    every frame's translation track.
+
+    Carries the per-feature affine state (reference aff_* fields,
+    src/V1/klt.h:96-105) through the loop: reference patches saved at
+    each feature's first successful track, then verified against the
+    current frame every step; drifting features are killed
+    (src/V1/trackFeatures.c:1438-1497).  cfg.affine_consistency_check
+    must be 0, 1 or 2.
+
+    frames: uint8/f32 [T, H, W]; x, y f32 [N]; val i32 [N], all on one
+    device.  Returns (xs, ys, vals) of shape [T-1, N].
+    """
+    if cfg.affine_consistency_check not in (0, 1, 2):
+        raise ValueError("track_sequence_affine needs "
+                         "affine_consistency_check 0, 1 or 2, got "
+                         f"{cfg.affine_consistency_check}")
+    return _run(frames, x, y, val, cfg, plain, precomp, affine=True)
+
+
 def track_sequence_stream(frames_iter, x, y, val, cfg: TrackingConfig,
-                          chunk: int = 64, precomp: bool = False):
+                          chunk: int = 64, precomp: bool = False,
+                          device=None):
     """Track an arbitrarily long sequence in O(chunk) device memory.
 
     frames_iter: iterable of uint8/f32 [H, W] frames (numpy or tensors),
-    the first frame included; x, y f32 [N] and val i32 [N], tensors on
-    the device to run on (numpy arrays run on the CPU).  Each chunk of
+    the first frame included; x, y f32 [N] and val i32 [N]: tensors run
+    on the device they lie on, numpy arrays on the card (a RuntimeError
+    without one), and device="cpu" asks for the CPU.  Each chunk of
     frames is uploaded in one copy; the last pyramid stays on the device
     from chunk to chunk, the unbounded version of the reference's
     sequential mode (src/V1/trackFeatures.c:1285-1294).  With precomp,
@@ -137,10 +188,7 @@ def track_sequence_stream(frames_iter, x, y, val, cfg: TrackingConfig,
     """
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-    dev = x.device if isinstance(x, torch.Tensor) else torch.device("cpu")
-    x, y, val = (torch.as_tensor(a, dtype=dt).to(dev)
-                 for a, dt in ((x, torch.float32), (y, torch.float32),
-                               (val, torch.int32)))
+    (x, y, val), dev = _features_on(x, y, val, device)
     it = iter(frames_iter)
     st1 = build_pyramid_stacks(torch.as_tensor(next(it)).to(dev), cfg)
     t = 0

@@ -19,8 +19,13 @@ KLTReplaceLostFeatures, src/V1/klt.h:150-169), bound to one torch device:
   calls — the V3 lesson (src/V3/trackFeaturesGPU.cu:481-484): never
   round-trip frames through the host.
 
-The affine consistency check is a later slice of the port (ROADMAP.md,
-queue 1, item 7).
+* with affine_consistency_check >= 0 every tracked feature is then
+  verified against the reference patch saved at its first successful
+  track (ops/affine.py) and killed when it drifted; selection and
+  replacement reset the patches of the slots they fill.
+  lighting_insensitive with the affine check is a valid combination: the
+  reference's affine stage has no gain or bias terms
+  (src/V1/trackFeatures.c:952-1220), the translation stage keeps them.
 """
 
 from __future__ import annotations
@@ -33,12 +38,14 @@ import numpy as np
 import torch
 
 from ..config import TrackingConfig
+from ..device import default_device
 from ..features import FeatureList
 from ..ops.convolve import compute_gradients
 from ..ops.exact_select import selection_response_exact
 from ..ops.selection import candidate_points, corner_response
 from ..ops.pyramid import build_pyramid_stacks
 from ..ops.lk import track_features_pyramid_stacks
+from ..ops.affine import AffineState, affine_consistency_step
 from .. import native
 
 _verbosity = 1
@@ -66,11 +73,14 @@ class KLTracker:
     """Stateful tracker bound to one TrackingConfig and one device."""
 
     def __init__(self, cfg: TrackingConfig | None = None,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device | None = None):
+        """device None is the card ("cuda"), and raises without one; the
+        CPU is taken only when the caller names it (device="cpu")."""
         self.cfg = cfg or TrackingConfig()
-        self.device = torch.device(device)
+        self.device = default_device(device)
         self.sequential = self.cfg.sequential_mode
         self._pyr_last = None  # finest-first [3, H_l, W_l] stacks
+        self._affine = None    # AffineState, made at the first track
 
     def select_good_features(self, img: np.ndarray, fl: FeatureList) -> None:
         """reference: KLTSelectGoodFeatures, src/V1/selectGoodFeatures.c:472.
@@ -88,7 +98,6 @@ class KLTracker:
 
         img: uint8 [H, W] numpy frame (the one just tracked into); the lost
         slots of fl are refilled in place or become NOT_FOUND."""
-        self._refuse_affine()
         n_lost = fl.n_features - fl.count_remaining()
         _log(f"(KLT) Attempting to replace {n_lost} features...")
         if n_lost > 0:
@@ -109,11 +118,16 @@ class KLTracker:
             response = selection_response_exact(img, cfg)
         else:
             response = self._device_response(img)
+        newly = None if overwrite_all else (fl.val < 0)
         pts = candidate_points(response, cfg, ncols, nrows)
         native.sort_points_desc(pts)
         native.min_dist_suppress(pts, fl.x, fl.y, fl.val, ncols, nrows,
                                  cfg.mindist, cfg.min_eigenvalue,
                                  overwrite_all)
+        # reset the affine reference patches of (re)selected slots
+        if cfg.affine_consistency_check >= 0 and self._affine is not None:
+            reset = np.ones(fl.n_features, bool) if overwrite_all else newly
+            self._affine.invalidate(np.nonzero(reset)[0])
 
     def _device_response(self, img: np.ndarray) -> np.ndarray:
         """The selection response computed on the tracker's device: the
@@ -131,12 +145,6 @@ class KLTracker:
         return corner_response(gx, gy, cfg.window_width,
                                cfg.window_height).cpu().numpy()
 
-    def _refuse_affine(self) -> None:
-        if self.cfg.affine_consistency_check >= 0:
-            raise NotImplementedError(
-                "affine_consistency_check >= 0 is not ported yet "
-                "(ROADMAP.md, queue 1, item 7: affine consistency check)")
-
     def _upload(self, img: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
 
@@ -146,7 +154,6 @@ class KLTracker:
 
         img1, img2: uint8 [H, W] numpy frames; fl is updated in place."""
         cfg = self.cfg
-        self._refuse_affine()
         _log(f"(KLT) Tracking {fl.count_remaining()} features in a "
              f"{img2.shape[1]} by {img2.shape[0]} image...")
 
@@ -160,9 +167,15 @@ class KLTracker:
             pyr1 = build_pyramid_stacks(self._upload(img1), cfg)
         pyr2 = build_pyramid_stacks(self._upload(img2), cfg)
 
-        xn, yn, vn = track_features_pyramid_stacks(
-            pyr1, pyr2, self._upload(fl.x), self._upload(fl.y),
-            self._upload(fl.val), cfg)
+        x, y, val = (self._upload(a) for a in (fl.x, fl.y, fl.val))
+        xn, yn, vn = track_features_pyramid_stacks(pyr1, pyr2, x, y, val,
+                                                   cfg)
+        if cfg.affine_consistency_check >= 0:
+            if self._affine is None:
+                self._affine = AffineState.create(fl.n_features, cfg,
+                                                  self.device)
+            xn, yn, vn = affine_consistency_step(
+                self._affine, pyr1[0], pyr2[0], x, y, val, xn, yn, vn, cfg)
         fl.x[:] = xn.cpu().numpy()
         fl.y[:] = yn.cpu().numpy()
         fl.val[:] = vn.cpu().numpy()

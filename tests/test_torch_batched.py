@@ -74,7 +74,8 @@ def _sequences(lighting: bool):
     val = np.full((B, N_FEAT), -1, np.int32)
     for b, n in enumerate(N_SELECT):
         fl = kt.FeatureList.create(n)
-        kt.KLTracker(kt.TrackingConfig(mindist=3)).select_good_features(
+        kt.KLTracker(kt.TrackingConfig(mindist=3),
+                     device="cpu").select_good_features(
             frames[b, 0], fl)
         x[b, :n], y[b, :n], val[b, :n] = fl.x, fl.y, fl.val
     return frames, x, y, val

@@ -1,5 +1,5 @@
-"""Kernels A, B, C, D, E and R held against their plain torch versions on
-a CUDA card.
+"""Kernels A, B, C, D, E, F and R held against their plain torch versions
+on a CUDA card.
 
 Every test here needs the card and skips without one.  The file imports
 neither jax nor klt_tpu nor conftest, so on a machine with a card and no
@@ -18,8 +18,12 @@ import pytest
 import torch
 
 import klt_tpu_torch as kt
-from chip_smoke import (batched_frames, noise_frames, pyramid_cases,
-                        replace_cases, synthetic_frames)
+from chip_smoke import (affine_cases, affine_frames, batched_frames,
+                        noise_frames, pyramid_cases, replace_cases,
+                        response_cases, synthetic_frames)
+from klt_tpu_torch.ops.affine import (AffineState, affine_consistency_step,
+                                      save_patches_plain, track_affine,
+                                      track_affine_plain, verification_inputs)
 from klt_tpu_torch.ops.lk import (lk_level, lk_level_batched_plain,
                                   lk_level_plain,
                                   track_features_pyramid_levels,
@@ -32,6 +36,7 @@ from klt_tpu_torch.ops.replace import replace_lost_, replace_lost_plain_
 from klt_tpu_torch.ops.selection import corner_response, corner_response_plain
 from klt_tpu_torch.parallel import track_sequences_batched
 from klt_tpu_torch.runtime.pipeline import (track_sequence,
+                                            track_sequence_affine,
                                             track_sequence_replace,
                                             track_sequence_stream)
 
@@ -253,6 +258,245 @@ def test_corner_response_kernel_odd_sizes(hw, dev):
               .to(dev) for _ in range(2))
     assert torch.equal(corner_response(gx, gy, 7, 7),
                        corner_response_plain(gx, gy, 7, 7))
+
+
+RESPONSE_CASES = response_cases()
+
+
+@pytest.mark.parametrize("case", range(len(RESPONSE_CASES)),
+                         ids=[c[0] for c in RESPONSE_CASES])
+def test_corner_response_entries_equal_plain(case, dev):
+    """The tiled entry (flat and tall tiles, unrolled and looped windows,
+    maps smaller than a tile, the clamp) and the global-memory entry for a
+    window no tile holds: one call each, the plain version's bits."""
+    from klt_tpu_torch import cuda
+    from klt_tpu_torch.cuda.corner_response import library_tile_rows
+    from klt_tpu_torch.ops.selection import response_tile_rows
+    name, gx, gy, win = RESPONSE_CASES[case]
+    gx, gy = torch.from_numpy(gx).to(dev), torch.from_numpy(gy).to(dev)
+    cuda.reset_launch_counts()
+    got = corner_response(gx, gy, *win)
+    untiled = "no tile" in name
+    assert (library_tile_rows(*win) == 0) == untiled
+    # the plain model's rule is the library's, on a map of many tiles
+    assert response_tile_rows(*win, 1 << 12, 1 << 12) == \
+        library_tile_rows(*win)
+    assert (cuda.CORNER_RESPONSE.launches,
+            cuda.CORNER_RESPONSE_GLOBAL.launches) == (1 - untiled, untiled)
+    ref = corner_response_plain(gx, gy, *win)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(got.cpu(),
+                       corner_response_plain(gx.cpu(), gy.cpu(), *win))
+
+
+AFFINE_CASES = affine_cases()
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("case", range(len(AFFINE_CASES)),
+                         ids=[c[0] for c in AFFINE_CASES])
+def test_affine_kernel_equals_plain_on_made_states(case, mode, dev):
+    """Kernel F on flat patches (a zero pivot), corners that leave the
+    image, foreign patches, inactive lanes and three window sizes: one
+    launch, the bits of the plain version on the card and on the CPU."""
+    from klt_tpu_torch import cuda
+    from klt_tpu_torch.cuda.affine import track_affine_cuda
+    name, kw, patches, stack2, x1, y1, x2, y2, maps, active = \
+        AFFINE_CASES[case]
+    cfg = kt.TrackingConfig(affine_consistency_check=mode, **kw)
+    t = torch.from_numpy
+    cpu = (t(patches), t(stack2), t(x1), t(y1), t(x2), t(y2),
+           tuple(t(m) for m in maps), t(active))
+    args = tuple(tuple(m.to(dev) for m in a) if isinstance(a, tuple)
+                 else a.to(dev) for a in cpu)
+    before = cuda.AFFINE_TRACK.launches
+    got = track_affine_cuda(*args, cfg)
+    assert cuda.AFFINE_TRACK.launches == before + 1
+    flat = lambda out: [out[0], out[1], *out[2], out[3], out[4]]
+    assert_equal_all(flat(got), flat(track_affine_plain(*args, cfg)))
+    assert_equal_all([g.cpu() for g in flat(got)],
+                     flat(track_affine_plain(*cpu, cfg)))
+    assert_equal_all(flat(got)[:7], flat(track_affine(*args, cfg) + (0,))[:7])
+
+
+def test_affine_step_entry_saves_patches_with_clamped_starts(dev):
+    """Lanes tracked for the first time, two of them at positions whose
+    patch would leave the image: the step entry's one launch writes the
+    patches of save_patches_plain and leaves the others as they were."""
+    from klt_tpu_torch import cuda
+    name, kw, patches, stack2, x1, y1, x2, y2, maps, active = AFFINE_CASES[0]
+    cfg = kt.TrackingConfig(affine_consistency_check=2)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    n = len(x1)
+    rng = np.random.RandomState(4)
+    state = AffineState.create(n, cfg, dev)
+    state.patches = t(patches).clone()
+    state.valid = t(rng.rand(n) < 0.5)
+    vn = torch.where(t(rng.rand(n) < 0.8), kt.TRACKED, kt.OOB).to(torch.int32)
+    init = (vn == kt.TRACKED) & ~state.valid
+    x_old, y_old = t(x2 + 3.0), t(y2 - 2.0)
+    first = init.nonzero()[:2, 0]
+    x_old[first], y_old[first] = -1.0, 500.0
+    want = save_patches_plain(state.patches, t(stack2), x_old, y_old, init)
+    before = cuda.AFFINE_STEP.launches
+    affine_consistency_step(state, t(stack2), t(stack2), x_old, y_old, vn,
+                            t(x2), t(y2), vn, cfg)
+    assert cuda.AFFINE_STEP.launches == before + 1
+    assert init.sum() >= 3
+    assert torch.equal(state.patches, want)
+    assert not torch.equal(state.patches, t(patches))
+
+
+def test_affine_kernel_rejects_bad_inputs(dev):
+    from klt_tpu_torch.cuda.affine import track_affine_cuda
+    name, kw, patches, stack2, x1, y1, x2, y2, maps, active = AFFINE_CASES[0]
+    t = lambda a: torch.from_numpy(a).to(dev)
+    good = [t(patches), t(stack2), t(x1), t(y1), t(x2), t(y2),
+            tuple(t(m) for m in maps), t(active)]
+    cfg = kt.TrackingConfig(affine_consistency_check=2)
+    for i, bad in ((0, good[0].cpu()), (0, good[0][:, :5]),
+                   (1, good[1].double()), (2, good[2][:-1]),
+                   (7, good[7].to(torch.uint8))):
+        args = list(good)
+        args[i] = bad
+        with pytest.raises(ValueError):
+            track_affine_cuda(*args, cfg)
+    with pytest.raises(ValueError, match="cells"):
+        track_affine_cuda(*good, kt.TrackingConfig(
+            affine_consistency_check=2, affine_window_width=17,
+            affine_window_height=17))
+    with pytest.raises(ValueError, match="0, 1 or 2"):
+        track_affine_cuda(*good, kt.TrackingConfig())
+
+
+@pytest.mark.parametrize("mode,kw", [(0, {}), (1, {}), (2, {}),
+                                     (2, {"lighting_insensitive": True})])
+def test_track_sequence_affine_kernels_equal_plain(mode, kw, dev):
+    """The affine path: kernels on the card equal the plain versions on
+    the card and on the CPU, with and without precomp; one launch of
+    kernel F a step; the check kills features."""
+    from klt_tpu_torch import cuda
+    cfg = kt.TrackingConfig(sequential_mode=True,
+                            affine_consistency_check=mode, **kw)
+    frames = affine_frames(8, rate=0.1)
+    fl = kt.FeatureList.create(150)
+    kt.KLTracker(cfg).select_good_features(frames[0], fl)
+    feats = [torch.from_numpy(a) for a in (fl.x, fl.y, fl.val)]
+    f = torch.from_numpy(frames)
+    featd = [a.to(dev) for a in feats]
+    cuda.reset_launch_counts()
+    got = track_sequence_affine(f.to(dev), *featd, cfg)
+    assert (cuda.AFFINE_STEP.launches, cuda.AFFINE_TRACK.launches,
+            cuda.LK_PYRAMID.launches, cuda.PYRAMID.launches) == (7, 0, 7, 8)
+    assert_equal_all(got, track_sequence_affine(f.to(dev), *featd, cfg,
+                                                plain=True))
+    assert_equal_all(got, track_sequence_affine(f.to(dev), *featd, cfg,
+                                                precomp=True))
+    assert_equal_all([g.cpu() for g in got],
+                     track_sequence_affine(f, *feats, cfg))
+    free = track_sequence(f.to(dev), *featd, cfg)
+    killed = (free[2][-1] == kt.TRACKED) & (got[2][-1] < 0)
+    assert killed.sum() >= 3
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_affine_step_entry_equals_plain_step(mode, dev):
+    """Kernel F's step entry (one launch, the state updated in place)
+    against its plain version on the card: features and state bit-equal
+    after every step, also after patches were forgotten midway (lanes that
+    save again); the track entry on the step's verification inputs gives
+    the plain verification's bits."""
+    from klt_tpu_torch import cuda
+    cfg = kt.TrackingConfig(sequential_mode=True,
+                            affine_consistency_check=mode)
+    frames = torch.from_numpy(affine_frames(8, rate=0.1)).to(dev)
+    fl = kt.FeatureList.create(150)
+    kt.KLTracker(cfg).select_good_features(frames[0].cpu().numpy(), fl)
+    x, y, val = (torch.from_numpy(a).to(dev) for a in (fl.x, fl.y, fl.val))
+    states = [AffineState.create(150, cfg, dev) for _ in range(2)]
+    fields = ("valid", "patches", "x", "y", "axx", "ayx", "axy", "ayy")
+    st1 = build_pyramid_stacks(frames[0], cfg)
+    killed = 0
+    for t in range(1, 8):
+        st2 = build_pyramid_stacks(frames[t], cfg)
+        xn, yn, vn = track_features_pyramid_stacks(st1, st2, x, y, val, cfg)
+        if t == 4:
+            for s in states:
+                s.invalidate(np.arange(0, 150, 7))
+        args = verification_inputs(states[0], st1[0], x, y, xn, yn, vn, cfg)
+        args = (args[0], st2[0]) + args[1:]
+        before = (cuda.AFFINE_STEP.launches, cuda.AFFINE_TRACK.launches)
+        flat = lambda out: [out[0], out[1], *out[2], out[3]]
+        assert_equal_all(flat(track_affine(*args, cfg)),
+                         flat(track_affine_plain(*args, cfg)))
+        outs = [affine_consistency_step(states[0], st1[0], st2[0], x, y, val,
+                                        xn, yn, vn, cfg),
+                affine_consistency_step(states[1], st1[0], st2[0], x, y, val,
+                                        xn, yn, vn, cfg, plain=True)]
+        assert (cuda.AFFINE_STEP.launches - before[0],
+                cuda.AFFINE_TRACK.launches - before[1]) == (1, 1)
+        assert_equal_all(outs[0], outs[1])
+        assert_equal_all([getattr(states[0], k) for k in fields],
+                         [getattr(states[1], k) for k in fields])
+        killed += int(((vn == kt.TRACKED) & (outs[0][2] < 0)).sum())
+        x, y, val = outs[0]
+        st1 = st2
+    assert killed >= 3 and states[0].valid.sum() > 50
+
+
+def test_affine_step_entry_rejects_bad_inputs(dev):
+    from klt_tpu_torch.cuda.affine import affine_step_cuda_
+    cfg = kt.TrackingConfig(affine_consistency_check=2)
+    stack = torch.zeros((3, 40, 50), device=dev)
+    lanes = lambda: [torch.zeros(6, device=dev) for _ in range(4)] + \
+        [torch.zeros(6, dtype=torch.int32, device=dev)]
+    good = AffineState.create(6, cfg, dev)
+    assert affine_step_cuda_(good, stack, stack, *lanes(), cfg)[2].shape == \
+        (6,)
+    with pytest.raises(ValueError):
+        affine_step_cuda_(AffineState.create(5, cfg, dev), stack, stack,
+                          *lanes(), cfg)
+    with pytest.raises(ValueError):
+        affine_step_cuda_(good, stack.cpu(), stack, *lanes(), cfg)
+    with pytest.raises(ValueError):
+        affine_step_cuda_(good, stack[:, :10], stack[:, :10], *lanes(), cfg)
+    with pytest.raises(ValueError):
+        affine_step_cuda_(AffineState.create(6, cfg, "cpu"), stack, stack,
+                          *lanes(), cfg)
+    with pytest.raises(ValueError, match="0, 1 or 2"):
+        affine_step_cuda_(good, stack, stack, *lanes(), kt.TrackingConfig())
+
+
+def test_tracker_with_the_check_on_card_equals_cpu(dev):
+    frames = affine_frames(7, rate=0.1)
+    cfg = kt.TrackingConfig(sequential_mode=True, affine_consistency_check=2)
+    out = []
+    for device in (None, "cpu"):
+        tr = kt.KLTracker(cfg, device)
+        assert tr.device.type == ("cuda" if device is None else "cpu")
+        fl = kt.FeatureList.create(150)
+        tr.select_good_features(frames[0], fl)
+        for i in range(1, 7):
+            tr.track_features(frames[i - 1], frames[i], fl)
+            tr.replace_lost_features(frames[i], fl)
+        out.append((fl, tr._affine))
+    for a, b in zip((out[0][0].x, out[0][0].y, out[0][0].val),
+                    (out[1][0].x, out[1][0].y, out[1][0].val)):
+        np.testing.assert_array_equal(a, b)
+    assert out[0][1].valid.is_cuda
+    assert torch.equal(out[0][1].valid.cpu(), out[1][1].valid)
+    assert torch.equal(out[0][1].patches.cpu()[:, out[1][1].valid],
+                       out[1][1].patches[:, out[1][1].valid])
+
+
+def test_stream_takes_numpy_features_to_the_card(dev):
+    cfg, f, feats = replace_inputs(dev, n_frames=6)
+    whole = track_sequence(f.to(dev), *[a.to(dev) for a in feats], cfg)
+    (t, x, y, val), = track_sequence_stream(
+        iter(f.numpy()), *[a.numpy() for a in feats], cfg)
+    assert t == 5
+    np.testing.assert_array_equal(x, whole[0][-1].cpu().numpy())
+    np.testing.assert_array_equal(val, whole[2][-1].cpu().numpy())
 
 
 @pytest.mark.parametrize("b,hw,kw", [

@@ -155,7 +155,8 @@ def test_selection_response_and_candidates_equal():
 def test_selection_picks_equal(n_feat, kw):
     img = fixture_frame()
     ours = kt.FeatureList.create(n_feat)
-    kt.KLTracker(kt.TrackingConfig(**kw)).select_good_features(img, ours)
+    kt.KLTracker(kt.TrackingConfig(**kw),
+                 device="cpu").select_good_features(img, ours)
     ref = klt_tpu.FeatureList.create(n_feat)
     klt_tpu.KLTracker(klt_tpu.TrackingConfig(**kw)).select_good_features(
         img, ref)

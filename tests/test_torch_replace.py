@@ -15,7 +15,7 @@ import torch
 
 import klt_tpu
 import klt_tpu_torch as kt
-from chip_smoke import replace_cases, synthetic_frames
+from chip_smoke import replace_cases, response_cases, synthetic_frames
 from klt_tpu_torch.interop import config_from_fields, features_from_numpy
 from klt_tpu_torch.ops.convolve import convolve_1d
 from klt_tpu_torch.ops.pyramid import (build_pyramid_stacks_batched,
@@ -115,6 +115,33 @@ def test_corner_response_matches_xla_path_on_the_interior(window, frames,
     assert (np.abs(ours[inner] - ref[inner]) <= tol).all()
 
 
+RESPONSE_CASES = response_cases()
+
+
+@pytest.mark.parametrize("case", range(len(RESPONSE_CASES)),
+                         ids=[c[0] for c in RESPONSE_CASES])
+def test_tiled_corner_response_bit_equal_to_plain(case):
+    """Kernel D's tiling written out in plain torch (tile by tile with
+    halos, products once per pixel, zeroing by global coordinates) gives
+    the plain version's bits on every shape the card is asked."""
+    from klt_tpu_torch.ops.selection import (_INT_LIMIT,
+                                             corner_response_tiled,
+                                             response_tile_rows)
+    name, gx, gy, win = RESPONSE_CASES[case]
+    gx, gy = torch.from_numpy(gx), torch.from_numpy(gy)
+    tiled = corner_response_tiled(gx, gy, *win)
+    plain = corner_response_plain(gx, gy, *win)
+    assert (tiled is None) == ("no tile" in name)
+    if tiled is not None:
+        assert torch.equal(tiled.view(torch.int32), plain.view(torch.int32))
+    th = response_tile_rows(*win, *gx.shape)
+    assert th == (0 if "no tile" in name else 32 if "tall" in name else 8)
+    assert torch.isfinite(plain).all()
+    assert ("clamp" in name) == bool((plain == _INT_LIMIT).any())
+    if min(gx.shape) > max(win):
+        assert plain.abs().max() > 0
+
+
 def lost_state(fl, rng, share):
     """fl with a share of its slots lost under various tracking codes."""
     val = fl.val.copy()
@@ -137,7 +164,7 @@ def test_replace_device_matches_klt_tpu(kw, frames, interpret_pallas):
     from klt_tpu.ops.replace import replace_lost_features_device as jrep
     jcfg, cfg = jcfg_and_cfg(sequential_mode=True, **kw)
     fl = kt.FeatureList.create(120)
-    kt.KLTracker(cfg).select_good_features(frames[0], fl)
+    kt.KLTracker(cfg, device="cpu").select_good_features(frames[0], fl)
     x, y, val = lost_state(fl, np.random.RandomState(3), 0.25)
     gx, gy = level0_gradients(frames[1], cfg)
     ref = jrep(jnp.asarray(gx.numpy()), jnp.asarray(gy.numpy()),
@@ -186,7 +213,7 @@ def test_replace_device_equals_host_tier(frames):
     appearing at frame 3 makes such ties along its edge."""
     from klt_tpu_torch.ops.selection import candidate_points
     cfg = kt.TrackingConfig(sequential_mode=True)
-    tr = kt.KLTracker(cfg)
+    tr = kt.KLTracker(cfg, device="cpu")
     fl = kt.FeatureList.create(150)
     tr.select_good_features(frames[2], fl)
     tr.track_features(frames[2], frames[3], fl)
@@ -327,7 +354,7 @@ def test_tracker_replace_flow_matches_klt_tpu(frames, monkeypatch):
     positions within POS_TOL."""
     monkeypatch.setenv("KLT_TPU_NO_PALLAS", "1")
     kw = {"sequential_mode": True, "mindist": 8}
-    ours_t = kt.KLTracker(kt.TrackingConfig(**kw))
+    ours_t = kt.KLTracker(kt.TrackingConfig(**kw), device="cpu")
     ref_t = klt_tpu.KLTracker(klt_tpu.TrackingConfig(**kw))
     ours = kt.FeatureList.create(60)
     ref = klt_tpu.FeatureList.create(60)
@@ -350,7 +377,7 @@ def test_tracker_replace_flow_matches_klt_tpu(frames, monkeypatch):
 
 def start_features(frame, n, cfg):
     fl = kt.FeatureList.create(n)
-    kt.KLTracker(cfg).select_good_features(frame, fl)
+    kt.KLTracker(cfg, device="cpu").select_good_features(frame, fl)
     return fl
 
 
@@ -384,7 +411,7 @@ def test_track_sequence_replace_equals_tracker_loop(frames):
     cfg = kt.TrackingConfig(sequential_mode=True)
     fl = start_features(frames[0], 100, cfg)
     start = fl.copy()
-    tr = kt.KLTracker(cfg)
+    tr = kt.KLTracker(cfg, device="cpu")
     rows = []
     for i in range(1, 7):
         tr.track_features(frames[i - 1], frames[i], fl)
@@ -453,7 +480,7 @@ def test_track_sequence_stream_matches_klt_tpu(frames, monkeypatch):
     fl = start_features(frames[0], 50, cfg)
     ref = list(jstream(iter(frames), fl.x, fl.y, fl.val, jcfg, chunk=4))
     ours = list(track_sequence_stream(iter(frames), fl.x, fl.y, fl.val, cfg,
-                                      chunk=4))
+                                      chunk=4, device="cpu"))
     assert [o[0] for o in ours] == [r[0] for r in ref] == [4, 8, 10]
     whole = track_sequence(torch.from_numpy(frames),
                            *features_from_numpy(fl.x, fl.y, fl.val), cfg)
@@ -472,7 +499,8 @@ def test_device_response_selection_matches_klt_tpu(frames, monkeypatch):
     for kw in ({}, {"smooth_before_selecting": False, "mindist": 5}):
         ours = kt.FeatureList.create(150)
         ref = klt_tpu.FeatureList.create(150)
-        kt.KLTracker(kt.TrackingConfig(**kw)).select_good_features(
+        kt.KLTracker(kt.TrackingConfig(**kw),
+                     device="cpu").select_good_features(
             frames[0], ours)
         klt_tpu.KLTracker(klt_tpu.TrackingConfig(**kw)).select_good_features(
             frames[0], ref)

@@ -33,7 +33,8 @@ def frames():
 
 def select(img, n, cfg_kw=None):
     fl = kt.FeatureList.create(n)
-    kt.KLTracker(kt.TrackingConfig(**(cfg_kw or {}))).select_good_features(
+    kt.KLTracker(kt.TrackingConfig(**(cfg_kw or {})),
+                 device="cpu").select_good_features(
         img, fl)
     return fl
 
@@ -69,7 +70,7 @@ def test_track_sequence_matches_klt_tpu(frames, monkeypatch):
 def test_tracker_matches_klt_tpu(frames, monkeypatch):
     monkeypatch.setenv("KLT_TPU_NO_PALLAS", "1")
     kw = {"sequential_mode": True, "mindist": 8}
-    ours_t = kt.KLTracker(kt.TrackingConfig(**kw))
+    ours_t = kt.KLTracker(kt.TrackingConfig(**kw), device="cpu")
     ref_t = klt_tpu.KLTracker(klt_tpu.TrackingConfig(**kw))
     ours = kt.FeatureList.create(48)
     ref = klt_tpu.FeatureList.create(48)
@@ -88,7 +89,7 @@ def test_tracker_equals_track_sequence_and_pair_steps(frames):
     cfg = kt.TrackingConfig(sequential_mode=True)
     fl = select(frames[0], 40)
     start = fl.copy()
-    tr = kt.KLTracker(cfg)
+    tr = kt.KLTracker(cfg, device="cpu")
     table = kt.FeatureTable.create(len(frames), 40)
     table.store_list(fl, 0)
     for i in range(1, len(frames)):
@@ -106,19 +107,26 @@ def test_tracker_equals_track_sequence_and_pair_steps(frames):
 
 
 def test_tracker_refuses_affine_config_and_has_no_replacement(frames):
-    """With the affine check asked for (not ported), the tracker neither
-    tracks nor replaces."""
-    tr = kt.KLTracker(kt.TrackingConfig(affine_consistency_check=2))
+    """With the affine check asked for the tracker tracks (saving a
+    reference patch for every tracked feature), and replacement resets the
+    patches of the slots it fills.  (The test keeps the name it had when
+    the port refused such a configuration.)"""
+    tr = kt.KLTracker(kt.TrackingConfig(affine_consistency_check=2),
+                      device="cpu")
     fl = select(frames[0], 8)
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        tr.track_features(frames[0], frames[1], fl)
+    tr.track_features(frames[0], frames[1], fl)
+    assert (fl.val == kt.TRACKED).all()
+    assert tr._affine.valid.all() and tr._affine.patches.abs().max() > 0
     fl.val[:2] = kt.OOB
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        tr.replace_lost_features(frames[1], fl)
+    tr.replace_lost_features(frames[1], fl)
+    assert (fl.val[:2] > 0).all()
+    assert tr._affine.valid.tolist() == [False] * 2 + [True] * 6
+    tr.track_features(frames[1], frames[2], fl)
+    assert (fl.val == kt.TRACKED).all() and tr._affine.valid.all()
 
 
 def test_tracker_rejects_a_frame_of_another_size(frames):
-    tr = kt.KLTracker(kt.TrackingConfig(sequential_mode=True))
+    tr = kt.KLTracker(kt.TrackingConfig(sequential_mode=True), device="cpu")
     fl = select(frames[0], 8)
     tr.track_features(frames[0], frames[1], fl)
     with pytest.raises(ValueError, match="differs"):
@@ -138,7 +146,7 @@ def test_port_runs_without_jax():
         "fr = synthetic_frames(3)\n"
         "cfg = kt.TrackingConfig(sequential_mode=True)\n"
         "fl = kt.FeatureList.create(20)\n"
-        "tr = kt.KLTracker(cfg)\n"
+        "tr = kt.KLTracker(cfg, device='cpu')\n"
         "tr.select_good_features(fr[0], fl)\n"
         "tr.track_features(fr[0], fr[1], fl)\n"
         "tr.replace_lost_features(fr[1], fl)\n"
