@@ -30,6 +30,10 @@ paths:
   covered and zoomed (affine_frames), through track_sequence_affine and
   through KLTracker: kernel F verifies every tracked feature against its
   saved patch and kills the ones that drifted;
+* the same check on 8 different sequences at once
+  (track_sequences_affine_batched, klt_tpu's laptops_affine_batched_b8:
+  one launch each of kernels E, C and F a step for all 16,000 lanes) over
+  101 frames of batched_affine_frames;
 * selection from the response computed on the card (KLT_TPU_EXACT_SELECT=0)
   with the default window and with one that no tile of kernel D holds;
 
@@ -98,7 +102,8 @@ from klt_tpu_torch.ops.pyramid import (build_pyramid_stacks_batched_plain,
 from klt_tpu_torch.ops.replace import replace_lost_plain_
 from klt_tpu_torch.ops.selection import (corner_response_plain,
                                          response_tile_rows)
-from klt_tpu_torch.parallel import track_sequences_batched
+from klt_tpu_torch.parallel import (track_sequences_affine_batched,
+                                    track_sequences_batched)
 from klt_tpu_torch.runtime.pipeline import (PRECOMP_FRAMES, track_sequence,
                                             track_sequence_affine,
                                             track_sequence_replace)
@@ -123,6 +128,13 @@ AFFINE_CPU_FRAMES = 12
 # version on (none verified yet, the first verification, one timed, a late
 # one with killed lanes)
 AFFINE_STEPS = (0, 1, 10, 60)
+# the batched affine run: (sequences, frames) of klt_tpu's bench row
+# laptops_affine_batched_b8 (640x480, 2000 requested each, mode 2), the
+# sequences and frames of it the plain CPU run repeats, and the step whose
+# state kernel F is held and timed on
+BATCHED_AFFINE = (8, 101)
+BATCHED_AFFINE_CPU = (2, 6)
+BATCHED_AFFINE_STEP = 10
 
 
 # ------------------------------------------------------------------ #
@@ -209,6 +221,36 @@ def in_affine_region(x, y, scale: int = 1, margin: float = 0.0):
     return (np.abs(x - cx) <= hx + margin) & (np.abs(y - cy) <= hy + margin)
 
 
+def _texture(scale: int, seed: int, xx, yy):
+    """The smooth noise texture of affine_frames, made from `seed`."""
+    h, w = xx.shape
+    rng = np.random.RandomState(seed)
+    coarse = rng.uniform(40.0, 215.0, (h // (8 * scale) + 2,
+                                       w // (8 * scale) + 2))
+    return bilinear_warp(coarse, xx / (8 * scale), yy / (8 * scale))
+
+
+def _deforming(base, texture, xx, yy, scale: int, rate: float, path,
+               n_frames: int) -> np.ndarray:
+    """Frames of `base` translated by path(k), AFFINE_REGION covered by
+    `texture` and zoomed as affine_frames says."""
+    cx, cy, hx, hy = (v * scale for v in AFFINE_REGION)
+    out = []
+    for k in range(n_frames):
+        tx, ty = path(k)
+        sx, sy = xx - tx, yy - ty          # scene coordinates of a pixel
+        inside = (np.abs(sx - cx) <= hx) & (np.abs(sy - cy) <= hy)
+        zoom = 1.0 + 0.2 * rate * k
+        zx = np.where(inside, cx + (sx - cx) / zoom, sx)
+        zy = np.where(inside, cy + (sy - cy) / zoom, sy)
+        alpha = min(1.0, rate * k)
+        img = bilinear_warp(base, zx, zy)
+        img = np.where(inside, (1 - alpha) * img +
+                       alpha * bilinear_warp(texture, zx, zy), img)
+        out.append(np.clip(np.rint(img), 0, 255).astype(np.uint8))
+    return np.stack(out)
+
+
 def affine_frames(n_frames: int, scale: int = 1, rate: float = 0.01,
                   seed: int = 5) -> np.ndarray:
     """uint8 [T, 240*scale, 320*scale] for the affine consistency check:
@@ -221,26 +263,27 @@ def affine_frames(n_frames: int, scale: int = 1, rate: float = 0.01,
     feature's first track it drifts apart, which is what the check
     kills.  Outside the region the motion is the known shift(k)."""
     base, xx, yy = _scene(scale)
-    h, w = base.shape
-    rng = np.random.RandomState(seed)
-    coarse = rng.uniform(40.0, 215.0, (h // (8 * scale) + 2,
-                                       w // (8 * scale) + 2))
-    texture = bilinear_warp(coarse, xx / (8 * scale), yy / (8 * scale))
-    cx, cy, hx, hy = (v * scale for v in AFFINE_REGION)
-    out = []
-    for k in range(n_frames):
-        tx, ty = shift(k)
-        sx, sy = xx - tx, yy - ty          # scene coordinates of a pixel
-        inside = (np.abs(sx - cx) <= hx) & (np.abs(sy - cy) <= hy)
-        zoom = 1.0 + 0.2 * rate * k
-        zx = np.where(inside, cx + (sx - cx) / zoom, sx)
-        zy = np.where(inside, cy + (sy - cy) / zoom, sy)
-        alpha = min(1.0, rate * k)
-        img = bilinear_warp(base, zx, zy)
-        img = np.where(inside, (1 - alpha) * img +
-                       alpha * bilinear_warp(texture, zx, zy), img)
-        out.append(np.clip(np.rint(img), 0, 255).astype(np.uint8))
-    return np.stack(out)
+    return _deforming(base, _texture(scale, seed, xx, yy), xx, yy, scale,
+                      rate, shift, n_frames)
+
+
+def batched_affine_frames(n_seq: int, n_frames: int, scale: int = 1,
+                          rate: float = 0.01, seed: int = 5) -> np.ndarray:
+    """uint8 [B, T, 240*scale, 320*scale] of B different sequences for the
+    batched affine check: sequence b is affine_frames with the scene and
+    the texture flipped by b % 4 (none, x, y, both) and moved on
+    lane_shift(b, k) instead of shift(k).  The flips keep AFFINE_REGION
+    (centred in the scene) where it was, so the check kills features there
+    in every sequence."""
+    base, xx, yy = _scene(scale)
+    texture = _texture(scale, seed, xx, yy)
+    out = np.empty((n_seq, n_frames) + base.shape, np.uint8)
+    for b in range(n_seq):
+        flip = (slice(None, None, -1 if b & 2 else 1),
+                slice(None, None, -1 if b & 1 else 1))
+        out[b] = _deforming(base[flip], texture[flip], xx, yy, scale, rate,
+                            lambda k, b=b: lane_shift(b, k), n_frames)
+    return out
 
 
 def provided_frames():
@@ -560,26 +603,40 @@ def lk_pyramid_work(stacks1, stacks2, feats, cfg) -> tuple[float, float]:
 def affine_work(act: int, iters: int, lanes: int, cfg,
                 frame_px: int) -> tuple[float, float]:
     """(bytes, flops) of one verify pass of kernel F for `act` live lanes
-    that ran `iters` Gauss-Newton iterations together, in a frame of
-    frame_px pixels.  Bytes: each live lane's three patch planes once, its
-    (w+1)x(h+1) 3-channel footprint in image 2 once (the window moves by
-    under a pixel from one iteration to the next, so later iterations need
-    no new bytes), all footprints together at most the frame's three
-    planes, and the lanes' state in and out.  Operations: per cell the
-    patch samples once, per iteration 3 samples, the design columns and the
-    products and sums of the normal equations, and once the residue's
-    sample; per iteration the elimination."""
+    that ran `iters` Gauss-Newton iterations together, in frames of
+    frame_px pixels in all (B frames of a batch).  Bytes: the (w+1)x(h+1)
+    cells of each live lane's patch that its bilinear samples touch, in the
+    planes the mode reads (mode 0 all three, modes 1 and 2 the intensity
+    alone), its (w+1)x(h+1) 3-channel footprint in image 2 once (the window
+    moves by under a pixel from one iteration to the next, so later
+    iterations need no new bytes), all footprints together at most the
+    frames' three planes, and the lanes' state in and out.  Operations: per
+    cell the patch samples once, per iteration 3 samples, the design
+    columns and the products and sums of the normal equations, and once the
+    residue's sample; per iteration the elimination."""
     aw, ah = cfg.affine_window_width, cfg.affine_window_height
     mode = cfg.affine_consistency_check
     n_par = (2, 4, 6)[mode]
-    n_bytes = act * 3 * (aw + 2) * (ah + 2) * 4 + \
+    planes = 3 if mode == 0 else 1
+    n_bytes = act * planes * (aw + 1) * (ah + 1) * 4 + \
         min(act * 3 * (aw + 1) * (ah + 1) * 4, 3 * frame_px * 4) + \
         lanes * (8 * 4 + 1 + 8 * 4)
     per_iter = 3 * SAMPLE_FLOPS + 1 + 2 * n_par + \
         2 * (n_par * (n_par + 1) // 2 + n_par)
-    per_cell = act * (3 if mode == 0 else 1) * SAMPLE_FLOPS + \
+    per_cell = act * planes * SAMPLE_FLOPS + \
         iters * per_iter + act * (SAMPLE_FLOPS + 2)
     return n_bytes, aw * ah * per_cell + iters * 2 * n_par ** 3
+
+
+def frame_px(stack) -> int:
+    """Pixels of the frames of a level-0 stack [3, H, W] or [B, 3, H, W]."""
+    return stack[..., 0, :, :].numel()
+
+
+def iteration_histogram(iters, active, cfg) -> list:
+    """How many active lanes ran 0, 1, .. max_iterations iterations."""
+    return np.bincount(iters[active].cpu().numpy(),
+                       minlength=cfg.affine_max_iterations + 1).tolist()
 
 
 def launches_per_step(run, steps: int) -> dict:
@@ -2055,14 +2112,16 @@ def flat_affine(out) -> list:
     return [out[0], out[1], *out[2], out[3], out[4]]
 
 
-def phase_affine_kernel(states, errs) -> None:
+def phase_affine_kernel(states, errs, extra=()) -> None:
     """Kernel F against its plain version on the card, modes 0, 1 and 2:
     on states of the affine run (no active lane, the first verification, a
-    later one with killed lanes) and on the made states of affine_cases
-    (zero pivots, corners that leave the image, foreign patches, small
-    windows).  Positions, maps, statuses and iteration counts bit-equal."""
+    later one with killed lanes), on `extra` (name, inputs) states (the
+    batched run's) and on the made states of affine_cases (zero pivots,
+    corners that leave the image, foreign patches, small windows).
+    Positions, maps, statuses and iteration counts bit-equal."""
     cases = [(f"640x480 x {len(s[2])}, step {t} of the affine run", {},
               s[:8]) for t, s in sorted(states.items())]
+    cases += [(name, {}, args) for name, args in extra]
     for name, kw, *arrs in affine_cases():
         dev = [tuple(torch.from_numpy(m).cuda() for m in a)
                if isinstance(a, tuple) else torch.from_numpy(a).cuda()
@@ -2266,7 +2325,7 @@ def phase_affine_times(card, frames, n_feats, cfg, states, small, times,
         f_plain = cuda_ms(lambda: track_affine_plain(*args, cfg), 3)
         act = int(args[7].sum())
         f_bound = bound(*affine_work(act, int(iters.sum()), args[7].numel(),
-                                     cfg, args[1][0].numel()))
+                                     cfg, frame_px(args[1])))
         print(f"[24 times] {card} | kernel F, {label}: {act} active of "
               f"{args[7].numel()} lanes, {int(iters.sum())} iterations "
               f"({int(iters.sum()) / max(act, 1):.2f} a lane), device us per "
@@ -2292,7 +2351,7 @@ def phase_affine_times(card, frames, n_feats, cfg, states, small, times,
     run = inputs[6] == klt.TRACKED
     n_init = int((run & ~before[0]).sum())
     act, iters = int((run & before[0]).sum()), int(states[8].sum())
-    by, fl_ = affine_work(act, iters, run.numel(), cfg, inputs[0][0].numel())
+    by, fl_ = affine_work(act, iters, run.numel(), cfg, frame_px(inputs[0]))
     ph, pw = before[1].shape[-2:]
     s_bound = bound(by + n_init * 2 * 3 * ph * pw * 4 + run.numel() * 8 * 4,
                     fl_)
@@ -2333,6 +2392,305 @@ def phase_affine_profile(frames, n_feats, cfg) -> None:
         expect={"kernel F (affine_step_kernel)": len(frames) - 1,
                 "kernel A (pyramid_tiles)":
                     len(frames) * (1 + cfg.n_pyramid_levels)})
+
+
+# ------------------------------------------------------------------ #
+# the batched affine consistency check                                 #
+# ------------------------------------------------------------------ #
+
+def batched_affine_launches(shape, cfg) -> dict:
+    """Kernel launches of one track_sequences_affine_batched run and one
+    with precomp on [B, T, H, W] frames: kernel E once per frame index
+    (with precomp once per max(1, PRECOMP_FRAMES // B) of them), kernel
+    C's pyramid entry and kernel F's step entry once per step."""
+    want = batched_launches_expected(shape, cfg)
+    want[cuda.AFFINE_STEP.symbol] = 2 * (shape[1] - 1)
+    return want
+
+
+def run_batched_affine_steps(frames, feats, cfg, step: int, tag: str,
+                             errs) -> tuple:
+    """The batched affine run step by step on the card up to `step`: per
+    step kernel E on the B new frames, kernel C's pyramid entry, kernel
+    F's step entry over all B * N lanes, launches counted; at `step` the
+    verification alone is first taken by kernel F's track entry on the
+    step's inputs.  The same steps by the step entry's plain version on
+    the card must give the same features and state after every step.
+    Returns (the verification's inputs (patches, stack2 [B, 3, H, W], x1,
+    y1, x2, y2, maps, active), the iterations of its lanes, the state
+    before the step, the step's inputs (stack1, stack2, x_old, y_old, xn,
+    yn, vn)), the launch counts."""
+    b = frames.shape[0]
+    dev_frames = torch.from_numpy(frames[:, :step + 2]).cuda()
+    start = [torch.from_numpy(a).cuda() for a in feats]
+    stacks = lambda t: build_pyramid_stacks_batched_cuda(
+        dev_frames[:, t].contiguous(), cfg)
+    flat = lambda a: a.reshape(-1)
+    torch.cuda.synchronize()
+
+    cuda.reset_launch_counts()
+    state = AffineState.create(start[0].numel(), cfg, "cuda")
+    by_plain = AffineState.create(start[0].numel(), cfg, "cuda")
+    x, y, val = start
+    st1 = stacks(0)
+    same, err = True, 0.0
+    for t in range(step + 1):
+        st2 = stacks(t + 1)
+        xn, yn, vn = lk_pyramid_batched_cuda(st1, st2, x, y, val, cfg)
+        inputs = (st1[0], st2[0], flat(x), flat(y), flat(xn), flat(yn),
+                  flat(vn))
+        if t == step:
+            before = [a.clone() for a in affine_state_tensors(state)]
+            args = verification_inputs(state, *inputs[:1], *inputs[2:], cfg)
+            args = (args[0], st2[0]) + args[1:]
+            iters = track_affine_cuda(*args, cfg)[4]
+            captured = args + (iters, before, inputs)
+        out = affine_step_cuda_(state, *inputs, cfg)[:3]
+        ref = affine_consistency_step_plain(by_plain, *inputs[:4], None,
+                                            *inputs[4:], cfg)
+        got = list(out) + affine_state_tensors(state)
+        want = list(ref) + affine_state_tensors(by_plain)
+        same &= all(torch.equal(a, c) for a, c in zip(got, want))
+        err = max(err, max((a.double() - c.double()).abs().max().item()
+                           for a, c in zip(got, want)))
+        x, y, val = (a.reshape(b, -1) for a in out)
+        st1 = st2
+    torch.cuda.synchronize()
+    launches = {k.symbol: k.launches for k in cuda.KERNELS}
+    want_n = {k.symbol: 0 for k in cuda.KERNELS} | {
+        cuda.PYRAMID_BATCHED.symbol: step + 2,
+        cuda.LK_PYRAMID_BATCHED.symbol: step + 1,
+        cuda.AFFINE_STEP.symbol: step + 1, cuda.AFFINE_TRACK.symbol: 1}
+    errs.append(err)
+    print(f"[{tag}] {b} x {frames.shape[3]}x{frames.shape[2]}, "
+          f"{start[0].numel()} lanes, mode {cfg.affine_consistency_check}, "
+          f"{step + 1} steps by kernels E, C and F's step entry: launches "
+          f"{launches}; the step entry bit-equal to its plain version on "
+          f"the card after every step (features and the whole state): "
+          f"{same}, max |step entry - plain step| {err:.3g}")
+    check(launches == want_n, f"batched step-by-step launch counts "
+          f"{launches} differ from the expected {want_n}")
+    check(same and err == 0,
+          "kernel F's step entry on the batch differs from its plain version")
+    return captured, launches
+
+
+def run_batched_affine(frames, feats, cfg, tag, n_cpu) -> dict:
+    """The batched affine main path: track_sequences_affine_batched with
+    kernels and with precomp (launches counted); then every sequence
+    bit-equal to track_sequence_affine on the card, the first n_cpu =
+    (sequences, frames) bit-equal to the plain batched run on the CPU, and
+    per sequence the features the check killed, the share still TRACKED
+    and the known motion outside the deforming region; a run under sync
+    debug mode.  Returns the main path's launch counts."""
+    b, t_len = frames.shape[:2]
+    scale = frames.shape[2] // 240
+    sel = feats[2] >= 0
+    dev_frames = torch.from_numpy(frames).cuda()
+    featd = [torch.from_numpy(a).cuda() for a in feats]
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = track_sequences_affine_batched(dev_frames, *featd, cfg)
+    torch.cuda.synchronize()
+    t_kern = time.perf_counter() - t0
+    pre = track_sequences_affine_batched(dev_frames, *featd, cfg,
+                                         precomp=True)
+    torch.cuda.synchronize()
+    launches = {k.symbol: k.launches for k in cuda.KERNELS}
+    want = batched_affine_launches(frames.shape, cfg)
+    print(f"[{tag}] launches {launches} (expected {want})")
+    check(launches == want, "batched affine path launch counts differ from "
+          "the expected")
+
+    xs, ys, vs = (a.cpu().numpy() for a in out)
+    check(xs.shape == (t_len - 1,) + feats[0].shape and
+          np.isfinite(xs).all() and np.isfinite(ys).all(),
+          "bad track_sequences_affine_batched table")
+    same_pre = all(torch.equal(a, c) for a, c in zip(out, pre))
+    lanes_equal = all(
+        all(torch.equal(o[:, i], one)
+            for o, one in zip(out, track_sequence_affine(
+                dev_frames[i], *[a[i] for a in featd], cfg)))
+        for i in range(b))
+    n_seq, n_frames = n_cpu
+    cpu = track_sequences_affine_batched(
+        torch.from_numpy(np.ascontiguousarray(frames[:n_seq, :n_frames])),
+        *[torch.from_numpy(a[:n_seq]) for a in feats], cfg)
+    card_cpu = all(np.array_equal(a[:n_frames - 1, :n_seq], c.numpy())
+                   for a, c in zip((xs, ys, vs), cpu))
+    n_sel = sel.sum(axis=1)
+    print(f"[{tag}] {b} sequences of {frames.shape[3]}x{frames.shape[2]}, "
+          f"{t_len} frames, mode {cfg.affine_consistency_check}, "
+          f"{feats[0].shape[1]} features requested, selected per sequence "
+          f"min {n_sel.min()} max {n_sel.max()} (total {n_sel.sum()}): "
+          f"track_sequences_affine_batched {t_kern:.3f} s, precomp "
+          f"bit-equal: {same_pre}; every sequence bit-equal to "
+          f"track_sequence_affine on the card: {lanes_equal}; the first "
+          f"{n_seq} sequences bit-equal to the plain CPU run over "
+          f"{n_frames} frames: {card_cpu}")
+    check(same_pre, "precomp=True differs from precomp=False")
+    check(lanes_equal, "a batched affine sequence differs from "
+          "track_sequence_affine")
+    check(card_cpu, "card run differs from the plain CPU run")
+
+    free = track_sequences_batched(dev_frames, *featd, dataclasses.replace(
+        cfg, affine_consistency_check=-1))[2].cpu().numpy()
+    worst = {"killed": 1 << 30, "killed_in": 1 << 30, "tracked_out": 1.0,
+             "med_1": 0.0, "med": 0.0, "frac": 1.0}
+    for i in range(b):
+        x0, y0 = feats[0][i], feats[1][i]
+        killed = sel[i] & (free[-1, i] == klt.TRACKED) & (vs[-1, i] < 0)
+        inside = in_affine_region(x0, y0, scale,
+                                  margin=cfg.affine_window_width)
+        outside = sel[i] & ~inside
+        worst["killed"] = min(worst["killed"], int(killed.sum()))
+        worst["killed_in"] = min(worst["killed_in"],
+                                 int((killed & inside).sum()))
+        worst["tracked_out"] = min(worst["tracked_out"], float(
+            (vs[-1, i][outside] == klt.TRACKED).mean()))
+        for k in range(1, t_len):
+            tx, ty = lane_shift(i, k)
+            ok = outside & (vs[k - 1, i] == klt.TRACKED)
+            err = np.maximum(np.abs(xs[k - 1, i][ok] - x0[ok] - tx),
+                             np.abs(ys[k - 1, i][ok] - y0[ok] - ty))
+            med = float(np.median(err))
+            if k == 1:
+                worst["med_1"] = max(worst["med_1"], med)
+            worst["med"] = max(worst["med"], med)
+            worst["frac"] = min(worst["frac"], float((err <= 1.0).mean()))
+    codes, counts = np.unique(vs[-1][sel & (vs[-1] < 0)],
+                              return_counts=True)
+    print(f"[{tag}] per sequence, the worst of {b}: killed by the check "
+          f"(TRACKED to frame {t_len - 1} without it) {worst['killed']}, "
+          f"{worst['killed_in']} of them in the deforming region; still "
+          f"TRACKED outside the region {worst['tracked_out']:.4f}; error "
+          f"against the sequence's known motion outside the region: frame 1 "
+          f"median {worst['med_1']:.4f} px, worst frame median "
+          f"{worst['med']:.4f} px, worst share within 1 px "
+          f"{worst['frac']:.4f}; lost at the end, all sequences: "
+          f"{dict(zip(codes.tolist(), counts.tolist()))}")
+    check(worst["killed"] >= 5 and worst["killed_in"] >= 5,
+          "the check killed too few features in a sequence")
+    check(worst["tracked_out"] >= 0.90, "under 90% of a sequence's features "
+          "outside the deforming region still tracked")
+    check(worst["med_1"] <= 0.15, "a frame-1 median error above 0.15 px")
+    check(worst["med"] <= 0.5, "a frame's median error is above 0.5 px")
+    check(worst["frac"] >= 0.90, "under 90% of a frame's tracks within 1 px")
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        track_sequences_affine_batched(dev_frames[:, :12], *featd, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"[{tag}] track_sequences_affine_batched ran under sync debug "
+          f"mode \"error\": no host sync")
+    return launches
+
+
+def phase_batched_affine_times(card, frames, feats, cfg, state, times,
+                               per_step) -> None:
+    """Aggregate frames/s of the batched affine run, its launches per
+    step, and kernel F alone (both entries) on the state at step
+    BATCHED_AFFINE_STEP."""
+    b, t_len = frames.shape[:2]
+    size = f"{b} x {frames.shape[3]}x{frames.shape[2]}"
+    dev_frames = torch.from_numpy(frames).cuda()
+    featd = [torch.from_numpy(a).cuda() for a in feats]
+    n = b * (t_len - 1)
+    runs = lambda v: [round(f, 1) for f in v]
+    k_fps = batched_fps(lambda: track_sequences_affine_batched(
+        dev_frames, *featd, cfg), n, 5)
+    p_fps = batched_fps(lambda: track_sequences_affine_batched(
+        dev_frames, *featd, cfg, precomp=True), n, 5)
+    n_plain = 6
+    c_fps = batched_fps(lambda: track_sequences_affine_batched(
+        dev_frames[:, :n_plain], *featd, cfg, plain=True),
+        b * (n_plain - 1), 1)
+    one_fps = batched_fps(lambda: [track_sequence_affine(
+        dev_frames[i], *[a[i] for a in featd], cfg) for i in range(b)],
+        n, 3)
+    spread = max(k_fps) / min(k_fps)
+    print(f"[28 times] {card} | track_sequences_affine_batched {size}, "
+          f"{t_len} frames, {feats[0].shape[1]} features requested, mode "
+          f"{cfg.affine_consistency_check}, aggregate frames/s over all "
+          f"sequences: kernels {np.median(k_fps):.1f} = "
+          f"{1e6 * b / np.median(k_fps):.1f} us of wall per step (runs "
+          f"{runs(k_fps)}, max / min {spread:.2f}), precomp "
+          f"{np.median(p_fps):.1f} (runs {runs(p_fps)}), plain torch on the "
+          f"card {np.median(c_fps):.1f} over {n_plain} frames (runs "
+          f"{runs(c_fps)}); the same {b} sequences one at a time through "
+          f"track_sequence_affine {np.median(one_fps):.1f} (runs "
+          f"{runs(one_fps)})", flush=True)
+    per_step["track_sequences_affine_batched"] = launches_per_step(
+        lambda: track_sequences_affine_batched(dev_frames, *featd, cfg),
+        t_len - 1)
+    del dev_frames
+
+    us = lambda ms: f"{ms * 1e3:.1f}"
+    args, iters, before, inputs = state[:8], state[8], state[9], state[10]
+    act = int(args[7].sum())
+    f_ms, f_host = kernel_times(lambda: track_affine_cuda(*args, cfg), 50)
+    f_plain = cuda_ms(lambda: track_affine_plain(*args, cfg), 2)
+    f_bound = bound(*affine_work(act, int(iters.sum()), args[7].numel(), cfg,
+                                 frame_px(args[1])))
+    print(f"[28 times] {card} | kernel F, {size}, step "
+          f"{BATCHED_AFFINE_STEP} of the batched run: {act} active of "
+          f"{args[7].numel()} lanes, {int(iters.sum())} iterations "
+          f"({int(iters.sum()) / max(act, 1):.2f} a lane), device us per "
+          f"call {us(f_ms)} = {f_bound[0] / f_ms:.4f} of its bound "
+          f"({us(f_bound[0])} by {f_bound[1]}; host enqueue {us(f_host)}; "
+          f"plain version on the card {us(f_plain)}); 1 launch a call",
+          flush=True)
+    reps = 25
+    ring = iter([AffineState(*(a.clone() for a in before))
+                 for _ in range(2 * reps + 1)])
+    run = inputs[6] == klt.TRACKED
+    n_init = int((run & ~before[0]).sum())
+    by, fl_ = affine_work(act, int(iters.sum()), run.numel(), cfg,
+                          frame_px(inputs[0]))
+    ph, pw = before[1].shape[-2:]
+    s_bound = bound(by + n_init * 2 * 3 * ph * pw * 4 + run.numel() * 8 * 4,
+                    fl_)
+    s_ms, s_host = kernel_times(
+        lambda: affine_step_cuda_(next(ring), *inputs, cfg), reps)
+    ring = iter([AffineState(*(a.clone() for a in before)) for _ in range(3)])
+    s_plain = cuda_ms(lambda: affine_consistency_step_plain(
+        next(ring), *inputs[:4], None, *inputs[4:], cfg), 2)
+    del ring
+    print(f"[28 times] {card} | kernel F's step entry, {size}, step "
+          f"{BATCHED_AFFINE_STEP} of the batched run: {act} lanes verified, "
+          f"{n_init} save a patch, device us per call {us(s_ms)} = "
+          f"{s_bound[0] / s_ms:.4f} of its bound ({us(s_bound[0])} by "
+          f"{s_bound[1]}; host enqueue {us(s_host)}; plain version on the "
+          f"card {us(s_plain)}), each call on its own copy of the state "
+          f"made beforehand", flush=True)
+    for name, ms, plain, bnd in (("affine_track", f_ms, f_plain, f_bound),
+                                 ("affine_step", s_ms, s_plain, s_bound)):
+        times.setdefault(name, {})["batched"] = {
+            "ms": ms, "plain_ms": plain, "bound_ms": bnd[0],
+            "bound_by": bnd[1]}
+    torch.cuda.empty_cache()
+
+
+def phase_batched_affine_profile(frames, feats, cfg) -> None:
+    dev_frames = torch.from_numpy(frames).cuda()
+    featd = [torch.from_numpy(a).cuda() for a in feats]
+    b, t_len = frames.shape[:2]
+    profile_device(
+        lambda: track_sequences_affine_batched(dev_frames, *featd, cfg),
+        t_len - 1, "29 profile",
+        f"track_sequences_affine_batched, {b} sequences of "
+        f"{frames.shape[3]}x{frames.shape[2]}, mode "
+        f"{cfg.affine_consistency_check}",
+        {"kernel F (affine_step_kernel)": "affine_step_kernel",
+         "kernel C (lk_pyramid_batched_kernel)": "lk_pyramid_batched_kernel",
+         "kernel E (pyramid_tiles)": PYRAMID_KERNELS},
+        expect={"kernel F (affine_step_kernel)": t_len - 1,
+                "kernel C (lk_pyramid_batched_kernel)": t_len - 1,
+                "kernel E (pyramid_tiles)":
+                    t_len * (1 + cfg.n_pyramid_levels)})
 
 
 # A selection window no tile of kernel D holds, in a configuration whose
@@ -2430,6 +2788,8 @@ def main() -> int:
         real_feats = batched_features(real_b, 4096, cfg)
         aff = affine_frames(AFFINE_FRAMES, scale=2)
         aff_small = affine_frames(10)
+        aff_b = batched_affine_frames(*BATCHED_AFFINE, scale=2)
+        aff_b_feats = batched_features(aff_b, 2000, affine_config())
     print("[inputs] synthetic frames: fixture scene translated by "
           "(3.2 sin 0.3k, 2.1 sin 0.23k) px, bilinear, u8; "
           f"{len(qvga)} x 320x240 and {len(traffic)} x 640x480 (scene "
@@ -2440,7 +2800,9 @@ def main() -> int:
           "each sequence's frame 0; affine: "
           f"{len(aff)} x 640x480 and {len(aff_small)} x 320x240, the same "
           "motion with a region of 112x96 (56x48) px slowly covered by a "
-          "noise texture (weight 0.01 k) and zoomed (1 + 0.002 k)",
+          "noise texture (weight 0.01 k) and zoomed (1 + 0.002 k); batched "
+          f"affine: {aff_b.shape[0]} x {aff_b.shape[1]} x 640x480, sequence "
+          "b that scene flipped by b % 4 and moved along lane_shift(b)",
           flush=True)
     errs = {k.symbol: [] for k in cuda.KERNELS}
     times = {}
@@ -2493,9 +2855,22 @@ def main() -> int:
             "22 kernel F", errs[cuda.AFFINE_STEP.symbol])
         small_state = run_affine_steps(
             aff_small, select_on(aff_small[0], 150, acfg), acfg, (5,))[0][5]
+        b_state, b_step_launches = run_batched_affine_steps(
+            aff_b, aff_b_feats, acfg, BATCHED_AFFINE_STEP, "22 kernel F",
+            errs[cuda.AFFINE_STEP.symbol])
+        for name, st in ((f"640x480 x 2000 requested, step {AFFINE_STEPS[2]}",
+                          aff_states[AFFINE_STEPS[2]]),
+                         (f"{aff_b.shape[0]} x 640x480 x 2000 requested, step "
+                          f"{BATCHED_AFFINE_STEP}", b_state)):
+            print(f"[22 kernel F] {name}: iterations of the active lanes, "
+                  f"how many ran 0, 1, .. {acfg.affine_max_iterations}: "
+                  f"{iteration_histogram(st[8], st[7], acfg)}")
         phase_affine_kernel({t: aff_states[t] for t in AFFINE_STEPS
                              if t != AFFINE_STEPS[2]},
-                            errs[cuda.AFFINE_TRACK.symbol])
+                            errs[cuda.AFFINE_TRACK.symbol],
+                            [(f"{aff_b.shape[0]} x 640x480 x 2000 requested, step "
+                              f"{BATCHED_AFFINE_STEP} of the batched run",
+                              b_state[:8])])
 
     # main path 1: tracking (example3)
     cuda.reset_launch_counts()
@@ -2564,6 +2939,12 @@ def main() -> int:
         affine_launches = run_affine(aff, 2000, acfg, "23 affine",
                                      n_cpu=AFFINE_CPU_FRAMES)
 
+    # main path 8: the batched affine check (laptops_affine_batched_b8);
+    # run_batched_affine counts and checks its launches
+    with phase("27 batched affine"):
+        b_affine_launches = run_batched_affine(
+            aff_b, aff_b_feats, acfg, "27 batched affine", BATCHED_AFFINE_CPU)
+
     # path 6: selection from the card's response, both entries of kernel D
     with phase("26 device selection"):
         select_launches = run_device_selection(vga[0], 500,
@@ -2592,6 +2973,11 @@ def main() -> int:
                            per_step)
     with phase("25 profile"):
         phase_affine_profile(aff[:PRECOMP_FRAMES + 1], 2000, acfg)
+    with phase("28 times"):
+        phase_batched_affine_times(card, aff_b, aff_b_feats, acfg, b_state,
+                                   times, per_step)
+    with phase("29 profile"):
+        phase_batched_affine_profile(aff_b[:, :33], aff_b_feats, acfg)
 
     # A and B's entries at 640x480 with 2000 features requested, D, E and
     # R at the traffic run's 640x480 with 500 (D's global-memory entry with
@@ -2620,7 +3006,8 @@ def main() -> int:
             "launches": track_launches[k.symbol] + replace_launches[k.symbol]
             + batched_launches[k.symbol] + level_launches[k.symbol]
             + affine_launches[k.symbol] + select_launches[k.symbol]
-            + step_launches[k.symbol],
+            + step_launches[k.symbol] + b_step_launches[k.symbol]
+            + b_affine_launches[k.symbol],
             "max_abs_err": max(errs[k.symbol]), **times[name],
             "library_ms": None,
             "launches_per_step": {path: counts[k.symbol]

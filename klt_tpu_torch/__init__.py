@@ -34,7 +34,8 @@ from .io.features_io import (write_feature_list, write_feature_history,
 from .utils.viz import feature_overlay, write_feature_list_ppm
 from .parallel import (make_pair_step, make_batch_step, track_batch,
                        pad_features_for_mesh, make_fused_pair_step,
-                       track_sequences_batched)
+                       track_sequences_batched,
+                       track_sequences_affine_batched)
 
 __version__ = "0.1.0"
 
@@ -49,5 +50,5 @@ __all__ = [
     "feature_overlay", "write_feature_list_ppm",
     "make_pair_step", "make_batch_step", "track_batch",
     "pad_features_for_mesh", "make_fused_pair_step",
-    "track_sequences_batched",
+    "track_sequences_batched", "track_sequences_affine_batched",
 ]

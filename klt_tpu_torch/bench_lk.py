@@ -7,9 +7,21 @@ run from the root of a checkout (it takes its synthetic frames from
 chip_smoke.py).  For each cell it prints one JSON line: frames/s and wall
 per step of the entry point (host clock around synchronised runs, median
 of --reps), and from one torch.profiler run the device time per step of
-the LK kernels, of the pyramid kernels (A, E), of the replacement (R) and
-the corner response (D) and of everything else, the device launches per
-step, and the device-busy share of the wall time.
+the LK kernels, of the pyramid kernels (A, E), of the replacement (R),
+the corner response (D) and the affine check (F) and of everything else,
+the device launches per step, and the device-busy share of the wall time.
+The cells: `track_sequence` at 320x240 and 640x480, the replace run, the
+two batched cells, `track_sequence_affine` at the laptops size (640x480,
+2000 requested, mode 2, 4 levels of subsampling 2, 100 `affine_frames`)
+and `track_sequences_affine_batched` at 8 x that size over 101
+`batched_affine_frames` (skipped on a revision without it).
+
+Then one JSON line of kernel F alone (both entries, device us per call
+with the host enqueued ahead, the histogram of the iterations its lanes
+ran, the track entry with every lane capped at one iteration and with its
+longest lane alone) on the state at step 10 of each affine cell; the
+batched cell's is skipped on a revision whose F takes one sequence's
+stacks.
 
 Then one JSON line of device us per call of kernels A, E, R and D alone
 (CUDA events around back-to-back calls with the host enqueued ahead):
@@ -41,6 +53,7 @@ klt_tpu_torch/, and run the two in turns (other, this, this, other), e.g.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import re
 import subprocess
@@ -76,7 +89,8 @@ def profile(run, steps: int) -> dict:
     lk_n = all_n = 0
     groups = {"pyramid": ("hpass", "vpass", "pyramid_tiles"),
               "replace": ("replace_lost",),
-              "response": ("hsum_products", "vsum_eigen", "response_tiles")}
+              "response": ("hsum_products", "vsum_eigen", "response_tiles"),
+              "affine": ("affine_step_kernel", "affine_track_kernel")}
     group_us = dict.fromkeys(groups, 0.0)
     group_n = dict.fromkeys(groups, 0)
     for ev in prof.key_averages():
@@ -232,6 +246,150 @@ def kernel_costs(cfg, tag: str, card: str) -> None:
                       "device_us_per_launch": per_launch}), flush=True)
 
 
+AFFINE_STEP = 10   # the step whose state kernel F is timed on
+
+
+def affine_config():
+    """klt_tpu's laptops_2000feat_affine_4level."""
+    return klt.TrackingConfig(sequential_mode=True, affine_consistency_check=2,
+                              n_pyramid_levels=4, subsampling=2)
+
+
+def affine_inputs():
+    """[(name, frames [B, T, H, W] u8, numpy features [B, N])] of the
+    affine cells this revision runs."""
+    from chip_smoke import affine_frames
+    cfg = affine_config()
+    one = affine_frames(100, scale=2)[None]
+    cells = [("affine 640x480 x 2000 requested", one)]
+    try:
+        from chip_smoke import batched_affine_frames
+        from klt_tpu_torch.parallel import track_sequences_affine_batched  # noqa
+    except ImportError:
+        return cells, cfg
+    cells.append(("affine batched 8 x 640x480 x 2000 requested",
+                  batched_affine_frames(8, 101, scale=2)))
+    return cells, cfg
+
+
+def features_of(frames, n, cfg):
+    return [np.stack(a) for a in zip(*[select(frames[i, 0], n, cfg)
+                                       for i in range(frames.shape[0])])]
+
+
+def affine_state(frames, feats, cfg, step: int):
+    """Kernel F's inputs at `step` of the affine run on frames [B, T, H, W]
+    (B = 1: the single-sequence kernels and [3, H, W] stacks; else kernels
+    E and C and [B, 3, H, W] stacks): (the state before the step, the
+    step's inputs (stack1, stack2, x_old, y_old, xn, yn, vn), the
+    verification's inputs (patches, stack2, x1, y1, x2, y2, maps,
+    active))."""
+    from klt_tpu_torch.cuda.affine import affine_step_cuda_
+    from klt_tpu_torch.cuda.lk_level import (lk_pyramid_batched_cuda,
+                                             lk_pyramid_cuda)
+    from klt_tpu_torch.cuda.pyramid import (
+        build_pyramid_stacks_batched_cuda, build_pyramid_stacks_cuda)
+    from klt_tpu_torch.ops.affine import AffineState, verification_inputs
+    b = frames.shape[0]
+    f = torch.from_numpy(frames[:, :step + 2]).cuda()
+    if b == 1:
+        stacks = lambda t: build_pyramid_stacks_cuda(f[0, t], cfg)
+        lk = lk_pyramid_cuda
+        x, y, val = (torch.from_numpy(a[0]).cuda() for a in feats)
+    else:
+        stacks = lambda t: build_pyramid_stacks_batched_cuda(
+            f[:, t].contiguous(), cfg)
+        lk = lk_pyramid_batched_cuda
+        x, y, val = (torch.from_numpy(a).cuda() for a in feats)
+    flat = lambda a: a.reshape(-1)
+    state = AffineState.create(x.numel(), cfg, "cuda")
+    st1 = stacks(0)
+    for t in range(step + 1):
+        st2 = stacks(t + 1)
+        xn, yn, vn = lk(st1, st2, x, y, val, cfg)
+        inputs = (st1[0], st2[0], flat(x), flat(y), flat(xn), flat(yn),
+                  flat(vn))
+        if t == step:
+            before = AffineState(*(a.clone() for a in (
+                state.valid, state.patches, state.x, state.y, state.axx,
+                state.ayx, state.axy, state.ayy)))
+            args = verification_inputs(state, st1[0], flat(x), flat(y),
+                                       flat(xn), flat(yn), flat(vn), cfg)
+            return before, inputs, (args[0], st2[0]) + args[1:]
+        out = affine_step_cuda_(state, *inputs, cfg)
+        x, y, val = (a.reshape(x.shape) for a in out[:3])
+        st1 = st2
+
+
+def affine_kernel_costs(cells, cfg, tag: str, card: str) -> None:
+    """Device us per call of kernel F's two entries on the state at step
+    AFFINE_STEP of each affine cell, and its lanes' iteration counts."""
+    from chip_smoke import kernel_times
+    from klt_tpu_torch.cuda.affine import affine_step_cuda_, track_affine_cuda
+    from klt_tpu_torch.ops.affine import AffineState
+    out = {}
+    for name, frames, feats in cells:
+        before, inputs, args = affine_state(frames, feats, cfg, AFFINE_STEP)
+        active = args[7]
+        iters = track_affine_cuda(*args, cfg)[4]
+        hist = np.bincount(iters[active].cpu().numpy(),
+                           minlength=cfg.affine_max_iterations + 1)
+        reps = max(10, 2000 // frames.shape[0] // 10)
+        t_ms = kernel_times(lambda: track_affine_cuda(*args, cfg), reps)[0]
+        ring = iter([AffineState(*(a.clone() for a in (
+            before.valid, before.patches, before.x, before.y, before.axx,
+            before.ayx, before.axy, before.ayy)))
+            for _ in range(2 * reps + 1)])
+        s_ms = kernel_times(lambda: affine_step_cuda_(next(ring), *inputs,
+                                                      cfg), reps)[0]
+        del ring
+        # one chain or the sum of the lanes: the track entry with every
+        # lane capped at one iteration, and one 10-iteration lane alone
+        one_it = dataclasses.replace(cfg, affine_max_iterations=1)
+        c_ms = kernel_times(lambda: track_affine_cuda(*args, one_it),
+                            reps)[0]
+        longest = int((iters * active).argmax())
+        alone = torch.zeros_like(active)
+        alone[longest] = True
+        lone = args[:7] + (alone,)
+        l_ms = kernel_times(lambda: track_affine_cuda(*lone, cfg), reps)[0]
+        out[name] = {"lanes": int(active.numel()),
+                     "active": int(active.sum()),
+                     "iterations": int(iters.sum()),
+                     "iteration_histogram": hist.tolist(),
+                     "track_entry_us": round(t_ms * 1e3, 2),
+                     "step_entry_us": round(s_ms * 1e3, 2),
+                     "track_entry_one_iteration_us": round(c_ms * 1e3, 2),
+                     f"one_lane_of_{int(iters[longest])}_iterations_us":
+                         round(l_ms * 1e3, 2)}
+        torch.cuda.empty_cache()
+    print(json.dumps({"tag": tag, "card": card, "step": AFFINE_STEP,
+                      "kernel_F": out}), flush=True)
+
+
+def affine_runs(args, tag: str, card: str) -> None:
+    """The affine cells end to end, then kernel F alone on their states."""
+    from klt_tpu_torch.runtime.pipeline import track_sequence_affine
+    cells, cfg = affine_inputs()
+    states = []
+    for name, frames in cells:
+        feats = features_of(frames, 2000, cfg)
+        f = torch.from_numpy(frames).cuda()
+        featd = [torch.from_numpy(a).cuda() for a in feats]
+        if frames.shape[0] == 1:
+            run = lambda: track_sequence_affine(f[0], *[a[0] for a in featd],
+                                                cfg)
+        else:
+            from klt_tpu_torch.parallel import track_sequences_affine_batched
+            run = lambda: track_sequences_affine_batched(f, *featd, cfg)
+        measure(f"{name}, {int((feats[2] >= 0).sum())} live", run,
+                frames.shape[1] - 1, frames.shape[0], args.reps, tag, card)
+        states.append((name, frames, feats))
+        del f, featd
+        torch.cuda.empty_cache()
+    affine_kernel_costs(states, cfg, tag, card)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tag", default="this")
@@ -282,6 +440,7 @@ def main() -> int:
                 lambda: track_sequences_batched(f, *featd, cfg), t - 1, b,
                 args.reps, args.tag, card)
     kernel_costs(cfg, args.tag, card)
+    affine_runs(args, args.tag, card)
     wrapper_costs(cfg, args.tag, card)
     return 0
 

@@ -248,12 +248,12 @@ LK_PYRAMID_BATCHED = Kernel(
 # the affine consistency check as XLA only.
 AFFINE_TRACK = Kernel(
     "klt_affine_track",
-    # patches, stack2, rows, cols, x1, y1, x2, y2, axx, ayx, axy, ayy,
-    # active, n, mode, window w/h, max_iterations, min_displacement,
-    # affine_min_displacement, max_displacement_differ, max_residue,
-    # step_factor, min_determinant, x2, y2, axx, ayx, axy, ayy out,
-    # status, iters, stream
-    [_P, _P, _I, _I] + [_P] * 9 + [_I] * 5 + [_F] * 6 + [_P] * 9,
+    # patches, stack2, sequences, rows, cols, x1, y1, x2, y2, axx, ayx,
+    # axy, ayy, active, n, mode, window w/h, max_iterations,
+    # min_displacement, affine_min_displacement, max_displacement_differ,
+    # max_residue, step_factor, min_determinant, x2, y2, axx, ayx, axy,
+    # ayy out, status, iters, stream
+    [_P, _P, _I, _I, _I] + [_P] * 9 + [_I] * 5 + [_F] * 6 + [_P] * 9,
     source="klt_tpu_torch/csrc/affine.cu",
     replaces="klt_tpu/ops/affine.py:235")
 
@@ -261,11 +261,11 @@ AFFINE_TRACK = Kernel(
 # which are verified, and the state's update, all in the one launch.
 AFFINE_STEP = Kernel(
     "klt_affine_step",
-    # patches, stack1, stack2, rows, cols, valid, patch centre x/y, axx,
-    # ayx, axy, ayy (the state, in place), x_old, y_old, xn, yn, vn, n,
-    # mode, window w/h, max_iterations, the six constants of
+    # patches, stack1, stack2, sequences, rows, cols, valid, patch centre
+    # x/y, axx, ayx, axy, ayy (the state, in place), x_old, y_old, xn, yn,
+    # vn, n, mode, window w/h, max_iterations, the six constants of
     # klt_affine_track, x, y, val out, iters, stream
-    [_P, _P, _P, _I, _I] + [_P] * 12 + [_I] * 5 + [_F] * 6 + [_P] * 5,
+    [_P, _P, _P, _I, _I, _I] + [_P] * 12 + [_I] * 5 + [_F] * 6 + [_P] * 5,
     source="klt_tpu_torch/csrc/affine.cu",
     replaces="klt_tpu/ops/affine.py:860")
 

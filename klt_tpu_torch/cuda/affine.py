@@ -10,6 +10,10 @@ for the first time, the verification of the others), the per-feature state
 updated in place.  Its plain version is
 `ops.affine.affine_consistency_step_plain`.
 
+Both take one sequence's level-0 stack [3, H, W] or the stacks of B
+sequences [B, 3, H, W], whose lanes are flattened sequence-major: lane l
+reads sequence l // (N / B) (the batched affine check).
+
 The wrappers raise on what the kernel does not take (CPU tensors, mixed
 devices, wrong dtypes, shapes or strides, a window of more than
 AFFINE_MAX_CELLS cells), launch on the current stream, check the launch
@@ -24,6 +28,7 @@ import numpy as np
 import torch
 
 from ..config import TrackingConfig
+from ..ops.affine import stack_sequences
 from . import AFFINE_MAX_CELLS, AFFINE_STEP, AFFINE_TRACK, check_cuda_tensor
 
 
@@ -42,7 +47,8 @@ def _constants(cfg: TrackingConfig) -> tuple:
 def track_affine_cuda(patches, stack2, x1, y1, x2_in, y2_in, a_in, active,
                       cfg: TrackingConfig):
     """Kernel F, one launch: contract of `ops.affine.track_affine_plain`
-    on CUDA tensors: patches f32 [3, N, ph, pw], stack2 f32 [3, H, W], the
+    on CUDA tensors: patches f32 [3, N, ph, pw], stack2 f32 [3, H, W] or
+    [B, 3, H, W] (lane l of sequence l // (N / B)), the
     lanes' x1, y1, x2_in, y2_in and a_in = (axx, ayx, axy, ayy) f32 [N],
     active bool [N].  Returns (x2, y2, (axx, ayx, axy, ayy), status,
     iters)."""
@@ -55,15 +61,16 @@ def track_affine_cuda(patches, stack2, x1, y1, x2_in, y2_in, a_in, active,
         raise ValueError(f"a {aw}x{ah} affine window has more than the "
                          f"{AFFINE_MAX_CELLS} cells kernel F takes")
     check_cuda_tensor(patches, "patches", torch.float32, 4)
-    check_cuda_tensor(stack2, "stack2", torch.float32, 3)
+    check_cuda_tensor(stack2, "stack2", torch.float32, stack2.dim())
     n = x1.shape[0]
+    nseq = stack_sequences(stack2, n)
     if tuple(patches.shape) != (3, n, ah + 2, aw + 2):
         raise ValueError(f"patches must be [3, {n}, {ah + 2}, {aw + 2}], "
                          f"got {tuple(patches.shape)}")
     rows, cols = stack2.shape[-2:]
-    if stack2.shape[0] != 3 or rows < ah + 2 or cols < aw + 2:
-        raise ValueError(f"stack2 must be [3, H, W] of at least "
-                         f"{aw + 2}x{ah + 2}, got {tuple(stack2.shape)}")
+    if rows < ah + 2 or cols < aw + 2:
+        raise ValueError(f"stack2 must be at least {aw + 2}x{ah + 2}, got "
+                         f"{tuple(stack2.shape)}")
     lanes = [("x1", x1), ("y1", y1), ("x2_in", x2_in), ("y2_in", y2_in),
              ("axx", a_in[0]), ("ayx", a_in[1]), ("axy", a_in[2]),
              ("ayy", a_in[3])]
@@ -85,7 +92,7 @@ def track_affine_cuda(patches, stack2, x1, y1, x2_in, y2_in, a_in, active,
         return result
     # a bool tensor is one byte a lane, 0 or 1: read as u8
     with torch.cuda.device(dev):
-        AFFINE_TRACK(patches.data_ptr(), stack2.data_ptr(), rows, cols,
+        AFFINE_TRACK(patches.data_ptr(), stack2.data_ptr(), nseq, rows, cols,
                      *[t.data_ptr() for t in tensors], n, *_constants(cfg),
                      *[t.data_ptr() for t in outs], status.data_ptr(),
                      iters.data_ptr(),
@@ -98,8 +105,9 @@ def affine_step_cuda_(state, stack1, stack2, x_old, y_old, xn, yn, vn,
     """Kernel F's step entry, one launch: contract of
     `ops.affine.affine_consistency_step` on CUDA tensors.  state: an
     `ops.affine.AffineState` whose tensors are updated IN PLACE; stack1,
-    stack2 f32 [3, H, W]; x_old, y_old, xn, yn f32 [N]; vn i32 [N].
-    Returns (x, y, val, iters)."""
+    stack2 f32 [3, H, W], or [B, 3, H, W] with lane l of sequence
+    l // (N / B); x_old, y_old, xn, yn f32 [N]; vn i32 [N].  Returns
+    (x, y, val, iters)."""
     mode, aw, ah = cfg.affine_consistency_check, cfg.affine_window_width, \
         cfg.affine_window_height
     if mode not in (0, 1, 2):
@@ -120,10 +128,12 @@ def affine_step_cuda_(state, stack1, stack2, x_old, y_old, xn, yn, vn,
                          f"[3, {n}, {ah + 2}, {aw + 2}], got "
                          f"{tuple(patches.shape)}")
     rows, cols = stack2.shape[-2:]
+    nseq = stack_sequences(stack2, n)
     for name, st in (("stack1", stack1), ("stack2", stack2)):
-        if st.dtype is not f32 or st.dim() != 3 or st.shape[0] != 3 or \
-                st.shape != stack2.shape or not st.is_contiguous():
-            raise ValueError(f"{name} must be contiguous f32 [3, H, W], got "
+        if st.dtype is not f32 or st.shape != stack2.shape or \
+                not st.is_contiguous():
+            raise ValueError(f"{name} must be contiguous f32 of stack2's "
+                             f"shape {tuple(stack2.shape)}, got "
                              f"{tuple(st.shape)}")
     if rows < ah + 2 or cols < aw + 2:
         raise ValueError(f"a {cols}x{rows} frame is smaller than the "
@@ -148,7 +158,7 @@ def affine_step_cuda_(state, stack1, stack2, x_old, y_old, xn, yn, vn,
     consts = _constants(cfg)
     with torch.cuda.device(dev):
         AFFINE_STEP(patches.data_ptr(), stack1.data_ptr(), stack2.data_ptr(),
-                    rows, cols, state.valid.data_ptr(),
+                    nseq, rows, cols, state.valid.data_ptr(),
                     *[t.data_ptr() for t in lanes], vn.data_ptr(), n,
                     *consts, *[t.data_ptr() for t in outs],
                     torch.cuda.current_stream(dev).cuda_stream)

@@ -1,9 +1,9 @@
 """ctypes bindings for the native host runtime (sort + suppression).
 
-Compiles `klt_tpu/native/kltnative.c` (the C source the JAX package
-ships; nothing of that package is imported) with `cc -O2 -shared -fPIC`
-into the port's build directory on first use, and again whenever the
-source is newer than the library.
+Compiles the port's own `kltnative.c`, beside this file (a byte-for-byte
+copy of the JAX package's native source, which the tests hold equal),
+with `cc -O2 -shared -fPIC` into the port's build directory on first use,
+and again whenever the source is newer than the library.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import numpy as np
 
 from .._build import BUILD_DIR, compile_shared, is_stale, repo_path
 
-_SRC = repo_path("klt_tpu", "native", "kltnative.c")
+_SRC = repo_path("klt_tpu_torch", "native", "kltnative.c")
 _LIB = os.path.join(BUILD_DIR, "libkltnative.so")
 _lock = threading.Lock()
 _lib = None

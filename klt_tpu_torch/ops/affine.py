@@ -155,6 +155,26 @@ def _coord_oob(c, n):
     return (c < 0.0) | (n - c < _EPS)
 
 
+def stack_sequences(stack: torch.Tensor, n: int) -> int:
+    """B of a level-0 stack [3, H, W] (1) or [B, 3, H, W] whose sequences
+    share n lanes, flattened sequence-major; raises unless B divides n."""
+    b = 1 if stack.dim() == 3 else stack.shape[0]
+    if stack.dim() not in (3, 4) or stack.shape[-3] != 3 or b < 1 or n % b:
+        raise ValueError(f"stacks must be [3, H, W] or [B, 3, H, W] with B "
+                         f"dividing the {n} lanes, got {tuple(stack.shape)}")
+    return b
+
+
+def lane_sequences(stack: torch.Tensor, n: int):
+    """The sequence of each of n lanes for batched stacks [B, 3, H, W]:
+    lane l reads sequence l // (n / B).  None for one sequence's stack
+    [3, H, W]."""
+    b = stack_sequences(stack, n)
+    if stack.dim() == 3:
+        return None
+    return torch.arange(n, device=stack.device) // (n // b)
+
+
 def _sums(terms) -> list:
     """Window sums of a list of [N, K] tensors, in the warp's order."""
     return list(_window_sum(torch.stack(terms)))
@@ -167,7 +187,8 @@ def track_affine_plain(patches, stack2, x1, y1, x2_in, y2_in, a_in, active,
     the reference `break`s, then the final checks.
 
     patches: f32 [3, N, ph, pw] (intensity, gradx, grady of the saved
-    patches); stack2: f32 [3, H, W], level 0 of the frame tracked into;
+    patches); stack2: f32 [3, H, W], level 0 of the frame tracked into, or
+    [B, 3, H, W] of B sequences, lane l reading sequence l // (N / B);
     x1, y1 [N] the patch-frame centres; x2_in, y2_in [N] the start
     positions in image 2 (the translation tracker's); a_in = (axx, ayx,
     axy, ayy), each [N]; active bool [N].  Returns (x2, y2, (axx, ayx,
@@ -179,6 +200,8 @@ def track_affine_plain(patches, stack2, x1, y1, x2_in, y2_in, a_in, active,
     hw, hh = float(aw // 2), float(ah // 2)
     ph, pw = patches.shape[-2:]
     nr2, nc2 = stack2.shape[-2:]
+    seq = lane_sequences(stack2, x1.shape[0])
+    seq = None if seq is None else seq[:, None]
     ncf, nrf, pcf, prf = float(nc2), float(nr2), float(pw), float(ph)
     area = float(aw * ah)
     th = _f32(cfg.min_displacement)
@@ -219,7 +242,7 @@ def track_affine_plain(patches, stack2, x1, y1, x2_in, y2_in, a_in, active,
         iters = iters + (~done).to(torch.int32)
 
         g2, gx2, gy2 = sample_stack_at(
-            stack2, *warp(axx, ayx, axy, ayy, x2, y2))
+            stack2, *warp(axx, ayx, axy, ayy, x2, y2), seq)
         diff = g1 - g2
         if mode == 0:
             gx = gx1w + gx2
@@ -286,7 +309,8 @@ def track_affine_plain(patches, stack2, x1, y1, x2_in, y2_in, a_in, active,
     drift = ((x2 - x2_in) > mdd) | ((y2 - y2_in) > mdd)
     status = torch.where(_window_oob(x2, y2, hw, hh, ncf, nrf) | drift, OOB,
                          status)
-    g2 = sample_stack_at(stack2[:1], *warp(axx, ayx, axy, ayy, x2, y2))[0]
+    g2 = sample_stack_at(stack2[..., :1, :, :],
+                         *warp(axx, ayx, axy, ayy, x2, y2), seq)[0]
     residue = _div(_window_sum((g1 - g2).abs()), area)
     status = torch.where((status == TRACKED) &
                          (residue > _f32(cfg.affine_max_residue)),
@@ -304,10 +328,11 @@ def _check_track_affine(patches, stack2, lanes, cfg: TrackingConfig) -> None:
     if patches.dim() != 4 or tuple(patches.shape) != (3, n, ph, pw):
         raise ValueError(f"patches must be [3, {n}, {ph}, {pw}], got "
                          f"{tuple(patches.shape)}")
-    if stack2.dim() != 3 or stack2.shape[0] != 3 or \
+    if stack2.dim() not in (3, 4) or stack2.shape[-3] != 3 or \
             min(stack2.shape[-2:]) < 2:
-        raise ValueError(f"stack2 must be [3, H, W], got "
+        raise ValueError(f"stack2 must be [3, H, W] or [B, 3, H, W], got "
                          f"{tuple(stack2.shape)}")
+    stack_sequences(stack2, n)
     if any(t.shape != (n,) for t in lanes):
         raise ValueError("the lanes' tensors must all be [N]")
     if cfg.affine_consistency_check not in (0, 1, 2):
@@ -346,16 +371,22 @@ def patch_starts(x_old, y_old, nr: int, nc: int, ph: int, pw: int):
 def save_patches_plain(patches, stack1, x_old, y_old, init_mask):
     """Plain torch version of kernel F's patch save: [3, N, ph, pw] with
     the patches of the lanes of init_mask replaced by integer-aligned
-    copies of the three planes of stack1 [3, H, W]
+    copies of the three planes of stack1 [3, H, W], or of the lane's own
+    sequence's in [B, 3, H, W]
     (reference: _am_getSubFloatImage, src/V1/trackFeatures.c:665-688)."""
-    _, _, ph, pw = patches.shape
+    _, n, ph, pw = patches.shape
     nr, nc = stack1.shape[-2:]
     px0, py0 = patch_starts(x_old, y_old, nr, nc, ph, pw)
     dev = stack1.device
     rows = py0.long()[:, None, None] + torch.arange(ph, device=dev)[:, None]
     cols = px0.long()[:, None, None] + torch.arange(pw, device=dev)[None, :]
-    return torch.where(init_mask[None, :, None, None],
-                       stack1[:, rows, cols], patches)
+    seq = lane_sequences(stack1, n)
+    if seq is None:
+        saved = stack1[:, rows, cols]
+    else:  # [N, ph, pw, 3] -> [3, N, ph, pw]
+        saved = stack1[seq[:, None, None], :, rows, cols].permute(
+            3, 0, 1, 2).contiguous()
+    return torch.where(init_mask[None, :, None, None], saved, patches)
 
 
 def affine_consistency_step(state: AffineState, stack1, stack2, x_old, y_old,
@@ -419,16 +450,18 @@ def affine_consistency_step_plain(state: AffineState, stack1, stack2, x_old,
     (xn, yn).
 
     stack1, stack2: f32 [3, H, W], level 0 of the two frames' pyramids
-    (intensity, gradx, grady); x_old, y_old, xn, yn f32 [N]; val_old, vn
-    i32 [N] (val_old is not read, as in klt_tpu).  Returns the updated
-    (x, y, val)."""
+    (intensity, gradx, grady), or [B, 3, H, W] of B sequences whose lanes
+    are flattened sequence-major (lane l of sequence l // (N / B));
+    x_old, y_old, xn, yn f32 [N]; val_old, vn i32 [N] (val_old is not
+    read, as in klt_tpu).  Returns the updated (x, y, val)."""
     ph, pw = patch_shape(cfg)
     nr1, nc1 = stack1.shape[-2:]
-    if stack1.shape != stack2.shape or stack1.dim() != 3 or \
-            nr1 < ph or nc1 < pw:
-        raise ValueError(f"stacks must both be [3, H, W] of at least "
-                         f"{pw}x{ph}, got {tuple(stack1.shape)} and "
-                         f"{tuple(stack2.shape)}")
+    if stack1.shape != stack2.shape or stack1.dim() not in (3, 4) or \
+            stack1.shape[-3] != 3 or nr1 < ph or nc1 < pw:
+        raise ValueError(f"stacks must both be [3, H, W] or [B, 3, H, W] "
+                         f"of at least {pw}x{ph}, got {tuple(stack1.shape)} "
+                         f"and {tuple(stack2.shape)}")
+    stack_sequences(stack1, xn.shape[0])
     valid = state.valid
     tracked = vn == TRACKED
     patches, ax_c, ay_c, _, _, a, run_mask = verification_inputs(

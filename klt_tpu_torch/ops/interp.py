@@ -84,20 +84,23 @@ def sample_stack_windows(stack: torch.Tensor, x: torch.Tensor,
 
 
 def sample_stack_at(stack: torch.Tensor, xs: torch.Tensor,
-                    ys: torch.Tensor) -> torch.Tensor:
+                    ys: torch.Tensor,
+                    seq: torch.Tensor | None = None) -> torch.Tensor:
     """Bilinear samples of C images at arbitrary coordinates of the full
     image: the sampler of the affine consistency check, whose windows are
     warped (klt_tpu's `make_exact_samplers`, the reference's _interpolate,
     src/V1/trackFeatures.c:31-57).
 
-    stack: [C, H, W] f32; xs, ys: f32 of one shape S.  Returns [C, *S].
+    stack: [C, H, W] f32; xs, ys: f32 of one shape S.  Or the stacks of B
+    sequences, [B, C, H, W], with seq (int64, broadcastable to S) the
+    sequence each coordinate samples.  Returns [C, *S].
     The integer corner is the truncated coordinate clamped to
     [0, W - 2] x [0, H - 2], the fractions are taken from that corner
     (so a coordinate outside the image extrapolates from the border
     cells and every read stays in bounds), and the blend is
     ((1-ax)(1-ay)) p00 + (ax(1-ay)) p01 + ((1-ax)ay) p10 + (ax ay) p11,
     added in that order, as csrc/affine.cu does."""
-    c, nr, nc = stack.shape
+    c, nr, nc = stack.shape[-3:]
     # clamped before the cast too: a float beyond int32 converts
     # differently on the CPU and on the card
     xt = xs.clamp(0.0, float(nc - 2)).to(torch.int32).clamp(0, nc - 2)
@@ -105,10 +108,14 @@ def sample_stack_at(stack: torch.Tensor, xs: torch.Tensor,
     ax = xs - xt.to(torch.float32)
     ay = ys - yt.to(torch.float32)
     base = (yt * nc + xt).long()
-    flat = stack.reshape(c, nr * nc)
-    p00 = flat[:, base]
-    p01 = flat[:, base + 1]
-    p10 = flat[:, base + nc]
-    p11 = flat[:, base + nc + 1]
+    if seq is None:
+        flat = stack.reshape(c, nr * nc)
+        taps = [flat[:, base + d] for d in (0, 1, nc, nc + 1)]
+    else:  # [*S, C] -> [C, *S]
+        flat = stack.reshape(stack.shape[0], c, nr * nc)
+        seq = seq.expand(base.shape)
+        taps = [flat[seq, :, base + d].movedim(-1, 0)
+                for d in (0, 1, nc, nc + 1)]
+    p00, p01, p10, p11 = taps
     return (((1 - ax) * (1 - ay)) * p00 + (ax * (1 - ay)) * p01 +
             ((1 - ax) * ay) * p10 + (ax * ay) * p11)

@@ -18,9 +18,9 @@ import pytest
 import torch
 
 import klt_tpu_torch as kt
-from chip_smoke import (affine_cases, affine_frames, batched_frames,
-                        noise_frames, pyramid_cases, replace_cases,
-                        response_cases, synthetic_frames)
+from chip_smoke import (affine_cases, affine_frames, batched_affine_frames,
+                        batched_frames, noise_frames, pyramid_cases,
+                        replace_cases, response_cases, synthetic_frames)
 from klt_tpu_torch.ops.affine import (AffineState, affine_consistency_step,
                                       save_patches_plain, track_affine,
                                       track_affine_plain, verification_inputs)
@@ -34,7 +34,8 @@ from klt_tpu_torch.ops.pyramid import (build_pyramid_stacks_batched,
                                        build_pyramid_stacks_batched_plain)
 from klt_tpu_torch.ops.replace import replace_lost_, replace_lost_plain_
 from klt_tpu_torch.ops.selection import corner_response, corner_response_plain
-from klt_tpu_torch.parallel import track_sequences_batched
+from klt_tpu_torch.parallel import (track_sequences_affine_batched,
+                                    track_sequences_batched)
 from klt_tpu_torch.runtime.pipeline import (track_sequence,
                                             track_sequence_affine,
                                             track_sequence_replace,
@@ -319,6 +320,57 @@ def test_affine_kernel_equals_plain_on_made_states(case, mode, dev):
     assert_equal_all(flat(got)[:7], flat(track_affine(*args, cfg) + (0,))[:7])
 
 
+def stack_batch(stack2, rng):
+    """[3, 3, H, W]: the stack, its mirror image and a noisier copy, so
+    that a lane's result depends on the sequence it reads."""
+    noisy = stack2 + rng.standard_normal(stack2.shape).astype(np.float32)
+    return np.ascontiguousarray(np.stack([stack2, stack2[:, ::-1, ::-1],
+                                          noisy]))
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("case", range(len(AFFINE_CASES)),
+                         ids=[c[0] for c in AFFINE_CASES])
+def test_affine_kernel_on_a_stack_batch_equals_plain(case, mode, dev):
+    """Kernel F on the stacks of 3 sequences, the case's lanes once for
+    each (lane l reads sequence l // N): one launch, the bits of the plain
+    version on the card and on the CPU, and of the kernel on each
+    sequence alone."""
+    from klt_tpu_torch import cuda
+    from klt_tpu_torch.cuda.affine import track_affine_cuda
+    name, kw, patches, stack2, x1, y1, x2, y2, maps, active = \
+        AFFINE_CASES[case]
+    cfg = kt.TrackingConfig(affine_consistency_check=mode, **kw)
+    t = torch.from_numpy
+    rep3 = lambda a: np.concatenate([a] * 3, axis=-1 if a.ndim == 1 else 1)
+    cpu = (t(np.ascontiguousarray(rep3(patches))),
+           t(stack_batch(stack2, np.random.RandomState(case))),
+           *(t(rep3(a)) for a in (x1, y1, x2, y2)),
+           tuple(t(rep3(m)) for m in maps), t(rep3(active)))
+    args = tuple(tuple(m.to(dev) for m in a) if isinstance(a, tuple)
+                 else a.to(dev) for a in cpu)
+    before = cuda.AFFINE_TRACK.launches
+    got = track_affine_cuda(*args, cfg)
+    assert cuda.AFFINE_TRACK.launches == before + 1
+    flat = lambda out: [out[0], out[1], *out[2], out[3], out[4]]
+    assert_equal_all(flat(got), flat(track_affine_plain(*args, cfg)))
+    assert_equal_all([g.cpu() for g in flat(got)],
+                     flat(track_affine_plain(*cpu, cfg)))
+    n = len(x1)
+    for b in range(3):
+        lanes = slice(b * n, (b + 1) * n)
+        one = track_affine_cuda(
+            args[0][:, lanes].contiguous(), args[1][b],
+            *(a[lanes] for a in args[2:6]),
+            tuple(m[lanes] for m in args[6]), args[7][lanes], cfg)
+        assert_equal_all([g[lanes] for g in flat(got)], flat(one))
+    if active.any():
+        seqs = got[3].view(3, n)
+        assert not (torch.equal(seqs[0], seqs[1]) and
+                    torch.equal(seqs[0], seqs[2]) and
+                    torch.equal(got[0].view(3, n)[0], got[0].view(3, n)[2]))
+
+
 def test_affine_step_entry_saves_patches_with_clamped_starts(dev):
     """Lanes tracked for the first time, two of them at positions whose
     patch would leave the image: the step entry's one launch writes the
@@ -465,6 +517,68 @@ def test_affine_step_entry_rejects_bad_inputs(dev):
                           *lanes(), cfg)
     with pytest.raises(ValueError, match="0, 1 or 2"):
         affine_step_cuda_(good, stack, stack, *lanes(), kt.TrackingConfig())
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_track_sequences_affine_batched_kernels_equal_plain(mode, dev):
+    """B = 3 different sequences with the check: kernels on the card equal
+    the plain versions on the card and on the CPU, precomp, and lane by
+    lane track_sequence_affine; a step is one launch each of E, C's
+    pyramid entry and F's step entry, and nothing else."""
+    from klt_tpu_torch import cuda
+    cfg = kt.TrackingConfig(sequential_mode=True,
+                            affine_consistency_check=mode)
+    frames = batched_affine_frames(3, 7, rate=0.1)
+    b, t_len = frames.shape[:2]
+    lists = [kt.FeatureList.create(150) for _ in range(b)]
+    for i, fl in enumerate(lists):
+        kt.KLTracker(cfg).select_good_features(frames[i, 0], fl)
+    feats = [np.stack([getattr(fl, k) for fl in lists])
+             for k in ("x", "y", "val")]
+    f = torch.from_numpy(frames)
+    cpu = [torch.from_numpy(a) for a in feats]
+    fd, featd = f.to(dev), [a.to(dev) for a in cpu]
+    cuda.reset_launch_counts()
+    got = track_sequences_affine_batched(fd, *featd, cfg)
+    counts = {k.symbol: k.launches for k in cuda.KERNELS}
+    assert counts == {k.symbol: 0 for k in cuda.KERNELS} | {
+        cuda.PYRAMID_BATCHED.symbol: t_len,
+        cuda.LK_PYRAMID_BATCHED.symbol: t_len - 1,
+        cuda.AFFINE_STEP.symbol: t_len - 1}
+    assert_equal_all(got, track_sequences_affine_batched(fd, *featd, cfg,
+                                                         precomp=True))
+    assert_equal_all(got, track_sequences_affine_batched(fd, *featd, cfg,
+                                                         plain=True))
+    assert_equal_all([g.cpu() for g in got],
+                     track_sequences_affine_batched(f, *cpu, cfg))
+    killed = 0
+    for i in range(b):
+        one = track_sequence_affine(fd[i], *[a[i] for a in featd], cfg)
+        assert_equal_all([g[:, i] for g in got], one)
+        free = track_sequence(fd[i], *[a[i] for a in featd], cfg)
+        killed += int(((free[2][-1] == kt.TRACKED) &
+                       (got[2][-1, i] < 0)).sum())
+    assert killed >= 3
+
+
+def test_affine_entries_reject_a_stack_batch_that_does_not_divide(dev):
+    from klt_tpu_torch.cuda.affine import affine_step_cuda_, track_affine_cuda
+    name, kw, patches, stack2, x1, y1, x2, y2, maps, active = AFFINE_CASES[0]
+    t = lambda a: torch.from_numpy(a).to(dev)
+    cfg = kt.TrackingConfig(affine_consistency_check=2)
+    three = t(stack_batch(stack2, np.random.RandomState(0)))
+    assert len(x1) % 3 != 0
+    with pytest.raises(ValueError, match="dividing"):
+        track_affine_cuda(t(patches), three, t(x1), t(y1), t(x2), t(y2),
+                          tuple(t(m) for m in maps), t(active), cfg)
+    lanes = [t(a) for a in (x2, y2, x2, y2)] + \
+        [torch.zeros(len(x1), dtype=torch.int32, device=dev)]
+    with pytest.raises(ValueError, match="dividing"):
+        affine_step_cuda_(AffineState.create(len(x1), cfg, dev), three,
+                          three, *lanes, cfg)
+    with pytest.raises(ValueError):
+        affine_step_cuda_(AffineState.create(len(x1), cfg, dev), three,
+                          three[:1], *lanes, cfg)
 
 
 def test_tracker_with_the_check_on_card_equals_cpu(dev):

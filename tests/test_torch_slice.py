@@ -2,6 +2,7 @@
 and KLTracker select+track on synthetic sequences with known motion; the
 port without jax; chip_smoke.py without a card."""
 
+import ast
 import dataclasses
 import os
 import re
@@ -177,6 +178,65 @@ def test_port_sources_import_neither_jax_nor_klt_tpu():
     for path in files:
         with open(path) as f:
             assert not pat.search(f.read()), path
+
+
+def _port_files(*suffixes):
+    pkg = os.path.join(ROOT, "klt_tpu_torch")
+    return [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs
+            if f.endswith(suffixes)] + (
+        [os.path.join(ROOT, "chip_smoke.py")] if ".py" in suffixes else [])
+
+
+def _docstrings(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body and \
+                isinstance(node.body[0], ast.Expr) and \
+                isinstance(node.body[0].value, ast.Constant):
+            yield node.body[0].value
+
+
+def test_port_opens_and_compiles_no_file_of_klt_tpu():
+    """No string of the port's code is a path into klt_tpu/ (or its first
+    component, as in os.path.join("klt_tpu", ...)): only docstrings and
+    the kernels' `replaces=` metadata cite the reference.  No C or CUDA
+    source of the port includes a file of klt_tpu/."""
+    py = _port_files(".py")
+    assert len(py) > 15
+    for path in py:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        cited = {id(c) for c in _docstrings(tree)}
+        for node in ast.walk(tree):
+            if isinstance(node, ast.keyword) and node.arg == "replaces":
+                cited.add(id(node.value))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Constant) and \
+                    isinstance(node.value, str) and id(node) not in cited:
+                s = node.value.replace("\\", "/")
+                assert s != "klt_tpu" and "klt_tpu/" not in s.replace(
+                    "klt_tpu_torch/", ""), (path, node.lineno, s)
+    native = _port_files(".c", ".cu", ".h", ".cuh")
+    assert len(native) >= 6
+    inc = re.compile(r'^\s*#\s*include\s*[<"]([^>"]*)[>"]', re.M)
+    for path in native:
+        with open(path) as f:
+            for name in inc.findall(f.read()):
+                assert "klt_tpu/" not in name, (path, name)
+
+
+def test_native_source_is_a_copy_of_klt_tpus():
+    """The port builds its own kltnative.c; a later edit to either copy
+    shows here."""
+    from klt_tpu_torch import native
+    assert os.path.dirname(native._SRC) == os.path.dirname(native.__file__)
+    with open(native._SRC, "rb") as a, \
+            open(os.path.join(ROOT, "klt_tpu", "native", "kltnative.c"),
+                 "rb") as b:
+        assert a.read() == b.read()
+    assert os.path.commonpath([native._LIB, os.path.join(
+        ROOT, "build", "klt_tpu_torch")]) == os.path.join(
+        ROOT, "build", "klt_tpu_torch")
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
