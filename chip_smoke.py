@@ -36,6 +36,13 @@ paths:
   101 frames of batched_affine_frames;
 * selection from the response computed on the card (KLT_TPU_EXACT_SELECT=0)
   with the default window and with one that no tile of kernel D holds;
+* the bit-exact replace run (track_sequence_replace_exact, klt_tpu's
+  traffic row on its exact tier: kernels A, G, H2 and kernel R's tie
+  entry, tie-flagged frames repaired on the host) on the 551 traffic
+  frames with 500 features, held bit for bit against the plain CPU run
+  over its first EXACT_CPU_FRAMES frames, and at 320x240 with 150
+  features over 10 frames with a block pasted at two places (a tie that
+  the host repairs); the same run with tier="fast";
 
 checks the tracks against the known motion of the synthetic frames and
 against the plain versions on the CPU, checks that the replacement loop
@@ -104,9 +111,20 @@ from klt_tpu_torch.ops.selection import (corner_response_plain,
                                          response_tile_rows)
 from klt_tpu_torch.parallel import (track_sequences_affine_batched,
                                     track_sequences_batched)
+from klt_tpu_torch.runtime import pipeline
 from klt_tpu_torch.runtime.pipeline import (PRECOMP_FRAMES, track_sequence,
                                             track_sequence_affine,
-                                            track_sequence_replace)
+                                            track_sequence_replace,
+                                            track_sequence_replace_exact)
+from klt_tpu_torch.cuda.exact import exact_response_cuda, track_exact_cuda
+from klt_tpu_torch.cuda.replace import replace_lost_tie_cuda_
+from klt_tpu_torch.ops import lk_exact, replace_exact
+from klt_tpu_torch.ops import pyramid as pyramid_ops
+from klt_tpu_torch.ops.lk_exact import (build_pyramids_exact,
+                                        track_features_exact_plain)
+from klt_tpu_torch.ops.replace_exact import (exact_response_plain,
+                                             replace_lost_exact_)
+from klt_tpu_torch.utils.parity import table_parity_stats
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PROCESS_START = time.perf_counter()
@@ -135,6 +153,12 @@ AFFINE_STEPS = (0, 1, 10, 60)
 BATCHED_AFFINE = (8, 101)
 BATCHED_AFFINE_CPU = (2, 6)
 BATCHED_AFFINE_STEP = 10
+# the exact replace run (track_sequence_replace_exact on the traffic
+# frames): the frames of it the plain CPU runs repeat (both tiers), the
+# steps whose states kernel G is held on, and the timed runs of the card's
+EXACT_CPU_FRAMES = 100
+EXACT_G_STEPS = (1, 100, 400)
+EXACT_RUNS = 3
 
 
 # ------------------------------------------------------------------ #
@@ -207,6 +231,23 @@ def batched_frames(n_seq: int, n_frames: int, scale: int = 1) -> np.ndarray:
         for k in range(n_frames):
             out[b, k] = _warp_u8(img, xx, yy, lane_shift(b, k))
     return out
+
+
+def tie_frames(frames: np.ndarray, start: int, seed: int = 5) -> np.ndarray:
+    """A copy of uint8 [T, H, W] frames with a flat patch from frame 3 on
+    (its features are lost) and, from frame `start` on, one block of
+    seeded high-contrast texture pasted at two places: the two copies give
+    equal exact responses to the bit, so the replacement at `start` meets
+    integer ties at its picks (the input of the host repair)."""
+    fr = frames.copy()
+    t, h, w = fr.shape
+    fr[3:, h // 4:h // 2, 5 * w // 16:9 * w // 16] = 128
+    side = max(min(h, w) // 6, 12)
+    cells = np.random.RandomState(seed).randint(0, 2, (-(-side // 4),) * 2)
+    block = (40 + 170 * np.kron(cells, np.ones((4, 4))))[:side, :side]
+    for y0, x0 in ((h // 8, w // 16), (5 * h // 8, 11 * w // 16)):
+        fr[start:, y0:y0 + side, x0:x0 + side] = block.astype(np.uint8)
+    return fr
 
 
 # The deforming region of affine_frames, in the 320x240 scene's
@@ -453,6 +494,113 @@ def affine_cases():
             case("no active lane", {}, n=24)[:9] + (np.zeros(24, bool),)]
 
 
+def exact_cases():
+    """Frames and configurations of kernel A as the exact tier takes it
+    (every level, and level 0 alone without the pre-smoothing) and of
+    kernel H2, beside the main paths': (name, TrackingConfig keywords,
+    frame uint8 or f32 [H, W]),
+    made from a seed.  The sizes of the main paths, an odd size, a frame
+    narrower than the pyramid taps (every pass of it zero), f32 input, and
+    the three sigmas of the default configuration (smoothing 0.7,
+    gradients 1.0, pyramid 3.6) in each pass."""
+    rng = np.random.RandomState(37)
+    base, xx, yy = _scene(2)
+    vga = _warp_u8(base, xx, yy, (0.3, 0.7))
+    return [
+        ("640x480", {}, vga),
+        ("320x240", {}, vga[::2, ::2].copy()),
+        ("333x251, odd", {}, vga[100:351, 200:533].copy()),
+        ("18x40, narrower than the pyramid taps", {},
+         rng.randint(0, 256, (40, 18)).astype(np.uint8)),
+        ("333x251 f32, gradient sigma 0.7", {"grad_sigma": 0.7},
+         rng.uniform(0.0, 255.0, (251, 333)).astype(np.float32)),
+        ("320x240, gradient sigma 3.6, 3 levels of subsampling 2",
+         {"grad_sigma": 3.6, "n_pyramid_levels": 3, "subsampling": 2},
+         vga[1::2, 1::2].copy()),
+        ("320x240, 9x9 window, smoothing sigma 0.9",
+         {"window_width": 9, "window_height": 9}, vga[::2, 1::2].copy()),
+    ]
+
+
+def exact_lk_cases():
+    """Made frame pairs and lanes of kernel G beside the tracked ones:
+    (name, TrackingConfig keywords, frame1, frame2 uint8 [H, W], x, y f32
+    [N], val i32 [N]), made from a seed.  Frame 2 is frame 1 (a 120x160
+    crop of the fixture scene) moved by (0.6, -0.4) px, with a flat
+    rectangle in both frames that reaches the left edge and, in frame 2
+    only, a block of foreign texture.  Lanes 0-1 start out of bounds,
+    2-4 sit in the flat rectangle (a zero determinant), 5-6 in it inside
+    the border band (SMALL_DET there: klt_tpu's order, C records OOB),
+    7-9 under the foreign block (a large residue), 10-11 are lost slots,
+    the rest lie on the scene's texture."""
+    rng = np.random.RandomState(23)
+    base, xx, yy = _scene(1)
+    crop = (slice(60, 180), slice(80, 240))
+    f1 = _warp_u8(base, xx, yy, (0.0, 0.0))[crop]
+    f2 = _warp_u8(base, xx, yy, (0.6, -0.4))[crop]
+    for f in (f1, f2):
+        f[70:110, 0:40] = 90
+    f2[15:45, 100:130] = rng.randint(0, 256, (30, 30))
+    n = 40
+    x = rng.uniform(30.0, 130.0, n).astype(np.float32)
+    y = rng.uniform(20.0, 60.0, n).astype(np.float32)
+    x[:2], y[:2] = [1.5, 158.2], [50.0, 40.0]
+    x[2:5], y[2:5] = [25.3, 30.8, 33.1], [85.2, 90.7, 95.4]
+    x[5:7], y[5:7] = [12.2, 14.9], [88.6, 93.1]
+    x[7:10], y[7:10] = [110.4, 115.7, 120.2], [25.3, 30.1, 36.6]
+    val = np.zeros(n, np.int32)
+    val[10:12] = [-1, -4]
+    return [("default, 2 levels of subsampling 4", {}, f1, f2, x, y, val),
+            ("3 iterations at most", {"max_iterations": 3}, f1, f2, x, y,
+             val),
+            ("9x9 window, 3 levels of subsampling 2",
+             {"window_width": 9, "window_height": 9, "n_pyramid_levels": 3,
+              "subsampling": 2}, f1, f2, x, y, val),
+            ("5x5 window, one level, no residue check",
+             {"window_width": 5, "window_height": 5, "n_pyramid_levels": 1,
+              "max_residue": 0.0}, f1, f2, x, y, val)]
+
+
+def exact_replace_cases():
+    """States of kernel R's tie entry beside replace_cases (where most
+    picks are ties): (name, TrackingConfig keywords, response f32 [H, W],
+    x, y f32 [N], val i32 [N]), made from a seed.  Responses with no
+    equal integers except where made: a block copied to another place
+    (equal values to the bit, a tie), and two equal cells of which a
+    first pick's square kills one (no tie left), or neither (a tie)."""
+    rng = np.random.RandomState(29)
+    small = {"borderx": 0, "bordery": 0}
+
+    def unique(h, w):  # every truncated value differs
+        return (rng.permutation(h * w).reshape(h, w) * 3 + 1000 +
+                rng.uniform(0.0, 0.9, (h, w))).astype(np.float32)
+
+    def lost(n, share, h, w):
+        x = rng.uniform(0.0, w - 1.0, n).astype(np.float32)
+        y = rng.uniform(0.0, h - 1.0, n).astype(np.float32)
+        val = np.where(rng.rand(n) < share, -1, 1).astype(np.int32)
+        return x, y, val
+
+    copied = unique(96, 128)
+    copied[60:84, 90:114] = copied[10:34, 20:44]
+    copied[20:24, 30:34] += 1e6  # the copied block holds the maxima
+    copied[70:74, 100:104] = copied[20:24, 30:34]
+    cases = [("a block copied to two places", small, copied,
+              *lost(40, 0.5, 96, 128)),
+             ("unique maxima", small, unique(96, 128),
+              *lost(40, 0.5, 96, 128))]
+    for name, far in (("a stamp kills one of two equal cells", False),
+                      ("two equal cells that no stamp reaches", True)):
+        resp = unique(64, 96)
+        resp[10, 10] = resp[10, 30] = 5e6 + 0.5
+        resp[10, 4 if not far else 60] = 6e6 + 0.5
+        x = np.full(6, 80.0, np.float32)
+        y = np.full(6, 50.0, np.float32)
+        val = np.array([-1, -1, 5, 5, 5, 5], np.int32)
+        cases.append((name, {"mindist": 10, **small}, resp, x, y, val))
+    return cases
+
+
 def noise_frames(n: int, hw, seed: int) -> np.ndarray:
     """uint8 [n, rows, cols] of uniform noise."""
     return np.random.RandomState(seed).randint(0, 256, (n, *hw), np.uint8)
@@ -691,7 +839,8 @@ def phase_build(card: str) -> None:
           "lk_level_kernel", "lk_pyramid_kernel", "pyramid_tiles",
           "hpass_global", "vpass_global", "replace_lost", "hsum_products",
           "vsum_eigen", "response_tiles", "affine_track_kernel",
-          "affine_step_kernel")
+          "affine_step_kernel", "exact_response",
+          "exact_track")
     for line in cuda.build_log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
@@ -1234,6 +1383,41 @@ def known_motion_errors(xs, ys, vs, start, max_age=100):
     return per_frame, np.concatenate(older) if older else np.zeros(0)
 
 
+def check_known_motion(tag, xs, ys, vs, start) -> None:
+    """The known motion of a replace run's table: bounds per frame and
+    pooled (see below), printed; raises when they fail."""
+    # Bounds per frame where at least MIN_YOUNG features are young: after
+    # frame 100 only the few replaced features are, and they sit on the
+    # border band's last rows (the interior's corners are all held), so a
+    # frame's median is then one or two correlated features.  Every young
+    # observation of the run is also bounded, pooled.
+    per_frame, older = known_motion_errors(xs, ys, vs, start)
+    sizes = np.array([e.size for e in per_frame])
+    meds = np.array([np.median(e) if e.size else 0.0 for e in per_frame])
+    fracs = np.array([(e <= 1.0).mean() if e.size else 1.0
+                      for e in per_frame])
+    big = sizes >= MIN_YOUNG
+    pooled = np.concatenate(per_frame)
+    print(f"[{tag}] known motion, features younger than 100 frames: "
+          f"{pooled.size} observations, median {np.median(pooled):.4f} px, "
+          f"within 1 px {(pooled <= 1.0).mean():.4f}; over the {big.sum()} "
+          f"frames with >= {MIN_YOUNG} young features: worst median "
+          f"{meds[big].max():.4f} px, worst share within 1 px "
+          f"{fracs[big].min():.4f}; over all frames (down to "
+          f"{sizes.min()} young features): worst median {meds.max():.4f} px "
+          f"(frame {int(meds.argmax()) + 1}, {sizes[meds.argmax()]} "
+          f"features), worst share within 1 px {fracs.min():.4f}")
+    print(f"[{tag}] older features (reported, not bounded): {older.size} "
+          f"observations, median "
+          f"{np.median(older) if older.size else 0.0:.4f} px, within 1 px "
+          f"{(older <= 1.0).mean() if older.size else 1.0:.4f}")
+    check(np.median(pooled) <= 0.5 and (pooled <= 1.0).mean() >= 0.90,
+          "young features' errors above the bounds")
+    check(meds[big].max() <= 0.5, "a frame's median error is above 0.5 px")
+    check(fracs[big].min() >= 0.90,
+          "under 90% of a frame's tracks within 1 px")
+
+
 def run_replace_traffic(frames, n_feats, cfg, tag, n_cpu) -> int:
     """The traffic configuration's replace run: track_sequence_replace
     with kernels and with precomp, KLTracker, the CPU plain run over the
@@ -1290,36 +1474,7 @@ def run_replace_traffic(frames, n_feats, cfg, tag, n_cpu) -> int:
     check((refilled > 0).sum() >= (t_len - 1) / 2,
           "replacement filled slots on under half of the frames")
 
-    # Bounds per frame where at least MIN_YOUNG features are young: after
-    # frame 100 only the few replaced features are, and they sit on the
-    # border band's last rows (the interior's corners are all held), so a
-    # frame's median is then one or two correlated features.  Every young
-    # observation of the run is also bounded, pooled.
-    per_frame, older = known_motion_errors(xs, ys, vs, start)
-    sizes = np.array([e.size for e in per_frame])
-    meds = np.array([np.median(e) if e.size else 0.0 for e in per_frame])
-    fracs = np.array([(e <= 1.0).mean() if e.size else 1.0
-                      for e in per_frame])
-    big = sizes >= MIN_YOUNG
-    pooled = np.concatenate(per_frame)
-    print(f"[{tag}] known motion, features younger than 100 frames: "
-          f"{pooled.size} observations, median {np.median(pooled):.4f} px, "
-          f"within 1 px {(pooled <= 1.0).mean():.4f}; over the {big.sum()} "
-          f"frames with >= {MIN_YOUNG} young features: worst median "
-          f"{meds[big].max():.4f} px, worst share within 1 px "
-          f"{fracs[big].min():.4f}; over all frames (down to "
-          f"{sizes.min()} young features): worst median {meds.max():.4f} px "
-          f"(frame {int(meds.argmax()) + 1}, {sizes[meds.argmax()]} "
-          f"features), worst share within 1 px {fracs.min():.4f}")
-    print(f"[{tag}] older features (reported, not bounded): {older.size} "
-          f"observations, median "
-          f"{np.median(older) if older.size else 0.0:.4f} px, within 1 px "
-          f"{(older <= 1.0).mean() if older.size else 1.0:.4f}")
-    check(np.median(pooled) <= 0.5 and (pooled <= 1.0).mean() >= 0.90,
-          "young features' errors above the bounds")
-    check(meds[big].max() <= 0.5, "a frame's median error is above 0.5 px")
-    check(fracs[big].min() >= 0.90,
-          "under 90% of a frame's tracks within 1 px")
+    check_known_motion(tag, xs, ys, vs, start)
     return with_lost
 
 
@@ -2763,6 +2918,412 @@ def run_device_selection(frame, n_feats, tag, card, times) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ #
+# the bit-exact tier: kernel A as its pyramid, G, H2, R's tie entry   #
+# ------------------------------------------------------------------ #
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal shapes, dtypes and bits (-0.0 and +0.0 differ)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a.cpu(), b.cpu())
+
+
+def max_err(got, ref) -> float:
+    """The largest absolute difference over pairs of tensors (0 when a
+    pair is empty)."""
+    return max([(a.double() - b.double()).abs().max().item()
+                for a, b in zip(got, ref) if a.numel()] or [0.0])
+
+
+def launch_counts() -> dict:
+    return {k.symbol: k.launches for k in cuda.KERNELS}
+
+
+def _refuse(*args, **kw):
+    raise SmokeFailure("a plain version ran on the kernel path")
+
+
+@contextmanager
+def no_plain_versions():
+    """The plain versions of A, G, H2 and R's tie entry raise while the
+    block runs: the kernel path must not reach one."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name in (
+        (lk_exact, "track_features_exact_plain"),
+        (pyramid_ops, "build_pyramid_stacks_plain"),
+        (replace_exact, "exact_response_plain"),
+        (replace_exact, "replace_lost_plain_"))]
+    for mod, name, _ in saved:
+        setattr(mod, name, _refuse)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+@contextmanager
+def counting_repairs(repaired: list):
+    """Appends to `repaired` each frame repaired on the host (its pixels'
+    sum, to tell frames apart) while the block runs."""
+    orig = pipeline._repair_replacement_host
+
+    def spy(frame, *args):
+        repaired.append(int(frame.to(torch.int64).sum()))
+        return orig(frame, *args)
+
+    pipeline._repair_replacement_host = spy
+    try:
+        yield
+    finally:
+        pipeline._repair_replacement_host = orig
+
+
+def exact_response_work(rows: int, cols: int, cfg) -> tuple[float, float]:
+    """(bytes, flops) of kernel H2: two gradient maps read, the response
+    written; per interior pixel 3 products and 3 sums a window cell and
+    the eigenvalue (about 10 operations, the square root one of them)."""
+    ww, wh = cfg.window_width, cfg.window_height
+    inner = max(rows - 2 * (wh // 2), 0) * max(cols - 2 * (ww // 2), 0)
+    return 3 * rows * cols * 4, inner * (6 * ww * wh + 10)
+
+
+# operations of kernel G's lane program a window cell: per iteration two
+# cells' weights (10 each), six bilinear samples, the difference, the two
+# gradient sums and five products and sums; for the residue two weights,
+# two samples and the absolute difference and its sum
+G_ITER_FLOPS = 2 * 10 + 6 * SAMPLE_FLOPS + 3 + 10
+G_RESIDUE_FLOPS = 2 * 10 + 2 * SAMPLE_FLOPS + 3
+
+
+def exact_track_work(stats, n: int, cfg) -> tuple[float, float]:
+    """(bytes, flops) of kernel G on a frame pair, from the plain run's
+    per-level stats (level, lanes that entered the loop, their iterations,
+    lanes whose residue was taken): each entering lane's (w+1)x(w+1)
+    footprint in the three planes of both frames once, the lanes' x, y,
+    val in and out; the lane program's operations."""
+    cells = cfg.window_width * cfg.window_height
+    foot = (cfg.window_width + 1) ** 2 * 3 * 2 * 4
+    n_bytes, n_flops = 2 * 12 * n, 0
+    for _, entered, iters, resid in stats:
+        n_bytes += entered * foot
+        n_flops += cells * (iters * G_ITER_FLOPS + resid * G_RESIDUE_FLOPS) \
+            + iters * 15
+    return n_bytes, n_flops
+
+
+def phase_exact_kernels(errs) -> None:
+    """Kernel A as the exact tier takes it and H2 on exact_cases, G on
+    exact_lk_cases and R's tie entry on replace_cases and
+    exact_replace_cases, against their plain versions on the card, bit for
+    bit."""
+    for name, kw, frame in exact_cases():
+        cfg = klt.TrackingConfig(**kw)
+        img = torch.from_numpy(frame).cuda()
+        for n, smooth in ((cfg.n_pyramid_levels, True), (1, False)):
+            got = build_pyramid_stacks_cuda(img, cfg, n, smooth)
+            ref = build_pyramid_stacks_plain(img, cfg, n, smooth)
+            same = all(bits_equal(a, b) for a, b in zip(got, ref))
+            errs[cuda.PYRAMID.symbol].append(max_err(got, ref))
+            resp = exact_response_cuda(got[0][1], got[0][2], cfg.window_width,
+                                       cfg.window_height)
+            rref = exact_response_plain(got[0][1], got[0][2],
+                                        cfg.window_width, cfg.window_height)
+            r_same = bits_equal(resp, rref)
+            errs[cuda.EXACT_RESPONSE.symbol].append(max_err([resp], [rref]))
+            print(f"[30 kernels A, H2] {name}, {n} level(s), "
+                  f"{'smoothed' if smooth else 'not smoothed'}: A bit-equal "
+                  f"to its plain version: {same}; H2 on its level 0: "
+                  f"{r_same}")
+            check(same and r_same, f"kernel A or H2 differs from its plain "
+                  f"version ({name})")
+    for name, kw, f1, f2, x, y, val in exact_lk_cases():
+        cfg = klt.TrackingConfig(**kw)
+        p1 = build_pyramids_exact(torch.from_numpy(f1).cuda(), cfg)
+        p2 = build_pyramids_exact(torch.from_numpy(f2).cuda(), cfg)
+        feats = [torch.from_numpy(a).cuda() for a in (x, y, val)]
+        got = track_exact_cuda(p1, p2, *feats, cfg)
+        ref = track_features_exact_plain(p1, p2, *feats, cfg)
+        same = all(bits_equal(a, b) for a, b in zip(got, ref))
+        errs[cuda.EXACT_TRACK.symbol].append(max_err(got, ref))
+        v = got[2].cpu().numpy()
+        print(f"[30 kernel G] made lanes, {name}: statuses "
+              f"{np.unique(v, return_counts=True)[1].tolist()} of "
+              f"{np.unique(v).tolist()}; bit-equal to the plain version: "
+              f"{same}")
+        check(same, f"kernel G differs from its plain version ({name})")
+    for name, kw, resp, x, y, val in replace_cases() + exact_replace_cases():
+        cfg = klt.TrackingConfig(**kw)
+        respd = torch.from_numpy(resp).cuda()
+        outs = []
+        for plain in (False, True):
+            state = [torch.from_numpy(a.copy()).cuda() for a in (x, y, val)]
+            tie = torch.full((1,), 7, dtype=torch.int32,
+                             device=respd.device)
+            replace_lost_exact_(respd, *state, cfg, tie, plain=plain)
+            outs.append(state + [tie])
+        same = all(bits_equal(a, b) for a, b in zip(*outs))
+        errs[cuda.REPLACE_LOST_TIE.symbol].append(max_err(*outs))
+        print(f"[30 kernel R, tie entry] {name}: tie {int(outs[0][3])}; "
+              f"x, y, val, tie equal to the plain loop: {same}")
+        check(same, f"kernel R's tie entry differs from its plain loop "
+              f"({name})")
+
+
+def exact_table(xs, ys, vs, start):
+    """[N, T] (x, y, val) table with the first selection at column 0."""
+    return [np.concatenate([s[:, None], a.T], axis=1) for a, s in
+            ((xs, start.x), (ys, start.y), (vs, start.val))]
+
+
+def run_exact_card(dev_frames, feats, cfg, tier="exact", chunk=32):
+    """track_sequence_replace_exact with kernels and no plain version;
+    returns (numpy table, frames repaired, seconds, launches)."""
+    repaired = []
+    before = launch_counts()
+    with no_plain_versions(), counting_repairs(repaired):
+        t0 = time.perf_counter()
+        out = track_sequence_replace_exact(dev_frames, *feats, cfg,
+                                           tier=tier, chunk=chunk)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    after = launch_counts()
+    return ([a.cpu().numpy() for a in out], repaired, secs,
+            {k: after[k] - before[k] for k in after})
+
+
+def check_exact_launches(tag, launches, repaired, n_frames, tier) -> None:
+    """Every step computed is one launch each of A (the new frame's
+    pyramid), G (or B), H2 and R's tie entry, the first frame one of A, a
+    repair one more of H2 (its response, from the kept pyramid); no other
+    kernel."""
+    steps = launches[cuda.REPLACE_LOST_TIE.symbol]
+    rep = len(repaired)
+    track = cuda.EXACT_TRACK if tier == "exact" else cuda.LK_PYRAMID
+    want = {track.symbol: steps, cuda.PYRAMID.symbol: 1 + steps,
+            cuda.EXACT_RESPONSE.symbol: steps + rep,
+            cuda.REPLACE_LOST_TIE.symbol: steps}
+    got = {k: v for k, v in launches.items() if v}
+    print(f"[{tag}] launches of the {tier} tier: {got} ({rep} frames "
+          f"repaired, {steps} steps computed for {n_frames - 1})")
+    check(steps >= n_frames - 1 and got == want,
+          f"{tier} tier launch counts differ from the expected {want}")
+
+
+def run_exact_traffic(frames, n_feats, cfg, tag, n_cpu) -> dict:
+    """The traffic configuration on the exact tier: the card's table
+    against the plain CPU run over the first n_cpu frames (chunk 1: the
+    table does not depend on the chunk), the frames repaired, slots
+    refilled and the known motion; then the fast tier against its plain
+    CPU run, and its parity with the exact table.  Returns the launches,
+    the start and the exact table."""
+    t_len = frames.shape[0]
+    n_cpu = min(n_cpu, t_len - 1)
+    fl = klt.FeatureList.create(n_feats)
+    klt.KLTracker(cfg, device="cuda").select_good_features(frames[0], fl)
+    start = fl.copy()
+    dev_frames = torch.from_numpy(frames).cuda()
+    feats = [torch.from_numpy(a).cuda() for a in
+             (start.x, start.y, start.val)]
+    (xs, ys, vs), repaired, secs, launches = run_exact_card(dev_frames, feats,
+                                                            cfg)
+    check_exact_launches(tag, launches, repaired, t_len, "exact")
+    check(np.isfinite(xs).all() and np.isfinite(ys).all() and
+          xs.shape == (t_len - 1, n_feats), "bad exact table")
+    cpu_feats = [torch.from_numpy(a) for a in (start.x, start.y, start.val)]
+    t0 = time.perf_counter()
+    cpu = [a.numpy() for a in track_sequence_replace_exact(
+        torch.from_numpy(frames[:n_cpu + 1]), *cpu_feats, cfg, chunk=1)]
+    t_cpu = time.perf_counter() - t0
+    card_cpu = all(np.array_equal(a[:n_cpu].view(np.int32),
+                                  b.view(np.int32))
+                   for a, b in zip((xs, ys, vs), cpu))
+    refilled = (vs > 0).sum(axis=1)
+    alive = (vs >= 0).sum(axis=1)
+    print(f"[{tag}] {frames.shape[2]}x{frames.shape[1]}, {t_len} frames, "
+          f"{start.count_remaining()} of {n_feats} requested features: "
+          f"track_sequence_replace_exact on the card {secs:.3f} s, "
+          f"{len(repaired)} frames repaired on the host; plain CPU run "
+          f"over {n_cpu} frames {t_cpu:.1f} s, card bit-equal to it: "
+          f"{card_cpu}")
+    print(f"[{tag}] replaced per frame: {refilled.tolist()}")
+    print(f"[{tag}] frames with replacements {int((refilled > 0).sum())} of "
+          f"{t_len - 1}; features alive per frame min {alive.min()}, "
+          f"median {np.median(alive):.0f}")
+    check(card_cpu, "exact run on the card differs from the plain CPU run")
+    check((refilled > 0).sum() >= (t_len - 1) / 2,
+          "replacement filled slots on under half of the frames")
+    check_known_motion(tag, xs, ys, vs, start)
+
+    (fx, fy, fv), f_rep, f_secs, f_launches = run_exact_card(
+        dev_frames, feats, cfg, tier="fast")
+    check_exact_launches(tag, f_launches, f_rep, t_len, "fast")
+    f_cpu = [a.numpy() for a in track_sequence_replace_exact(
+        torch.from_numpy(frames[:n_cpu + 1]), *cpu_feats, cfg, tier="fast",
+        chunk=1)]
+    f_same = all(np.array_equal(a[:n_cpu].view(np.int32), b.view(np.int32))
+                 for a, b in zip((fx, fy, fv), f_cpu))
+    stats = table_parity_stats(*exact_table(fx, fy, fv, start),
+                               *exact_table(xs, ys, vs, start))
+    print(f"[{tag}] tier=\"fast\" (kernels A and B track): {f_secs:.3f} s, "
+          f"{len(f_rep)} frames repaired; card bit-equal to its plain CPU "
+          f"run over {n_cpu} frames: {f_same}; parity with the exact table "
+          f"(utils/parity.py, for information): {json.dumps(stats)}")
+    check(f_same, "fast tier on the card differs from its plain CPU run")
+    return {"launches": {k: launches[k] + f_launches[k] for k in launches},
+            "start": start, "table": (xs, ys, vs), "repaired": repaired}
+
+
+def run_exact_flagship(frames, n_feats, cfg, tag) -> dict:
+    """The exact tier at the example3 size with a tie-forcing frame: at
+    least one frame repaired on the host, the card's table bit-equal to
+    the plain CPU run.  Returns the launches."""
+    fl = klt.FeatureList.create(n_feats)
+    klt.KLTracker(cfg, device="cuda").select_good_features(frames[0], fl)
+    feats = [torch.from_numpy(a) for a in (fl.x, fl.y, fl.val)]
+    (xs, ys, vs), repaired, secs, launches = run_exact_card(
+        torch.from_numpy(frames).cuda(), [f.cuda() for f in feats], cfg)
+    check_exact_launches(tag, launches, repaired, len(frames), "exact")
+    cpu = [a.numpy() for a in track_sequence_replace_exact(
+        torch.from_numpy(frames), *feats, cfg)]
+    same = all(np.array_equal(a.view(np.int32), b.view(np.int32))
+               for a, b in zip((xs, ys, vs), cpu))
+    print(f"[{tag}] {frames.shape[2]}x{frames.shape[1]}, {len(frames)} "
+          f"frames, {n_feats} features, a block pasted at two places from "
+          f"frame 5: {secs:.3f} s, {len(repaired)} frames repaired on the "
+          f"host, replaced per frame {(vs > 0).sum(axis=1).tolist()}; card "
+          f"bit-equal to the plain CPU run: {same}")
+    check(len(repaired) >= 1, "no frame went through the host repair")
+    check(same, "exact flagship on the card differs from the plain CPU run")
+    return launches
+
+
+def exact_state(frames, table, start, t: int, cfg):
+    """Inputs of kernel G at step t of the exact run: the exact pyramids of
+    frames t-1 and t on the card and the table's state after frame t-1."""
+    xs, ys, vs = table
+    feats = ((start.x, start.y, start.val) if t == 1 else
+             (xs[t - 2], ys[t - 2], vs[t - 2]))
+    return (build_pyramids_exact(torch.from_numpy(frames[t - 1]).cuda(), cfg),
+            build_pyramids_exact(torch.from_numpy(frames[t]).cuda(), cfg),
+            [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in feats])
+
+
+def phase_exact_track_states(frames, run, cfg, errs) -> None:
+    """Kernel G against its plain version on states of the exact run."""
+    for t in EXACT_G_STEPS:
+        p1, p2, feats = exact_state(frames, run["table"], run["start"], t, cfg)
+        got = track_exact_cuda(p1, p2, *feats, cfg)
+        ref = track_features_exact_plain(p1, p2, *feats, cfg)
+        same = all(bits_equal(a, b) for a, b in zip(got, ref))
+        errs[cuda.EXACT_TRACK.symbol].append(max_err(got, ref))
+        v = got[2].cpu().numpy()
+        print(f"[30 kernel G] step {t} of the exact traffic run: "
+              f"{int((feats[2] >= 0).sum())} live lanes, "
+              f"{int((v == klt.TRACKED).sum())} tracked; bit-equal to the "
+              f"plain version: {same}")
+        check(same, f"kernel G differs from its plain version at step {t}")
+
+
+def phase_exact_times(card, frames, cfg, run, times, per_step) -> None:
+    """Frames/s of the exact run (EXACT_RUNS card runs, spread), launches
+    per step, and device us per call of G, H2 and R's tie entry with
+    their bounds and plain versions' times on the card."""
+    start = run["start"]
+    dev_frames = torch.from_numpy(frames).cuda()
+    feats = [torch.from_numpy(a).cuda() for a in (start.x, start.y,
+                                                   start.val)]
+    fps, reps = [], []
+    for _ in range(EXACT_RUNS):
+        _, repaired, secs, _ = run_exact_card(dev_frames, feats, cfg)
+        fps.append((len(frames) - 1) / secs)
+        reps.append(len(repaired))
+    size = f"{frames.shape[2]}x{frames.shape[1]}"
+    print(f"[32 times] {card} | track_sequence_replace_exact {size}, "
+          f"{len(frames)} frames, {int((start.val >= 0).sum())} features: "
+          f"{np.median(fps):.1f} frames/s = {1e6 / np.median(fps):.1f} us "
+          f"of wall per step (runs {[round(f, 1) for f in fps]}, "
+          f"{reps[0]} frames repaired in each)", flush=True)
+    per_step["track_sequence_replace_exact"] = launches_per_step(
+        lambda: track_sequence_replace_exact(dev_frames, *feats, cfg),
+        len(frames) - 1)
+
+    t = EXACT_G_STEPS[1]
+    p1, p2, lanes = exact_state(frames, run["table"], start, t, cfg)
+    stats = []
+    track_features_exact_plain(p1, p2, *lanes, cfg, stats=stats)
+    g_ms, g_host = kernel_times(lambda: track_exact_cuda(p1, p2, *lanes, cfg),
+                                50)
+    g_plain = cuda_ms(lambda: track_features_exact_plain(p1, p2, *lanes, cfg),
+                      3)
+    g_bound = bound(*exact_track_work(stats, len(lanes[0]), cfg))
+    gx, gy = p2[0][1], p2[0][2]
+    win = (cfg.window_width, cfg.window_height)
+    r2_ms, r2_host = kernel_times(lambda: exact_response_cuda(gx, gy, *win),
+                                  200)
+    r2_plain = cuda_ms(lambda: exact_response_plain(gx, gy, *win), 5)
+    rows, cols = frames.shape[1:]
+    r2_bound = bound(*exact_response_work(rows, cols, cfg))
+    # R's tie entry on the state before replacement at the step after t
+    # that refilled the most slots
+    refilled = (run["table"][2][t - 1:] > 0).sum(axis=1)
+    tr = t + int(refilled.argmax())
+    q1, q2, q_lanes = exact_state(frames, run["table"], start, tr, cfg)
+    pre = track_exact_cuda(q1, q2, *q_lanes, cfg)
+    resp = exact_response_cuda(q2[0][1], q2[0][2], *win)
+    n_lost = int((pre[2] < 0).sum())
+    tie = torch.zeros(1, dtype=torch.int32, device=resp.device)
+    fresh = lambda: [a.clone() for a in pre]
+    clone_ms, _ = kernel_times(fresh, 100, launches=3)
+    rt_ms, rt_host = kernel_times(
+        lambda: replace_lost_tie_cuda_(resp, *fresh(), cfg, tie), 100,
+        launches=4)
+    r_ms, _ = kernel_times(lambda: replace_lost_cuda_(resp, *fresh(), cfg),
+                           100, launches=4)
+    rt_plain = cuda_ms(lambda: replace_lost_exact_(resp, *fresh(), cfg, tie,
+                                                   plain=True), 3)
+    rt_bound = bound(*replace_work(rows, cols, len(pre[0]), n_lost))
+    us = lambda ms: f"{ms * 1e3:.1f}"
+    print(f"[32 times] {card} | {size}, step {t} of the exact run, device us "
+          f"per call (bound; host enqueue; plain version on the card): "
+          f"kernel G {us(g_ms)} for {int((lanes[2] >= 0).sum())} live lanes "
+          f"(levels: lanes, iterations, residues {[s[1:] for s in stats]}) "
+          f"= {g_bound[0] / g_ms:.5f} of its bound ({us(g_bound[0])} by "
+          f"{g_bound[1]}; {us(g_host)}; {us(g_plain)}); "
+          f"kernel H2 {us(r2_ms)} ({us(r2_bound[0])} by "
+          f"{r2_bound[1]}; {us(r2_host)}; {us(r2_plain)}); kernel R's tie "
+          f"entry at step {tr}, {n_lost} of {len(pre[0])} slots lost, "
+          f"{us(rt_ms)} "
+          f"({us(rt_bound[0])} by {rt_bound[1]}; {us(rt_host)}; "
+          f"{us(rt_plain)}), kernel R on the same state {us(r_ms)}, with "
+          f"{us(clone_ms)} of input copies in each", flush=True)
+    for name, ms, plain, bnd in (
+            ("exact_track", g_ms, g_plain, g_bound),
+            ("exact_response", r2_ms, r2_plain, r2_bound),
+            ("replace_lost_tie", rt_ms, rt_plain, rt_bound)):
+        times[name] = {"ms": ms, "plain_ms": plain, "bound_ms": bnd[0],
+                       "bound_by": bnd[1]}
+
+
+def phase_exact_profile(frames, n_feats, cfg) -> None:
+    """torch.profiler over track_sequence_replace_exact with kernels."""
+    fl = klt.FeatureList.create(n_feats)
+    klt.KLTracker(cfg).select_good_features(frames[0], fl)
+    dev_frames = torch.from_numpy(frames).cuda()
+    feats = [torch.from_numpy(a).cuda() for a in (fl.x, fl.y, fl.val)]
+    profile_device(
+        lambda: track_sequence_replace_exact(dev_frames, *feats, cfg),
+        len(frames) - 1, "33 profile",
+        f"track_sequence_replace_exact of {frames.shape[2]}x"
+        f"{frames.shape[1]}",
+        {"kernel G (exact_track)": "exact_track",
+         "kernel A (pyramid_tiles)": PYRAMID_KERNELS,
+         "kernel H2 (exact_response)": "exact_response",
+         "kernel R, tie entry (replace_lost)": "replace_lost"})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -2945,6 +3506,27 @@ def main() -> int:
         b_affine_launches = run_batched_affine(
             aff_b, aff_b_feats, acfg, "27 batched affine", BATCHED_AFFINE_CPU)
 
+    # main path 9: the bit-exact replace run (klt_tpu's traffic row on
+    # its exact tier, and the example3 size with a tie-forcing frame);
+    # run_exact_card checks each run's launches and that no plain version
+    # runs
+    with phase("30 exact kernels"):
+        phase_exact_kernels(errs)
+    cuda.reset_launch_counts()
+    with phase("31 exact traffic"):
+        exact_run = run_exact_traffic(traffic, 500, cfg, "31 exact traffic",
+                                      n_cpu=EXACT_CPU_FRAMES)
+    with phase("31 exact flagship"):
+        run_exact_flagship(tie_frames(qvga, 5), 150, cfg,
+                           "31 exact flagship")
+    exact_launches = launch_counts()
+    for k in (cuda.PYRAMID, cuda.EXACT_TRACK, cuda.EXACT_RESPONSE,
+              cuda.REPLACE_LOST_TIE):
+        check(exact_launches[k.symbol] > 0,
+              f"{k.symbol} was not launched on the exact path")
+    with phase("30 kernel G, exact run states"):
+        phase_exact_track_states(traffic, exact_run, cfg, errs)
+
     # path 6: selection from the card's response, both entries of kernel D
     with phase("26 device selection"):
         select_launches = run_device_selection(vga[0], 500,
@@ -2978,15 +3560,21 @@ def main() -> int:
                                    times, per_step)
     with phase("29 profile"):
         phase_batched_affine_profile(aff_b[:, :33], aff_b_feats, acfg)
+    with phase("32 times"):
+        phase_exact_times(card, traffic, cfg, exact_run, times, per_step)
+    with phase("33 profile"):
+        phase_exact_profile(traffic[:PRECOMP_FRAMES + 1], 500, cfg)
 
     # A and B's entries at 640x480 with 2000 features requested, D, E and
     # R at the traffic run's 640x480 with 500 (D's global-memory entry with
     # a 111x111 window), C's entries at 32 x 320x240 x 150, F at step 10 of
-    # the affine run's 640x480 with 2000 requested.  No single PyTorch call
-    # computes any of these functions (a chain of separable passes with
-    # decimation, a Newton loop that ends by the data, a fused product, box
-    # sum and eigenvalue, a greedy loop, a Gauss-Newton loop with an
-    # elimination per step), so library_ms is null throughout.
+    # the affine run's 640x480 with 2000 requested; G, H2 and R's tie
+    # entry at step 100 of the exact traffic run (640x480, 500).  No single
+    # PyTorch call computes any of these functions (a chain of separable
+    # passes with decimation, a Newton loop that ends by the data, a fused
+    # product, box sum and eigenvalue, a greedy loop, a Gauss-Newton loop
+    # with an elimination per step), and none keeps the C summation order
+    # of the exact tier, so library_ms is null throughout.
     report = {"kernels": []}
     names = {cuda.PYRAMID: "pyramid", cuda.LK_LEVEL: "lk_level",
              cuda.LK_PYRAMID: "lk_pyramid",
@@ -2997,7 +3585,10 @@ def main() -> int:
              cuda.LK_PYRAMID_BATCHED: "lk_pyramid_batched",
              cuda.CORNER_RESPONSE_GLOBAL: "corner_response_global",
              cuda.AFFINE_TRACK: "affine_track",
-             cuda.AFFINE_STEP: "affine_step"}
+             cuda.AFFINE_STEP: "affine_step",
+             cuda.EXACT_TRACK: "exact_track",
+             cuda.EXACT_RESPONSE: "exact_response",
+             cuda.REPLACE_LOST_TIE: "replace_lost_tie"}
     for k in cuda.KERNELS:
         name = names[k]
         report["kernels"].append({
@@ -3007,7 +3598,7 @@ def main() -> int:
             + batched_launches[k.symbol] + level_launches[k.symbol]
             + affine_launches[k.symbol] + select_launches[k.symbol]
             + step_launches[k.symbol] + b_step_launches[k.symbol]
-            + b_affine_launches[k.symbol],
+            + b_affine_launches[k.symbol] + exact_launches[k.symbol],
             "max_abs_err": max(errs[k.symbol]), **times[name],
             "library_ms": None,
             "launches_per_step": {path: counts[k.symbol]

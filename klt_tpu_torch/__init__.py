@@ -21,12 +21,16 @@ Quick start::
 
     # B sequences at once: frames uint8 [B, T, H, W], features [B, N]
     xs, ys, vals = klt.track_sequences_batched(frames, x, y, val, cfg)
+
+    # the replace loop with the reference C tracker's table, to the bit
+    xs, ys, vals = klt.track_sequence_replace_exact(frames, x, y, val, cfg)
 """
 
 from .config import (TrackingConfig, TRACKED, NOT_FOUND, SMALL_DET,
                      MAX_ITERATIONS, OOB, LARGE_RESIDUE)
 from .features import FeatureList, FeatureHistory, FeatureTable
 from .runtime.tracker import KLTracker, set_verbosity
+from .runtime.pipeline import track_sequence_replace_exact
 from .io.pnm import read_pgm, write_pgm, read_ppm, write_ppm
 from .io.features_io import (write_feature_list, write_feature_history,
                              write_feature_table, read_feature_list,
@@ -51,4 +55,5 @@ __all__ = [
     "make_pair_step", "make_batch_step", "track_batch",
     "pad_features_for_mesh", "make_fused_pair_step",
     "track_sequences_batched", "track_sequences_affine_batched",
+    "track_sequence_replace_exact",
 ]

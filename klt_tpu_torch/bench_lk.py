@@ -23,6 +23,13 @@ longest lane alone) on the state at step 10 of each affine cell; the
 batched cell's is skipped on a revision whose F takes one sequence's
 stacks.
 
+After the affine lines, the exact replace run
+(`track_sequence_replace_exact`, 640x480, 500 features, 101 frames) as a
+cell, and one JSON line of device us per call of its kernels alone: G
+and H2 on the state at step 50, R's tie entry and R on the state of the
+step from there on that refilled the most slots (skipped on a revision
+without the exact tier; its pyramid is kernel A's, timed below).
+
 Then one JSON line of device us per call of kernels A, E, R and D alone
 (CUDA events around back-to-back calls with the host enqueued ahead):
 A at 320x240 and 640x480, E at 32 x 320x240 and 64 x 640x480, R at
@@ -90,7 +97,8 @@ def profile(run, steps: int) -> dict:
     groups = {"pyramid": ("hpass", "vpass", "pyramid_tiles"),
               "replace": ("replace_lost",),
               "response": ("hsum_products", "vsum_eigen", "response_tiles"),
-              "affine": ("affine_step_kernel", "affine_track_kernel")}
+              "affine": ("affine_step_kernel", "affine_track_kernel"),
+              "exact": ("exact_response", "exact_track")}
     group_us = dict.fromkeys(groups, 0.0)
     group_n = dict.fromkeys(groups, 0)
     for ev in prof.key_averages():
@@ -390,6 +398,68 @@ def affine_runs(args, tag: str, card: str) -> None:
     affine_kernel_costs(states, cfg, tag, card)
 
 
+EXACT_STEP = 50   # the step of the exact run whose state G, R are timed on
+
+
+def exact_kernel_costs(f, table, cfg, tag: str, card: str) -> None:
+    """Device us per call of kernels G, H2 at step EXACT_STEP of the
+    exact run, and of R's tie entry (and kernel R on the same state) at the
+    step from there on that refilled the most slots."""
+    from chip_smoke import kernel_times
+    from klt_tpu_torch.cuda.exact import exact_response_cuda, track_exact_cuda
+    from klt_tpu_torch.cuda.pyramid import build_pyramid_stacks_cuda
+    from klt_tpu_torch.cuda.replace import (replace_lost_cuda_,
+                                            replace_lost_tie_cuda_)
+    t = EXACT_STEP
+    p1, p2 = (build_pyramid_stacks_cuda(f[i], cfg) for i in (t - 1, t))
+    lanes = [a[t - 2] for a in table]
+    us = lambda fn, reps, n=1: round(kernel_times(fn, reps, n)[0] * 1e3, 2)
+    # R on the state before replacement at the step from t on that
+    # refilled the most slots
+    tr = t + int((table[2][t - 1:] > 0).sum(dim=1).argmax())
+    q1, q2 = (build_pyramid_stacks_cuda(f[i], cfg) for i in (tr - 1, tr))
+    pre = track_exact_cuda(q1, q2, *[a[tr - 2] for a in table], cfg)
+    win = (cfg.window_width, cfg.window_height)
+    resp = exact_response_cuda(q2[0][1], q2[0][2], *win)
+    tie = torch.zeros(1, dtype=torch.int32, device=f.device)
+    fresh = lambda: [a.clone() for a in pre]
+    n_lost = int((pre[2] < 0).sum())
+    out = {
+        f"G 640x480, {int((lanes[2] >= 0).sum())} live lanes": us(
+            lambda: track_exact_cuda(p1, p2, *lanes, cfg), 50),
+        "H2 640x480": us(lambda: exact_response_cuda(p2[0][1], p2[0][2],
+                                                     *win), 200),
+        f"R tie entry 640x480, step {tr}, {n_lost} of {len(pre[0])} lost, "
+        "input copies included": us(lambda: replace_lost_tie_cuda_(resp, *fresh(), cfg,
+                                                      tie), 100, 4),
+        f"R 640x480 on the same state, input copies included": us(
+            lambda: replace_lost_cuda_(resp, *fresh(), cfg), 100, 4),
+        "the input copies": us(fresh, 100, 3)}
+    print(json.dumps({"tag": tag, "card": card, "exact_step": t,
+                      "device_us_per_call": out}), flush=True)
+
+
+def exact_runs(args, tag: str, card: str) -> None:
+    """The exact replace run (640x480, 500 features, 101 frames) end to
+    end, then its kernels alone; a revision without it says so."""
+    try:
+        from klt_tpu_torch.runtime.pipeline import (
+            track_sequence_replace_exact)
+    except ImportError:
+        print(json.dumps({"tag": tag, "card": card,
+                          "exact": "not in this revision"}), flush=True)
+        return
+    cfg = klt.TrackingConfig(sequential_mode=True)
+    frames = synthetic_frames(101, scale=2)
+    f = torch.from_numpy(frames).cuda()
+    feats = [torch.from_numpy(a).cuda() for a in select(frames[0], 500, cfg)]
+    run = lambda: track_sequence_replace_exact(f, *feats, cfg)
+    measure(f"track_sequence_replace_exact 640x480 x 500, "
+            f"{int((feats[2] >= 0).sum())} live", run, len(frames) - 1, 1,
+            args.reps, tag, card)
+    exact_kernel_costs(f, run(), cfg, tag, card)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tag", default="this")
@@ -441,6 +511,7 @@ def main() -> int:
                 args.reps, args.tag, card)
     kernel_costs(cfg, args.tag, card)
     affine_runs(args, args.tag, card)
+    exact_runs(args, args.tag, card)
     wrapper_costs(cfg, args.tag, card)
     return 0
 

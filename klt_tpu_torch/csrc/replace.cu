@@ -55,6 +55,20 @@
 // resident at once and would keep them spinning through the chain) and not
 // two launches (the second would be paid on every frame, lost slot or
 // not).
+//
+// The tie entry (klt_replace_lost_tie) is the same program with a count
+// beside every best: it replaces the pick loop of klt_tpu/ops/
+// replace_exact.py::replace_lost_features_exact (:186-244), which also
+// reports whether at some pick more than one cell held the map's maximum
+// (the one case in which the masked argmax and the reference's quicksort
+// walk can choose differently).  A best carries how many cells hold its
+// value (saturated at 2), and the argmax over the tiles' bests adds the
+// counts of equal values, so a pick sees the map's count of its maximum.
+// A stamp can kill a cell of a tile's best value while the best itself
+// survives, so this entry scans again every live tile the square meets,
+// not only those whose best it killed.  The counts cost a third shared
+// array of bytes and a third value in each reduction; klt_replace_lost
+// compiles without them.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -83,29 +97,53 @@ __device__ __forceinline__ void keep_best(int& v, int& i, int ov, int oi) {
   }
 }
 
-// Every thread of the warp ends with the warp's best.
-__device__ __forceinline__ void warp_best(int& v, int& i) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const int ov = __shfl_xor_sync(0xffffffffu, v, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
-    keep_best(v, i, ov, oi);
+// The same with c, how many cells hold v (saturated at 2): equal values
+// add their counts.
+__device__ __forceinline__ void keep_best(int& v, int& i, int& c, int ov,
+                                          int oi, int oc) {
+  if (ov == v) {
+    c = min(c + oc, 2);
+    if (oi < i) i = oi;
+  } else if (ov > v) {
+    v = ov;
+    i = oi;
+    c = oc;
   }
 }
 
-// The block's best of one (v, i) per thread, in every thread.  s_v, s_i:
-// kWarps ints each; ends with a barrier after the last read.
-__device__ __forceinline__ void block_best(int& v, int& i, int* s_v,
-                                           int* s_i) {
+// Every thread of the warp ends with the warp's best (and its count, in
+// the tie entry).
+template <bool kTie>
+__device__ __forceinline__ void warp_best(int& v, int& i, int& c) {
+  for (int off = 16; off > 0; off >>= 1) {
+    const int ov = __shfl_xor_sync(0xffffffffu, v, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
+    if constexpr (kTie) {
+      const int oc = __shfl_xor_sync(0xffffffffu, c, off);
+      keep_best(v, i, c, ov, oi, oc);
+    } else {
+      keep_best(v, i, ov, oi);
+    }
+  }
+}
+
+// The block's best of one (v, i) per thread, in every thread.  s_v, s_i,
+// s_c: kWarps ints each; ends with a barrier after the last read.
+template <bool kTie>
+__device__ __forceinline__ void block_best(int& v, int& i, int& c, int* s_v,
+                                           int* s_i, int* s_c) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  warp_best(v, i);
+  warp_best<kTie>(v, i, c);
   if (lane == 0) {
     s_v[warp] = v;
     s_i[warp] = i;
+    if constexpr (kTie) s_c[warp] = c;
   }
   __syncthreads();
   v = lane < kWarps ? s_v[lane] : -1;
   i = lane < kWarps ? s_i[lane] : INT_MAX;
-  warp_best(v, i);
+  if constexpr (kTie) c = lane < kWarps ? s_c[lane] : 0;
+  warp_best<kTie>(v, i, c);
   __syncthreads();
 }
 
@@ -121,11 +159,15 @@ struct Args {
   int* tile_v;   // [tiles_y * tiles_x] each tile's best value
   int* tile_i;   // and its packed position
   int* ticket;   // one int, 0 on entry and on exit
+  int* tile_c;   // tie entry: how many cells hold the best (at most 2)
+  int* tie;      // tie entry: one int, 1 if a pick's maximum was not unique
 };
 
 // Steps 1 and 2 on this block's tile, and the tile's best.
+template <bool kTie>
 __device__ __forceinline__ void build_tile(const Args& a, int* s_v, int* s_i,
-                                           int* s_cx, int* s_cy, int* s_cnt) {
+                                           int* s_c, int* s_cx, int* s_cy,
+                                           int* s_cnt) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tx0 = blockIdx.x * kTile, ty0 = blockIdx.y * kTile;
   const int px = tx0 + lane;
@@ -158,7 +200,7 @@ __device__ __forceinline__ void build_tile(const Args& a, int* s_v, int* s_i,
     __syncthreads();
   }
 
-  int v = -1, i = INT_MAX;  // rows in order: the first maximum is kept
+  int v = -1, i = INT_MAX, c = 0;  // rows in order: the first maximum
   const bool col_ok = px >= a.borderx && px < a.cols - a.borderx &&
                       (a.step == 1 || (px - a.borderx) % a.step == 0);
 #pragma unroll
@@ -178,13 +220,17 @@ __device__ __forceinline__ void build_tile(const Args& a, int* s_v, int* s_i,
     if (m > v) {
       v = m;
       i = pack(py, px);
+      c = 1;
+    } else if (kTie && m == v) {
+      c = min(c + 1, 2);
     }
   }
-  block_best(v, i, s_v, s_i);
+  block_best<kTie>(v, i, c, s_v, s_i, s_c);
   if (tid == 0) {
     const int t = blockIdx.y * gridDim.x + blockIdx.x;
     a.tile_v[t] = v;
     a.tile_i[t] = i;
+    if constexpr (kTie) a.tile_c[t] = c;
   }
 }
 
@@ -202,17 +248,20 @@ __device__ __forceinline__ int next_lost(const Args& a, int from) {
 }
 
 // Steps 3 and 4, by one block, once every tile is built.  s_tile_v,
-// s_tile_i: the tiles' bests, n_tiles ints each; s_gv, s_gi: kGroup *
-// kWarps ints each.
+// s_tile_i: the tiles' bests, n_tiles ints each, s_tile_c (tie entry) their
+// counts, n_tiles bytes; s_gv, s_gi, s_gc: kGroup * kWarps ints each.
+template <bool kTie>
 __device__ __forceinline__ void greedy_picks(const Args& a, int* s_v, int* s_i,
-                                             int* s_gv, int* s_gi,
-                                             int* s_slot, int* s_tile_v,
-                                             int* s_tile_i) {
+                                             int* s_c, int* s_gv, int* s_gi,
+                                             int* s_gc, int* s_slot,
+                                             int* s_tile_v, int* s_tile_i,
+                                             unsigned char* s_tile_c) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tiles_x = gridDim.x, n_tiles = gridDim.x * gridDim.y;
   for (int t = tid; t < n_tiles; t += kThreads) {
     s_tile_v[t] = __ldcg(a.tile_v + t);
     s_tile_i[t] = __ldcg(a.tile_i + t);
+    if constexpr (kTie) s_tile_c[t] = (unsigned char)__ldcg(a.tile_c + t);
   }
   int n_lost = 0;
   for (int base = 0; base < a.n; base += kThreads)
@@ -223,13 +272,19 @@ __device__ __forceinline__ void greedy_picks(const Args& a, int* s_v, int* s_i,
   }
   __syncthreads();
 
+  int tie = 0;  // thread 0's
   for (int pick = 0; pick < n_lost; ++pick) {
-    // the best of the tiles' bests
-    int bv = -1, bi = INT_MAX;
-    for (int t = tid; t < n_tiles; t += kThreads)
-      keep_best(bv, bi, s_tile_v[t], s_tile_i[t]);
-    block_best(bv, bi, s_v, s_i);
+    // the best of the tiles' bests (with the map's count of its value)
+    int bv = -1, bi = INT_MAX, bc = 0;
+    for (int t = tid; t < n_tiles; t += kThreads) {
+      if constexpr (kTie)
+        keep_best(bv, bi, bc, s_tile_v[t], s_tile_i[t], s_tile_c[t]);
+      else
+        keep_best(bv, bi, s_tile_v[t], s_tile_i[t]);
+    }
+    block_best<kTie>(bv, bi, bc, s_v, s_i, s_c);
     if (bv < a.floor_v) break;
+    if (kTie && bc > 1) tie = 1;
 
     const int py = bi >> 16, px = bi & 0xffff;
     int sl = 0;  // thread 0's
@@ -247,8 +302,9 @@ __device__ __forceinline__ void greedy_picks(const Args& a, int* s_v, int* s_i,
     for (int gy = y0 / kTile; gy <= t1y; gy += 2) {
       for (int gx = x0 / kTile; gx <= t1x; gx += 2) {
         // of these 2x2 tiles, scan again those whose best the square
-        // kills: lane = column, rows in order, so a column's first
-        // maximum is kept; a cell inside the square is dead unread
+        // kills (the tie entry: every live one): lane = column, rows in
+        // order, so a column's first maximum is kept; a cell inside the
+        // square is dead unread
         unsigned redo = 0;
         int cell[kGroup][kCells];  // all loads leave before one is used
 #pragma unroll
@@ -260,7 +316,11 @@ __device__ __forceinline__ void greedy_picks(const Args& a, int* s_v, int* s_i,
             const int old_i = s_tile_i[ty * tiles_x + tx];
             const int oy = old_i >> 16, ox = old_i & 0xffff;
             // an empty tile stays empty, a live best the best
-            scan = old_v >= 0 && ox >= x0 && ox <= x1 && oy >= y0 && oy <= y1;
+            if constexpr (kTie)
+              scan = old_v >= 0;
+            else
+              scan = old_v >= 0 && ox >= x0 && ox <= x1 && oy >= y0 &&
+                     oy <= y1;
           }
           redo |= (unsigned)scan << u;
           const int cx = tx * kTile + lane;
@@ -288,35 +348,44 @@ __device__ __forceinline__ void greedy_picks(const Args& a, int* s_v, int* s_i,
         for (int u = 0; u < kGroup; ++u) {
           if (!(redo >> u & 1)) continue;
           const int ty = gy + (u >> 1), cx = (gx + (u & 1)) * kTile + lane;
-          int v = -1, i = INT_MAX;
+          int v = -1, i = INT_MAX, c = 0;
 #pragma unroll
           for (int q = 0; q < kCells; ++q) {
             if (cell[u][q] > v) {
               v = cell[u][q];
               i = pack(ty * kTile + warp + kWarps * q, cx);
+              c = 1;
+            } else if (kTie && cell[u][q] == v) {
+              c = min(c + 1, 2);
             }
           }
-          warp_best(v, i);
+          warp_best<kTie>(v, i, c);
           if (lane == 0) {
             s_gv[u * kWarps + warp] = v;
             s_gi[u * kWarps + warp] = i;
+            if constexpr (kTie) s_gc[u * kWarps + warp] = c;
           }
         }
         __syncthreads();
         if (warp < kGroup && (redo >> warp & 1)) {
           int rv = lane < kWarps ? s_gv[warp * kWarps + lane] : -1;
           int ri = lane < kWarps ? s_gi[warp * kWarps + lane] : INT_MAX;
-          warp_best(rv, ri);
+          int rc = 0;
+          if constexpr (kTie) rc = lane < kWarps ? s_gc[warp * kWarps + lane]
+                                                 : 0;
+          warp_best<kTie>(rv, ri, rc);
           if (lane == 0) {
             const int t = (gy + (warp >> 1)) * tiles_x + gx + (warp & 1);
             s_tile_v[t] = rv;
             s_tile_i[t] = ri;
+            if constexpr (kTie) s_tile_c[t] = (unsigned char)rc;
           }
         }
         __syncthreads();
       }
     }
   }
+  if (kTie && tid == 0) *a.tie = tie;
 
   // 4. what is still lost is NOT_FOUND at (-1, -1)
   for (int f = tid; f < a.n; f += kThreads) {
@@ -328,14 +397,21 @@ __device__ __forceinline__ void greedy_picks(const Args& a, int* s_v, int* s_i,
   }
 }
 
+template <bool kTie>
 __global__ void __launch_bounds__(kThreads)
 replace_lost(const __grid_constant__ Args a) {
-  extern __shared__ int s_tiles[];  // greedy block: 2 * n_tiles ints
-  __shared__ int s_v[kWarps], s_i[kWarps];
+  // greedy block: 2 * n_tiles ints, and in the tie entry n_tiles bytes
+  extern __shared__ int s_tiles[];
+  __shared__ int s_v[kWarps], s_i[kWarps], s_c[kTie ? kWarps : 1];
   __shared__ int s_gv[kGroup * kWarps], s_gi[kGroup * kWarps];
+  __shared__ int s_gc[kTie ? kGroup * kWarps : 1];
   __shared__ int s_cx[kThreads], s_cy[kThreads];
   __shared__ int s_cnt, s_slot, s_last;
   const int tid = threadIdx.x;
+
+  // the tie flag starts at 0, before any ticket (the greedy block, the
+  // last to take one, writes the call's flag)
+  if (kTie && tid == 0 && blockIdx.x == 0 && blockIdx.y == 0) *a.tie = 0;
 
   // 0. nothing lost, nothing to do (steps 3 and 4 touch lost slots only);
   // every block sees the same val, so all leave or none does
@@ -344,7 +420,7 @@ replace_lost(const __grid_constant__ Args a) {
   if (tid == 0) s_cnt = 0;
   if (!__syncthreads_or(any_lost)) return;
 
-  build_tile(a, s_v, s_i, s_cx, s_cy, &s_cnt);
+  build_tile<kTie>(a, s_v, s_i, s_c, s_cx, s_cy, &s_cnt);
 
   // the last block to get here has every tile before it
   __threadfence();
@@ -357,15 +433,54 @@ replace_lost(const __grid_constant__ Args a) {
   if (tid == 0) *a.ticket = 0;  // as the next call expects it
 
   const int n_tiles = gridDim.x * gridDim.y;
-  greedy_picks(a, s_v, s_i, s_gv, s_gi, &s_slot, s_tiles, s_tiles + n_tiles);
+  greedy_picks<kTie>(a, s_v, s_i, s_c, s_gv, s_gi, s_gc, &s_slot, s_tiles,
+                     s_tiles + n_tiles,
+                     (unsigned char*)(s_tiles + 2 * n_tiles));
 }
 
 }  // namespace
 
-// The side of a tile (the scratch holds two ints per tile after the map)
-// and the most tiles a map may have.
+// The side of a tile (the scratch holds two ints per tile after the map,
+// three in the tie entry) and the most tiles a map may have.
 extern "C" int klt_replace_tile() { return kTile; }
 extern "C" int klt_replace_max_tiles() { return kMaxTiles; }
+
+namespace {
+
+template <bool kTie>
+int launch_replace(const float* resp, int rows, int cols, float* x, float* y,
+                   int* val, int n, int borderx, int bordery, int step,
+                   int floor_v, int stamp, int* scratch, int* ticket,
+                   int* tie, void* stream) {
+  // a position is packed as row << 16 | column
+  if (rows < 1 || cols < 1 || n < 0 || step < 1 || stamp < 0 ||
+      rows > 0x7fff || cols > 0xffff || (kTie && !tie))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((cols + kTile - 1) / kTile, (rows + kTile - 1) / kTile);
+  if (grid.y > 65535 || (long)grid.x * grid.y > kMaxTiles)
+    return (int)cudaErrorInvalidValue;
+  const int tiles = grid.x * grid.y;
+  // a stamp wider than the map kills all of it: the same squares, and no
+  // overflow in centre + stamp
+  const int side = rows > cols ? rows : cols;
+  if (stamp > side) stamp = side;
+  const int per_tile = 2 * (int)sizeof(int) + (kTie ? 1 : 0);
+  const size_t shared = (size_t)per_tile * tiles;
+  if (shared > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        replace_lost<kTie>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        per_tile * kMaxTiles);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const size_t map = (size_t)rows * cols;
+  Args a = {resp, rows, cols, x, y, val, n, borderx, bordery, step, floor_v,
+            stamp, scratch, scratch + map, scratch + map + tiles, ticket,
+            kTie ? scratch + map + 2 * tiles : nullptr, tie};
+  replace_lost<kTie><<<grid, kThreads, shared, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 
 // resp: device f32 [rows, cols]; x, y: device f32 [n]; val: device i32 [n],
 // updated in place; scratch: device i32 [rows * cols + 2 * tiles], tiles =
@@ -378,28 +493,20 @@ extern "C" int klt_replace_lost(const float* resp, int rows, int cols,
                                 int borderx, int bordery, int step,
                                 int floor_v, int stamp, int* scratch,
                                 int* ticket, void* stream) {
-  // a position is packed as row << 16 | column
-  if (rows < 1 || cols < 1 || n < 0 || step < 1 || stamp < 0 ||
-      rows > 0x7fff || cols > 0xffff)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((cols + kTile - 1) / kTile, (rows + kTile - 1) / kTile);
-  if (grid.y > 65535 || (long)grid.x * grid.y > kMaxTiles)
-    return (int)cudaErrorInvalidValue;
-  const int tiles = grid.x * grid.y;
-  // a stamp wider than the map kills all of it: the same squares, and no
-  // overflow in centre + stamp
-  const int side = rows > cols ? rows : cols;
-  if (stamp > side) stamp = side;
-  const size_t shared = 2 * sizeof(int) * tiles;
-  if (shared > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        replace_lost, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        2 * (int)sizeof(int) * kMaxTiles);
-    if (err != cudaSuccess) return (int)err;
-  }
-  Args a = {resp, rows, cols, x, y, val, n, borderx, bordery, step, floor_v,
-            stamp, scratch, scratch + (size_t)rows * cols,
-            scratch + (size_t)rows * cols + tiles, ticket};
-  replace_lost<<<grid, kThreads, shared, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return launch_replace<false>(resp, rows, cols, x, y, val, n, borderx,
+                               bordery, step, floor_v, stamp, scratch, ticket,
+                               nullptr, stream);
+}
+
+// The tie entry: klt_replace_lost's arguments with scratch device i32
+// [rows * cols + 3 * tiles], and tie: one device i32 the call sets to 1 if
+// at some pick more than one cell held the map's maximum, else 0.
+extern "C" int klt_replace_lost_tie(const float* resp, int rows, int cols,
+                                    float* x, float* y, int* val, int n,
+                                    int borderx, int bordery, int step,
+                                    int floor_v, int stamp, int* scratch,
+                                    int* ticket, int* tie, void* stream) {
+  return launch_replace<true>(resp, rows, cols, x, y, val, n, borderx,
+                              bordery, step, floor_v, stamp, scratch, ticket,
+                              tie, stream);
 }

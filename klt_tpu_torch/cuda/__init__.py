@@ -29,7 +29,9 @@ from .._build import BUILD_DIR, compile_shared, is_stale, repo_path
 
 SOURCES = [repo_path("klt_tpu_torch", "csrc", name)
            for name in ("pyramid.cu", "lk_level.cu", "corner_response.cu",
-                        "replace.cu", "affine.cu")]
+                        "replace.cu", "affine.cu", "exact.cu")]
+# headers the sources include: a change to one rebuilds the library
+HEADERS = [repo_path("klt_tpu_torch", "csrc", "lk_exact_lane.h")]
 LIB = os.path.join(BUILD_DIR, "libklt_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
@@ -83,7 +85,7 @@ def load_library() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        if is_stale(LIB, SOURCES):
+        if is_stale(LIB, SOURCES + HEADERS):
             t0 = time.perf_counter()
             build_log = _build()
             build_seconds = time.perf_counter() - t0
@@ -101,6 +103,11 @@ def load_library() -> ctypes.CDLL:
         lib.klt_corner_response_tile.restype = ctypes.c_int
         lib.klt_affine_max_cells.argtypes = []
         lib.klt_affine_max_cells.restype = ctypes.c_int
+        lib.klt_exact_max_levels.argtypes = []
+        lib.klt_exact_max_levels.restype = ctypes.c_int
+        if lib.klt_exact_max_levels() != EXACT_MAX_LEVELS:
+            raise RuntimeError("EXACT_MAX_LEVELS differs from the library's "
+                               "KLT_EXACT_MAX_LEVELS")
         if lib.klt_affine_max_cells() != AFFINE_MAX_CELLS:
             raise RuntimeError("AFFINE_MAX_CELLS differs from the library's "
                                "KLT_AFFINE_MAX_CELLS")
@@ -269,9 +276,43 @@ AFFINE_STEP = Kernel(
     source="klt_tpu_torch/csrc/affine.cu",
     replaces="klt_tpu/ops/affine.py:860")
 
+# Kernel R's tie entry: the pick loop of klt_tpu's exact replacement, which
+# also reports whether a pick's maximum was not unique.
+REPLACE_LOST_TIE = Kernel(
+    "klt_replace_lost_tie",
+    # klt_replace_lost's arguments (scratch with a third int a tile), then
+    # the tie flag, stream
+    [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    source="klt_tpu_torch/csrc/replace.cu",
+    replaces="klt_tpu/ops/replace_exact.py:186")
+
+# The bit-exact tier (csrc/exact.cu), none of it a TPU kernel: klt_tpu runs
+# it as XLA only; its pyramid is kernel A's.  H2: the C-order
+# min-eigenvalue response.
+EXACT_RESPONSE = Kernel(
+    "klt_exact_response",
+    # gradx, grady, rows, cols, window w/h, out, stream
+    [_P, _P, _I, _I, _I, _I, _P, _P],
+    source="klt_tpu_torch/csrc/exact.cu",
+    replaces="klt_tpu/ops/replace_exact.py:143")
+
+# G: the C-order LK walk of a frame pair, a thread per feature.
+EXACT_TRACK = Kernel(
+    "klt_exact_track",
+    # per-level host arrays: stacks1, stacks2 (device pointers), rows,
+    # cols; nlev, x, y, val, n, win, max_iterations, check_residue, the
+    # f32 constants (subsampling, min_determinant, min_displacement,
+    # step_factor, max_residue, border x0/x1/y0/y1), x, y, val out, stream
+    [ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_I),
+     ctypes.POINTER(_I), _I, _P, _P, _P, _I, _I, _I, _I] + [_F] * 9 +
+    [_P, _P, _P, _P],
+    source="klt_tpu_torch/csrc/exact.cu",
+    replaces="klt_tpu/ops/lk_exact.py:215")
+
 KERNELS = (PYRAMID, LK_LEVEL, CORNER_RESPONSE, PYRAMID_BATCHED, REPLACE_LOST,
            LK_LEVEL_BATCHED, LK_PYRAMID, LK_PYRAMID_BATCHED,
-           CORNER_RESPONSE_GLOBAL, AFFINE_TRACK, AFFINE_STEP)
+           CORNER_RESPONSE_GLOBAL, AFFINE_TRACK, AFFINE_STEP,
+           REPLACE_LOST_TIE, EXACT_RESPONSE, EXACT_TRACK)
 
 # The side of kernel R's tiles and the most tiles its map may have (kTile
 # and kMaxTiles of csrc/replace.cu; the library returns both).
@@ -281,6 +322,10 @@ REPLACE_MAX_TILES = 25000
 # The most cells of an affine window kernel F takes (KLT_AFFINE_MAX_CELLS
 # of csrc/affine.cu; the library's klt_affine_max_cells() returns it).
 AFFINE_MAX_CELLS = 256
+
+# The most pyramid levels kernel G takes (KLT_EXACT_MAX_LEVELS of
+# csrc/lk_exact_lane.h; the library's klt_exact_max_levels() returns it).
+EXACT_MAX_LEVELS = 8
 
 # The most pyramid levels a pyramid entry takes (KLT_MAX_LEVELS of
 # csrc/lk_level.cu; the library's klt_lk_max_levels() returns it).

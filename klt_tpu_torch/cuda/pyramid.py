@@ -18,13 +18,21 @@ from ..kernels import gaussian_kernels
 from . import PYRAMID, PYRAMID_BATCHED, check_cuda_tensor, load_library
 
 
-def _shapes_and_taps(h: int, w: int, cfg: TrackingConfig):
-    shapes = pyramid_shapes(w, h, cfg)
-    if min(min(s) for s in shapes) < 1:
-        raise ValueError(f"a {w}x{h} frame has an empty pyramid level "
-                         f"({shapes})")
+# The pre-smoothing of a frame that is not smoothed: one tap of 1.0, whose
+# passes give every pixel's own value (x * 1.0f is x, to the bit).
+_IDENTITY = np.ones(1, np.float32)
+
+
+def _shapes_and_taps(h: int, w: int, cfg: TrackingConfig,
+                     n_levels: int | None = None, smooth: bool = True):
+    n_levels = cfg.n_pyramid_levels if n_levels is None else n_levels
+    shapes = pyramid_shapes(w, h, cfg)[:n_levels]
+    if n_levels < 1 or len(shapes) < n_levels or \
+            min(min(s) for s in shapes) < 1:
+        raise ValueError(f"a {w}x{h} frame has no {n_levels} non-empty "
+                         f"pyramid levels ({shapes})")
     taps = [np.ascontiguousarray(t, np.float32) for t in (
-        gaussian_kernels(cfg.smooth_sigma)[0],
+        gaussian_kernels(cfg.smooth_sigma)[0] if smooth else _IDENTITY,
         *gaussian_kernels(cfg.grad_sigma),
         gaussian_kernels(cfg.pyramid_sigma)[0])]
     if max(len(t) for t in taps) > MAX_KERNEL_WIDTH:
@@ -42,29 +50,33 @@ def _needs_scratch(n_levels: int, subsampling: int, n_pyr: int) -> bool:
         n_levels, subsampling, n_pyr))
 
 
-def _scratch(shape, cfg: TrackingConfig, n_pyr: int, dev):
+def _scratch(shape, n_levels: int, subsampling: int, n_pyr: int, dev):
     """The one-plane scratch of the global-memory decimation, for the few
     configurations whose pyramid smoothing fits no tile; else None."""
-    if _needs_scratch(cfg.n_pyramid_levels, cfg.subsampling, n_pyr):
+    if _needs_scratch(n_levels, subsampling, n_pyr):
         return torch.empty(shape, dtype=torch.float32, device=dev)
     return None
 
 
-def build_pyramid_stacks_cuda(img: torch.Tensor, cfg: TrackingConfig
-                              ) -> list[torch.Tensor]:
+def build_pyramid_stacks_cuda(img: torch.Tensor, cfg: TrackingConfig,
+                              n_levels: int | None = None,
+                              smooth: bool = True) -> list[torch.Tensor]:
     """uint8/f32 [H, W] CUDA frame -> finest-first list of f32
-    [3, H_l, W_l] stacks (intensity, gradx, grady), one kernel call."""
+    [3, H_l, W_l] stacks (intensity, gradx, grady), `n_levels` of them
+    (default: the configuration's), one kernel call; level 0 is the frame
+    itself when not `smooth`."""
     check_cuda_tensor(img, "img", (torch.uint8, torch.float32), 2)
     h, w = img.shape
-    shapes, taps, tap_args = _shapes_and_taps(h, w, cfg)
+    shapes, taps, tap_args = _shapes_and_taps(h, w, cfg, n_levels, smooth)
     dev = img.device
     outs = [torch.empty((3, r, c), dtype=torch.float32, device=dev)
             for c, r in shapes]
-    scratch = _scratch((h, w), cfg, len(taps[3]), dev)
+    scratch = _scratch((h, w), len(shapes), cfg.subsampling, len(taps[3]),
+                       dev)
     out_ptrs = (ctypes.c_void_p * len(outs))(*[o.data_ptr() for o in outs])
     with torch.cuda.device(dev):
         PYRAMID(img.data_ptr(), int(img.dtype == torch.uint8), h, w,
-                cfg.n_pyramid_levels, cfg.subsampling, *tap_args,
+                len(shapes), cfg.subsampling, *tap_args,
                 out_ptrs, None if scratch is None else scratch.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
     return outs
@@ -89,7 +101,8 @@ def build_pyramid_stacks_batched_cuda(imgs: torch.Tensor, cfg: TrackingConfig
     dev = imgs.device
     outs = [torch.empty((b, 3, r, c), dtype=torch.float32, device=dev)
             for c, r in shapes]
-    scratch = _scratch((b, h, w), cfg, len(taps[3]), dev)
+    scratch = _scratch((b, h, w), len(shapes), cfg.subsampling, len(taps[3]),
+                       dev)
     out_ptrs = (ctypes.c_void_p * len(outs))(*[o.data_ptr() for o in outs])
     with torch.cuda.device(dev):
         PYRAMID_BATCHED(imgs.data_ptr(), int(imgs.dtype == torch.uint8), b,

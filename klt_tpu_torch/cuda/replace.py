@@ -1,7 +1,9 @@
-"""Wrapper of kernel R (csrc/replace.cu): greedy lost-feature replacement
-from a response map, in place.
+"""Wrappers of kernel R (csrc/replace.cu): greedy lost-feature replacement
+from a response map, in place, and its tie entry, which also reports
+whether a pick's maximum was not unique.
 
-The plain torch version is `ops.replace.replace_lost_plain_`.
+The plain torch version of both is `ops.replace.replace_lost_plain_`
+(through `ops.replace_exact.replace_lost_exact_` for the tie entry).
 """
 
 from __future__ import annotations
@@ -10,8 +12,8 @@ import torch
 
 from ..config import TrackingConfig
 from ..ops.selection import _candidate_borders
-from . import (REPLACE_LOST, REPLACE_MAX_TILES, REPLACE_TILE,
-               check_cuda_tensor)
+from . import (REPLACE_LOST, REPLACE_LOST_TIE, REPLACE_MAX_TILES,
+               REPLACE_TILE, check_cuda_tensor)
 
 # The kernel's ticket (the count of finished blocks, by which the last one
 # knows itself): one zeroed int per stream, which every call leaves 0.
@@ -19,10 +21,7 @@ from . import (REPLACE_LOST, REPLACE_MAX_TILES, REPLACE_TILE,
 _tickets: dict[tuple[int, int], torch.Tensor] = {}
 
 
-def replace_lost_cuda_(resp: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
-                       val: torch.Tensor, cfg: TrackingConfig) -> None:
-    """Fill the lost slots (val < 0) of x, y, val from the f32 [H, W]
-    response, one kernel call, on the stream: nothing is read back."""
+def _launch(kernel, resp, x, y, val, cfg: TrackingConfig, tie=None) -> None:
     check_cuda_tensor(resp, "resp", torch.float32, 2)
     check_cuda_tensor(x, "x", torch.float32, 1)
     check_cuda_tensor(y, "y", torch.float32, 1)
@@ -31,7 +30,8 @@ def replace_lost_cuda_(resp: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     if y.shape[0] != n or val.shape[0] != n:
         raise ValueError(f"x, y, val hold {n}, {y.shape[0]}, "
                          f"{val.shape[0]} features")
-    devs = {t.device for t in (resp, x, y, val)}
+    group = (resp, x, y, val) if tie is None else (resp, x, y, val, tie)
+    devs = {t.device for t in group}
     if len(devs) != 1:
         raise ValueError(f"inputs lie on several devices: {devs}")
     h, w = resp.shape
@@ -42,16 +42,41 @@ def replace_lost_cuda_(resp: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
         raise ValueError(f"a {w}x{h} map has {n_tiles} tiles; kernel R takes "
                          f"{REPLACE_MAX_TILES}, at most 65535 columns and "
                          f"32767 rows")
-    # the int map, then each tile's best value and its position
-    scratch = torch.empty(h * w + 2 * n_tiles, dtype=torch.int32, device=dev)
+    # the int map, then each tile's best value, its position and, in the
+    # tie entry, its count
+    per_tile = 2 if tie is None else 3
+    scratch = torch.empty(h * w + per_tile * n_tiles, dtype=torch.int32,
+                          device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         ticket = _tickets.get((dev.index, stream))
         if ticket is None:
             ticket = _tickets[dev.index, stream] = torch.zeros(
                 1, dtype=torch.int32, device=dev)
-        REPLACE_LOST(resp.data_ptr(), h, w, x.data_ptr(), y.data_ptr(),
-                     val.data_ptr(), n, borderx, bordery, step,
-                     max(1, int(cfg.min_eigenvalue)),
-                     max(int(cfg.mindist) - 1, 0), scratch.data_ptr(),
-                     ticket.data_ptr(), stream)
+        args = [resp.data_ptr(), h, w, x.data_ptr(), y.data_ptr(),
+                val.data_ptr(), n, borderx, bordery, step,
+                max(1, int(cfg.min_eigenvalue)),
+                max(int(cfg.mindist) - 1, 0), scratch.data_ptr(),
+                ticket.data_ptr()]
+        if tie is not None:
+            args.append(tie.data_ptr())
+        kernel(*args, stream)
+
+
+def replace_lost_cuda_(resp: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                       val: torch.Tensor, cfg: TrackingConfig) -> None:
+    """Fill the lost slots (val < 0) of x, y, val from the f32 [H, W]
+    response, one kernel call, on the stream: nothing is read back."""
+    _launch(REPLACE_LOST, resp, x, y, val, cfg)
+
+
+def replace_lost_tie_cuda_(resp: torch.Tensor, x: torch.Tensor,
+                           y: torch.Tensor, val: torch.Tensor,
+                           cfg: TrackingConfig, tie: torch.Tensor) -> None:
+    """`replace_lost_cuda_` through kernel R's tie entry, which also sets
+    the int32 `tie` (one element, any offset into a CUDA tensor) to 1 when
+    at some pick more than one cell held the map's maximum, else to 0."""
+    if not isinstance(tie, torch.Tensor) or tie.device.type != "cuda" or \
+            tie.dtype != torch.int32 or tie.numel() != 1:
+        raise ValueError("tie must be a one-element int32 CUDA tensor")
+    _launch(REPLACE_LOST_TIE, resp, x, y, val, cfg, tie)

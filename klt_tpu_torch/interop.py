@@ -2,7 +2,9 @@
 
 The tests hand the same configuration, pyramids and features to
 `klt_tpu` and to this port as plain dicts and numpy arrays, for one
-sequence or for a batch of B.
+sequence or for a batch of B.  klt_tpu's exact tier keeps a pyramid as
+three tuples (imgs, gxs, gys) of [H_l, W_l] maps; the port as its usual
+finest-first [3, H_l, W_l] stacks.
 """
 
 from __future__ import annotations
@@ -36,6 +38,25 @@ def stacks_from_numpy(stacks, device="cpu") -> list[torch.Tensor]:
     `build_pyramid_stacks_batched`)."""
     return [torch.from_numpy(np.array(s, dtype=np.float32)).to(device)
             for s in stacks]
+
+
+def exact_pyramids_from_numpy(pyr, device="cpu") -> list[torch.Tensor]:
+    """klt_tpu's exact pyramid (imgs, gxs, gys), tuples of [H_l, W_l]
+    maps finest first, as the port's f32 [3, H_l, W_l] stacks on
+    `device`."""
+    imgs, gxs, gys = pyr
+    if not len(imgs) == len(gxs) == len(gys):
+        raise ValueError("imgs, gxs, gys hold different numbers of levels")
+    return [torch.from_numpy(np.stack([np.asarray(a, np.float32)
+                                       for a in level])).to(device)
+            for level in zip(imgs, gxs, gys)]
+
+
+def exact_pyramids_to_numpy(stacks) -> tuple:
+    """The port's [3, H_l, W_l] stacks as klt_tpu's (imgs, gxs, gys)
+    tuples of numpy maps."""
+    planes = [s.cpu().numpy() for s in stacks]
+    return tuple(tuple(p[c] for p in planes) for c in range(3))
 
 
 def features_from_numpy(x, y, val, device="cpu"):

@@ -1,9 +1,14 @@
-"""ctypes bindings for the native host runtime (sort + suppression).
+"""ctypes bindings for the native host runtime (sort + suppression) and
+for the scalar oracle of the bit-exact LK tier.
 
 Compiles the port's own `kltnative.c`, beside this file (a byte-for-byte
 copy of the JAX package's native source, which the tests hold equal),
 with `cc -O2 -shared -fPIC` into the port's build directory on first use,
-and again whenever the source is newer than the library.
+and again whenever the source is newer than the library.  `lk_exact_ref.c`
+(kernel G's lane program, csrc/lk_exact_lane.h, one feature after
+another) builds the same way with `cc -O0 -ffp-contract=off`, so that
+every f32 operation rounds on its own, as the reference's goldens were
+made (tools/fixtures/gen.sh).
 """
 
 from __future__ import annotations
@@ -18,8 +23,12 @@ from .._build import BUILD_DIR, compile_shared, is_stale, repo_path
 
 _SRC = repo_path("klt_tpu_torch", "native", "kltnative.c")
 _LIB = os.path.join(BUILD_DIR, "libkltnative.so")
+_REF_SRC = repo_path("klt_tpu_torch", "native", "lk_exact_ref.c")
+_REF_DEPS = [_REF_SRC, repo_path("klt_tpu_torch", "csrc", "lk_exact_lane.h")]
+_REF_LIB = os.path.join(BUILD_DIR, "liblkexactref.so")
 _lock = threading.Lock()
 _lib = None
+_ref_lib = None
 
 
 def _load() -> ctypes.CDLL:
@@ -85,3 +94,60 @@ def min_dist_suppress(pts: np.ndarray, fx: np.ndarray, fy: np.ndarray,
         ctypes.c_int32(ncols), ctypes.c_int32(nrows),
         ctypes.c_int32(max(mindist, 0)), ctypes.c_int32(min_eigenvalue),
         ctypes.c_int32(1 if overwrite_all else 0))
+
+
+def _load_ref() -> ctypes.CDLL:
+    global _ref_lib
+    with _lock:
+        if _ref_lib is not None:
+            return _ref_lib
+        if is_stale(_REF_LIB, _REF_DEPS):
+            cc = os.environ.get("CC", "cc")
+            compile_shared([cc, "-O0", "-ffp-contract=off", "-shared",
+                            "-fPIC", _REF_SRC], _REF_LIB)
+        lib = ctypes.CDLL(_REF_LIB)
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.klt_exact_track_ref.argtypes = (
+            [ctypes.POINTER(p), ctypes.POINTER(p), ctypes.POINTER(i),
+             ctypes.POINTER(i), i, p, p, p, i, i, i, i] + [f] * 9 + [p] * 3)
+        lib.klt_exact_track_ref.restype = i
+        _ref_lib = lib
+        return lib
+
+
+def track_exact_ref(stacks1, stacks2, x, y, val, consts: dict):
+    """Kernel G's lane program on the host, one feature after another.
+
+    stacks1, stacks2: finest-first f32 [3, H_l, W_l] numpy stacks of the
+    two frames; x, y f32 [N], val i32 [N]; consts: the lane program's
+    configuration (`ops.lk_exact.exact_constants`).  Returns new numpy
+    (x, y, val)."""
+    st1 = [np.ascontiguousarray(s, np.float32) for s in stacks1]
+    st2 = [np.ascontiguousarray(s, np.float32) for s in stacks2]
+    if len(st1) != len(st2) or any(a.shape != b.shape or a.ndim != 3 or
+                                   a.shape[0] != 3
+                                   for a, b in zip(st1, st2)):
+        raise ValueError("stacks must be pairs of equal [3, H, W] levels")
+    x = np.ascontiguousarray(x, np.float32)
+    y = np.ascontiguousarray(y, np.float32)
+    val = np.ascontiguousarray(val, np.int32)
+    n = x.shape[0]
+    if y.shape != (n,) or val.shape != (n,):
+        raise ValueError("x, y, val must be [N]")
+    nlev = len(st1)
+    xo, yo, vo = np.empty_like(x), np.empty_like(y), np.empty_like(val)
+    ptrs = ctypes.c_void_p * nlev
+    ints = ctypes.c_int * nlev
+    k = consts
+    rc = _load_ref().klt_exact_track_ref(
+        ptrs(*[a.ctypes.data for a in st1]),
+        ptrs(*[a.ctypes.data for a in st2]),
+        ints(*[a.shape[1] for a in st1]), ints(*[a.shape[2] for a in st1]),
+        nlev, x.ctypes.data, y.ctypes.data, val.ctypes.data, n, k["win"],
+        k["max_iterations"], k["check_residue"], k["subsampling"],
+        k["min_determinant"], k["min_displacement"], k["step_factor"],
+        k["max_residue"], k["border_x0"], k["border_x1"], k["border_y0"],
+        k["border_y1"], xo.ctypes.data, yo.ctypes.data, vo.ctypes.data)
+    if rc != 0:
+        raise ValueError(f"the oracle takes 1 to 8 levels, got {nlev}")
+    return xo, yo, vo

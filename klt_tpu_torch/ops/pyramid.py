@@ -10,7 +10,11 @@ LK level loop reads.
 
 `build_pyramid_stacks` is kernel A's wrapper: a CUDA frame goes to the
 pyramid kernel (csrc/pyramid.cu), a CPU frame to the plain version
-below.  `build_pyramid_stacks_batched` is kernel E's: a [B, H, W] batch
+below.  Every output sums its taps in the reference C convolution's
+order (ops/convolve.py), so these stacks are also the bit-exact tier's
+pyramid (ops/lk_exact.py::build_pyramids_exact) and, at one level without
+the pre-smoothing, its response's gradients of a frame that is not
+smoothed before selecting (ops/replace_exact.py).  `build_pyramid_stacks_batched` is kernel E's: a [B, H, W] batch
 of frames in one launch sequence, bit-equal per image to kernel A.
 Stacks stay on the frames' device.
 """
@@ -24,10 +28,14 @@ from ..kernels import gaussian_kernels
 from .convolve import convolve_separable
 
 
-def build_pyramid_stacks_plain(img: torch.Tensor, cfg: TrackingConfig
-                               ) -> list[torch.Tensor]:
+def build_pyramid_stacks_plain(img: torch.Tensor, cfg: TrackingConfig,
+                               n_levels: int | None = None,
+                               smooth: bool = True) -> list[torch.Tensor]:
     """Plain torch version of kernel A, on any device: uint8/f32 [H, W]
-    -> finest-first list of f32 [3, H_l, W_l] stacks."""
+    -> finest-first list of f32 [3, H_l, W_l] stacks, `n_levels` of them
+    (default: the configuration's); level 0 is the frame itself when not
+    `smooth`."""
+    n_levels = cfg.n_pyramid_levels if n_levels is None else n_levels
     g_s, _ = gaussian_kernels(cfg.smooth_sigma)
     gauss, deriv = gaussian_kernels(cfg.grad_sigma)
     g_p, _ = gaussian_kernels(cfg.pyramid_sigma)
@@ -36,29 +44,33 @@ def build_pyramid_stacks_plain(img: torch.Tensor, cfg: TrackingConfig
     shapes = pyramid_shapes(img.shape[-1], img.shape[-2], cfg)
 
     # pre-smoothing (reference: src/V1/trackFeatures.c:1296-1308)
-    level = convolve_separable(img.to(torch.float32), g_s, g_s)
+    level = img.to(torch.float32)
+    if smooth:
+        level = convolve_separable(level, g_s, g_s)
     stacks = []
-    for lvl in range(cfg.n_pyramid_levels):
+    for lvl in range(n_levels):
         gradx = convolve_separable(level, deriv, gauss)
         grady = convolve_separable(level, gauss, deriv)
         stacks.append(torch.stack([level, gradx, grady]))
-        if lvl < cfg.n_pyramid_levels - 1:
+        if lvl < n_levels - 1:
             sm = convolve_separable(level, g_p, g_p)
             ncols, nrows = shapes[lvl + 1]
             level = sm[sh::s, sh::s][:nrows, :ncols].contiguous()
     return stacks
 
 
-def build_pyramid_stacks(img: torch.Tensor, cfg: TrackingConfig
+def build_pyramid_stacks(img: torch.Tensor, cfg: TrackingConfig,
+                         n_levels: int | None = None, smooth: bool = True
                          ) -> list[torch.Tensor]:
-    """Finest-first [3, H_l, W_l] stacks of a uint8/f32 [H, W] frame.
-    CUDA: one call of the pyramid kernel.  CPU: the plain version."""
+    """Finest-first [3, H_l, W_l] stacks of a uint8/f32 [H, W] frame
+    (contract of `build_pyramid_stacks_plain`).  CUDA: one call of the
+    pyramid kernel.  CPU: the plain version."""
     if img.device.type == "cuda":
         from ..cuda.pyramid import build_pyramid_stacks_cuda
-        return build_pyramid_stacks_cuda(img, cfg)
+        return build_pyramid_stacks_cuda(img, cfg, n_levels, smooth)
     if img.device.type != "cpu":
         raise ValueError(f"no pyramid path for device {img.device}")
-    return build_pyramid_stacks_plain(img, cfg)
+    return build_pyramid_stacks_plain(img, cfg, n_levels, smooth)
 
 
 def build_pyramid_stacks_batched_plain(imgs: torch.Tensor,

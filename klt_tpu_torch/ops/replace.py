@@ -79,21 +79,25 @@ def _stamp_live_features(masked: torch.Tensor, x: torch.Tensor,
 
 def replace_lost_plain_(resp: torch.Tensor, x: torch.Tensor,
                         y: torch.Tensor, val: torch.Tensor,
-                        cfg: TrackingConfig) -> None:
+                        cfg: TrackingConfig) -> bool:
     """Plain torch version of kernel R, on any device: fill the lost
     slots of x, y, val in place from the f32 [H, W] response.  Reads the
-    map's maximum and the lost slots back to the host before each pick."""
+    map's maximum and the lost slots back to the host before each pick.
+    Returns True when at some pick more than one cell held the maximum
+    (what the tie entry of kernel R reports)."""
     h, w = resp.shape
     floor = max(1, int(cfg.min_eigenvalue))
     stamp = max(int(cfg.mindist) - 1, 0)
     m = _stamp_live_features(_masked_response_int(resp, cfg), x, y, val,
                              cfg)
     flat = m.view(-1)
+    tie = False
     while bool((val < 0).any()):
         idx = int(torch.argmax(flat))  # ties: the first in scan order
         v = int(flat[idx])
         if v < floor:
             break
+        tie = tie or int((flat == v).sum()) > 1
         py, px = divmod(idx, w)
         slot = int(torch.argmax((val < 0).to(torch.uint8)))  # first lost
         x[slot] = float(px)
@@ -105,6 +109,7 @@ def replace_lost_plain_(resp: torch.Tensor, x: torch.Tensor,
     x.masked_fill_(lost, -1.0)
     y.masked_fill_(lost, -1.0)
     val.masked_fill_(lost, NOT_FOUND)
+    return tie
 
 
 def replace_lost_(resp: torch.Tensor, x: torch.Tensor, y: torch.Tensor,

@@ -14,7 +14,11 @@ as stacked [3, H_l, W_l] tensors, the pyramid kernel's output.
   of every tracked feature against its saved reference patch, every frame
   (klt_tpu's `track_sequence_affine`);
 * `track_sequence_stream`: tracking of an iterable of frames of any
-  length in chunks, carrying the last pyramid on the device.
+  length in chunks, carrying the last pyramid on the device;
+* `track_sequence_replace_exact`: the replace loop on the bit-exact tier
+  (klt_tpu's entry of that name), whose table is the reference C
+  tracker's to the bit; the frames whose replacement met an integer tie
+  are repaired on the host with the native quicksort walk.
 
 `plain=True` runs the plain torch versions of every kernel on any device —
 the reference the kernels are held against on the card.  `precomp=True`
@@ -27,6 +31,7 @@ from __future__ import annotations
 
 import itertools
 
+import numpy as np
 import torch
 
 from ..config import TrackingConfig
@@ -36,8 +41,14 @@ from ..ops.pyramid import (build_pyramid_stacks, build_pyramid_stacks_plain,
                            build_pyramid_stacks_batched_plain)
 from ..ops.affine import AffineState, affine_consistency_step
 from ..ops.lk import track_features_pyramid_stacks
+from ..ops.lk_exact import (build_pyramids_exact, check_exact_config,
+                            track_features_exact)
 from ..ops.replace import replace_lost_
-from ..ops.selection import corner_response, corner_response_plain
+from ..ops.replace_exact import (exact_response_device,
+                                 exact_response_from_grads,
+                                 replace_lost_exact_)
+from ..ops.selection import (candidate_points, corner_response,
+                             corner_response_plain)
 
 # Frames per batched-pyramid launch with precomp: bounds the stacks held
 # at once (64 VGA frames of 2-level stacks are about 250 MB).
@@ -130,6 +141,141 @@ def track_sequence_replace(frames: torch.Tensor, x: torch.Tensor,
     replacing.
     """
     return _run(frames, x, y, val, cfg, plain, precomp, replace=True)
+
+
+def _selection_response(frame, stacks, cfg: TrackingConfig, plain: bool):
+    """klt_tpu's response of a raw frame for its replacement
+    (replace_exact.exact_response_device): smoothed before selecting or
+    not, as the configuration says.  The first is the level-0 gradients
+    of the frame's pyramid `stacks` (kernel A keeps the C order), so only
+    the second builds anything."""
+    if cfg.smooth_before_selecting:
+        return exact_response_from_grads(stacks[0][1], stacks[0][2], cfg,
+                                         plain=plain)
+    return exact_response_device(frame, cfg, plain=plain)
+
+
+def _repair_replacement_host(frame, stacks, pre_x, pre_y, pre_val,
+                             cfg: TrackingConfig, plain: bool):
+    """The reference's replacement for one tie-flagged frame: the exact
+    response of the raw frame on its device (`stacks`: its pyramid), then
+    on the host the candidate list, the native quicksort (the reference's
+    own tie order, src/V1/selectGoodFeatures.c:62-96) and the
+    minimum-distance walk (:171-239) from the state before replacement.
+    Returns numpy (x, y, val)."""
+    from .. import native
+    resp = _selection_response(frame, stacks, cfg, plain).cpu().numpy()
+    h, w = resp.shape
+    fx = pre_x.cpu().numpy().astype(np.float32)
+    fy = pre_y.cpu().numpy().astype(np.float32)
+    fv = pre_val.cpu().numpy().astype(np.int32)
+    pts = native.sort_points_desc(candidate_points(resp, cfg, w, h))
+    native.min_dist_suppress(pts, fx, fy, fv, w, h, cfg.mindist,
+                             cfg.min_eigenvalue, False)
+    return fx, fy, fv
+
+
+def track_sequence_replace_exact(frames, x, y, val, cfg: TrackingConfig,
+                                 tier: str = "exact", chunk: int = 32,
+                                 plain: bool = False, device=None):
+    """Whole-sequence tracking with lost-feature replacement every frame,
+    with the reference's semantics to the bit (klt_tpu's entry of this
+    name).
+
+    tier="exact": tracking on the bit-exact tier (ops/lk_exact: kernel A's
+    pyramids, which keep the C order, and kernel G) and replacement from
+    the exact response of the new frame's level-0 gradients (kernel H2) by
+    the masked argmax (kernel R's tie entry), so positions, kills and
+    picks are the reference C tracker's, except where a pick met an
+    integer tie of the response.  Each chunk of `chunk` frames runs on the
+    device without a host round trip, keeping each frame's pyramid, its
+    state before replacement and its tie flag; the flags are read once per
+    chunk.  The first flagged frame is repaired on the host with the
+    reference's quicksort walk (`_repair_replacement_host`), the frames
+    after it are dropped, and the run resumes from the repaired state and
+    the kept pyramid.  tier="fast": tracking with kernels A and B,
+    replacement as above from the exact response of the raw frame
+    (klt_tpu's KLT_TPU_REPLACE_TRACK_TIER=fast).  The table does not
+    depend on `chunk`.  klt_tpu reads the tier and the chunk from
+    KLT_TPU_REPLACE_* variables; the port takes them as arguments only.
+
+    frames: uint8/f32 [T, H, W] tensor (it runs on its device) or numpy
+    (to the card; device="cpu" asks for the CPU); x, y f32 [N]; val i32
+    [N].  plain=True runs every kernel's plain version.  Returns (xs, ys,
+    vals) tensors of shape [T-1, N] on the frames' device: the state after
+    tracking into frame t and replacing.
+    """
+    if tier not in ("exact", "fast"):
+        raise ValueError(f"tier must be 'exact' or 'fast', got {tier!r}")
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    exact = tier == "exact"
+    if exact:
+        check_exact_config(cfg)
+    if isinstance(frames, torch.Tensor) and device is None:
+        dev = frames.device
+    else:
+        dev = default_device(device)
+    frames = torch.as_tensor(frames).to(dev)
+    if frames.dim() != 3:
+        raise ValueError(f"frames must be [T, H, W], got "
+                         f"{tuple(frames.shape)}")
+    (x, y, val), _ = _features_on(x, y, val, dev)
+    t_len, n = frames.shape[0], x.shape[0]
+    xs = torch.empty((max(t_len - 1, 0), n), dtype=torch.float32, device=dev)
+    ys = torch.empty_like(xs)
+    vals = torch.empty((max(t_len - 1, 0), n), dtype=torch.int32, device=dev)
+    if t_len < 2:
+        return xs, ys, vals
+
+    st1 = build_pyramids_exact(frames[0], cfg, plain=plain)
+    t = 1  # the next frame to track into
+    while t < t_len:
+        step = min(chunk, t_len - t)
+        pre = (torch.empty((step, n), dtype=torch.float32, device=dev),
+               torch.empty((step, n), dtype=torch.float32, device=dev),
+               torch.empty((step, n), dtype=torch.int32, device=dev))
+        ties = torch.zeros(step, dtype=torch.int32, device=dev)
+        pyramids = []
+        for k in range(step):
+            frame = frames[t + k]
+            st2 = build_pyramids_exact(frame, cfg, plain=plain)
+            pyramids.append(st2)
+            if exact:
+                xn, yn, vn = track_features_exact(st1, st2, x, y, val, cfg,
+                                                  plain=plain)
+            else:
+                xn, yn, vn = track_features_pyramid_stacks(
+                    st1, st2, x, y, val, cfg, plain=plain)
+            pre[0][k], pre[1][k], pre[2][k] = xn, yn, vn
+            row = t - 1 + k
+            xs[row], ys[row], vals[row] = xn, yn, vn
+            # the table rows are the state carried on: replacement fills
+            # them in place
+            x, y, val = xs[row], ys[row], vals[row]
+            # the plain loop asks the host anyway: no response without a
+            # lost slot (the tie flag stays 0, as klt_tpu's no_replace)
+            if not (plain or dev.type == "cpu") or bool((val < 0).any()):
+                resp = (exact_response_from_grads(st2[0][1], st2[0][2], cfg,
+                                                  plain=plain) if exact
+                        else _selection_response(frame, st2, cfg, plain))
+                replace_lost_exact_(resp, x, y, val, cfg, ties[k:k + 1],
+                                    plain=plain)
+            st1 = st2
+        flagged = torch.nonzero(ties.cpu()).flatten()  # one read a chunk
+        if not len(flagged):
+            t += step
+            continue
+        k = int(flagged[0])
+        row = t - 1 + k
+        st1 = pyramids[k]
+        fixed = _repair_replacement_host(frames[t + k], st1, pre[0][k],
+                                         pre[1][k], pre[2][k], cfg, plain)
+        for out, a in zip((xs, ys, vals), fixed):
+            out[row] = torch.from_numpy(a).to(dev)
+        x, y, val = xs[row], ys[row], vals[row]
+        t += k + 1
+    return xs, ys, vals
 
 
 def _features_on(x, y, val, device):

@@ -1,5 +1,5 @@
-"""Kernels A, B, C, D, E, F and R held against their plain torch versions
-on a CUDA card.
+"""Kernels A, B, C, D, E, F, R (and its tie entry), G and H2 held
+against their plain torch versions on a CUDA card.
 
 Every test here needs the card and skips without one.  The file imports
 neither jax nor klt_tpu nor conftest, so on a machine with a card and no
@@ -19,8 +19,10 @@ import torch
 
 import klt_tpu_torch as kt
 from chip_smoke import (affine_cases, affine_frames, batched_affine_frames,
-                        batched_frames, noise_frames, pyramid_cases,
-                        replace_cases, response_cases, synthetic_frames)
+                        batched_frames, exact_cases, exact_lk_cases,
+                        exact_replace_cases, noise_frames, pyramid_cases,
+                        replace_cases, response_cases, synthetic_frames,
+                        tie_frames)
 from klt_tpu_torch.ops.affine import (AffineState, affine_consistency_step,
                                       save_patches_plain, track_affine,
                                       track_affine_plain, verification_inputs)
@@ -1058,3 +1060,162 @@ def test_lk_pyramid_kernels_reject_bad_inputs(dev):
     out = lk_pyramid_cuda(st[0], st[1], *empty, cfg)
     assert [tuple(o.shape) for o in out] == [(0,)] * 3
     assert out[2].dtype == torch.int32
+
+
+# ------------------------------------------------------------------ #
+# the bit-exact tier: kernel A as its pyramid, H2, G, R's tie entry   #
+# ------------------------------------------------------------------ #
+
+def assert_bits_equal_all(got, ref):
+    """Equal shapes, dtypes and bits (-0.0 and +0.0 differ)."""
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a.cpu(), b.cpu())
+
+
+EXACT_CASES = exact_cases()
+
+
+@pytest.mark.parametrize("smooth", [True, False])
+@pytest.mark.parametrize("case", range(len(EXACT_CASES)),
+                         ids=[c[0] for c in EXACT_CASES])
+def test_exact_pyramid_and_response_kernels_equal_plain(case, smooth, dev):
+    """Kernel A as the exact tier takes it (every level, and level 0
+    alone without the pre-smoothing) and H2 on its level-0 gradients,
+    against their plain versions on the card and on the CPU, bit for
+    bit."""
+    from klt_tpu_torch.ops.pyramid import (build_pyramid_stacks,
+                                           build_pyramid_stacks_plain)
+    from klt_tpu_torch.ops.replace_exact import (exact_response_from_grads,
+                                                 exact_response_plain)
+    _, kw, frame = EXACT_CASES[case]
+    cfg = kt.TrackingConfig(**kw)
+    n = cfg.n_pyramid_levels if smooth else 1
+    img = torch.from_numpy(frame).to(dev)
+    got = build_pyramid_stacks(img, cfg, n, smooth)
+    assert_bits_equal_all(got, build_pyramid_stacks_plain(img, cfg, n, smooth))
+    assert_bits_equal_all(got, build_pyramid_stacks_plain(img.cpu(), cfg, n,
+                                                          smooth))
+    resp = exact_response_from_grads(got[0][1], got[0][2], cfg)
+    assert_bits_equal_all(
+        [resp], [exact_response_plain(got[0][1], got[0][2], cfg.window_width,
+                                      cfg.window_height)])
+
+
+LK_EXACT_CASES = exact_lk_cases()
+
+
+@pytest.mark.parametrize("case", range(len(LK_EXACT_CASES)),
+                         ids=[c[0] for c in LK_EXACT_CASES])
+def test_exact_track_kernel_equals_plain(case, dev):
+    from klt_tpu_torch.ops.lk_exact import (build_pyramids_exact,
+                                            track_features_exact)
+    _, kw, f1, f2, x, y, val = LK_EXACT_CASES[case]
+    cfg = kt.TrackingConfig(**kw)
+    p1 = build_pyramids_exact(torch.from_numpy(f1).to(dev), cfg)
+    p2 = build_pyramids_exact(torch.from_numpy(f2).to(dev), cfg)
+    feats = [torch.from_numpy(a).to(dev) for a in (x, y, val)]
+    got = track_features_exact(p1, p2, *feats, cfg)
+    assert_bits_equal_all(got, track_features_exact(p1, p2, *feats, cfg,
+                                                    plain=True))
+    assert_bits_equal_all(got, track_features_exact(
+        [s.cpu() for s in p1], [s.cpu() for s in p2],
+        *[f.cpu() for f in feats], cfg))
+
+
+TIE_STATES = replace_cases() + exact_replace_cases()
+
+
+@pytest.mark.parametrize("case", range(len(TIE_STATES)),
+                         ids=[c[0] for c in TIE_STATES])
+def test_replace_tie_entry_equals_plain(case, dev):
+    from klt_tpu_torch.ops.replace_exact import replace_lost_exact_
+    _, kw, resp, x, y, val = TIE_STATES[case]
+    cfg = kt.TrackingConfig(**kw)
+    outs = []
+    for plain in (False, True):
+        state = [torch.from_numpy(a.copy()).to(dev) for a in (x, y, val)]
+        tie = torch.full((1,), 7, dtype=torch.int32, device=dev)
+        replace_lost_exact_(torch.from_numpy(resp).to(dev), *state, cfg, tie,
+                            plain=plain)
+        outs.append(state + [tie])
+    assert_bits_equal_all(*outs)
+
+
+def exact_sequence_inputs(n_frames=8, n=150):
+    cfg = kt.TrackingConfig(sequential_mode=True)
+    frames = tie_frames(synthetic_frames(n_frames), 5)
+    fl = kt.FeatureList.create(n)
+    kt.KLTracker(cfg).select_good_features(frames[0], fl)
+    return cfg, frames, (fl.x, fl.y, fl.val)
+
+
+@pytest.mark.parametrize("tier", ["exact", "fast"])
+def test_track_sequence_replace_exact_kernels_equal_plain(tier, dev,
+                                                          monkeypatch):
+    """Kernels on the card, plain on the card and plain on the CPU:
+    bit-equal tables.  With kernels no plain version runs (each raises
+    here), and every step computed is one launch each of A, H2 and R's
+    tie entry and of G (exact tier) or B (fast tier), plus A once for the
+    first frame and H2 once more for each frame repaired on the host."""
+    from klt_tpu_torch import cuda
+    from klt_tpu_torch.ops import lk_exact, pyramid, replace_exact
+    from klt_tpu_torch.runtime import pipeline
+    cfg, frames, feats = exact_sequence_inputs()
+    repaired = []
+    orig = pipeline._repair_replacement_host
+    monkeypatch.setattr(pipeline, "_repair_replacement_host",
+                        lambda *a: repaired.append(1) or orig(*a))
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the kernel path")
+
+    with monkeypatch.context() as m:
+        for mod, name in ((lk_exact, "track_features_exact_plain"),
+                          (pyramid, "build_pyramid_stacks_plain"),
+                          (replace_exact, "exact_response_plain"),
+                          (replace_exact, "replace_lost_plain_")):
+            m.setattr(mod, name, refuse)
+        cuda.reset_launch_counts()
+        got = kt.track_sequence_replace_exact(frames, *feats, cfg, tier=tier)
+        torch.cuda.synchronize()
+    c = {k.symbol: k.launches for k in cuda.KERNELS}
+    steps = c["klt_replace_lost_tie"]
+    rep = len(repaired)
+    assert rep >= 1 and steps >= len(frames) - 1
+    assert c["klt_exact_track" if tier == "exact" else "klt_lk_pyramid"] == \
+        steps
+    assert c["klt_build_pyramid"] == 1 + steps
+    assert c["klt_exact_response"] == steps + rep
+    assert got[0].device.type == "cuda"
+    plain_card = kt.track_sequence_replace_exact(frames, *feats, cfg,
+                                                 tier=tier, plain=True)
+    plain_cpu = kt.track_sequence_replace_exact(frames, *feats, cfg,
+                                                tier=tier, device="cpu")
+    assert_bits_equal_all(got, plain_card)
+    assert_bits_equal_all(got, plain_cpu)
+
+
+def test_exact_wrappers_refuse_cpu_tensors(dev):
+    from klt_tpu_torch.cuda.exact import exact_response_cuda, track_exact_cuda
+    from klt_tpu_torch.cuda.pyramid import build_pyramid_stacks_cuda
+    from klt_tpu_torch.cuda.replace import replace_lost_tie_cuda_
+    cfg = kt.TrackingConfig()
+    img = torch.zeros(60, 80, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="CUDA"):
+        build_pyramid_stacks_cuda(img, cfg, 1, smooth=False)
+    st = build_pyramid_stacks_cuda(img.to(dev), cfg)
+    with pytest.raises(ValueError, match="CUDA"):
+        exact_response_cuda(st[0][1].cpu(), st[0][2].cpu(), 7, 7)
+    x = torch.full((4,), 30.0)
+    val = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        track_exact_cuda(st, st, x, x, val, cfg)
+    tie = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="CUDA"):
+        replace_lost_tie_cuda_(st[0][1].cpu(), x, x, val, cfg, tie)
+    with pytest.raises(ValueError, match="tie must be"):
+        replace_lost_tie_cuda_(st[0][1], x.to(dev), x.to(dev), val.to(dev),
+                               cfg, tie.cpu())

@@ -160,6 +160,8 @@ def test_port_runs_without_jax():
         "    *[torch.from_numpy(a[None]) for a in (fl.x, fl.y, fl.val)],\n"
         "    cfg)\n"
         "assert torch.equal(bx[:, 0], xs) and torch.equal(bv[:, 0], vs)\n"
+        "kt.track_sequence_replace_exact(torch.from_numpy(fr),\n"
+        "    *[torch.from_numpy(a) for a in (fl.x, fl.y, fl.val)], cfg)\n"
         "assert not any(m == 'klt_tpu' or m.startswith(('klt_tpu.', 'jax.'))\n"
         "               for m in sys.modules)\n"
         "print('tracked', int((vs[-1] == 0).sum()))\n")
@@ -218,6 +220,10 @@ def test_port_opens_and_compiles_no_file_of_klt_tpu():
                     "klt_tpu_torch/", ""), (path, node.lineno, s)
     native = _port_files(".c", ".cu", ".h", ".cuh")
     assert len(native) >= 6
+    names = {os.path.relpath(p, os.path.join(ROOT, "klt_tpu_torch"))
+             for p in native}
+    assert {"native/lk_exact_ref.c", "csrc/exact.cu",
+            "csrc/lk_exact_lane.h"} <= names
     inc = re.compile(r'^\s*#\s*include\s*[<"]([^>"]*)[>"]', re.M)
     for path in native:
         with open(path) as f:
