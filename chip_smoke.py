@@ -42,7 +42,9 @@ paths:
   frames with 500 features, held bit for bit against the plain CPU run
   over its first EXACT_CPU_FRAMES frames, and at 320x240 with 150
   features over 10 frames with a block pasted at two places (a tie that
-  the host repairs); the same run with tier="fast";
+  the host repairs); the same run with tier="fast"; and at 320x240 with
+  a 121x121 window, which no tile of kernel H2 holds (its global-memory
+  entry), over EXACT_WIDE_FRAMES frames;
 
 checks the tracks against the known motion of the synthetic frames and
 against the plain versions on the CPU, checks that the replacement loop
@@ -116,13 +118,17 @@ from klt_tpu_torch.runtime.pipeline import (PRECOMP_FRAMES, track_sequence,
                                             track_sequence_affine,
                                             track_sequence_replace,
                                             track_sequence_replace_exact)
-from klt_tpu_torch.cuda.exact import exact_response_cuda, track_exact_cuda
+from klt_tpu_torch.cuda.exact import (exact_response_cuda,
+                                      exact_response_global_cuda,
+                                      library_exact_tile_rows,
+                                      track_exact_cuda)
 from klt_tpu_torch.cuda.replace import replace_lost_tie_cuda_
 from klt_tpu_torch.ops import lk_exact, replace_exact
 from klt_tpu_torch.ops import pyramid as pyramid_ops
 from klt_tpu_torch.ops.lk_exact import (build_pyramids_exact,
                                         track_features_exact_plain)
 from klt_tpu_torch.ops.replace_exact import (exact_response_plain,
+                                             exact_response_tile,
                                              replace_lost_exact_)
 from klt_tpu_torch.utils.parity import table_parity_stats
 
@@ -155,10 +161,17 @@ BATCHED_AFFINE_CPU = (2, 6)
 BATCHED_AFFINE_STEP = 10
 # the exact replace run (track_sequence_replace_exact on the traffic
 # frames): the frames of it the plain CPU runs repeat (both tiers), the
-# steps whose states kernel G is held on, and the timed runs of the card's
+# steps whose states kernel G is held on, and the card's timed runs
 EXACT_CPU_FRAMES = 100
 EXACT_G_STEPS = (1, 100, 400)
 EXACT_RUNS = 3
+# the exact run with a window no tile of kernel H2 holds: 320x240 frames,
+# the card's table against the plain CPU run over all of them
+EXACT_WIDE = {"window_width": 121, "window_height": 121,
+              "smooth_sigma_fact": 0.02, "borderx": 64, "bordery": 64,
+              "n_pyramid_levels": 1, "subsampling": 2,
+              "sequential_mode": True}
+EXACT_WIDE_FRAMES = 4
 
 
 # ------------------------------------------------------------------ #
@@ -532,7 +545,15 @@ def exact_lk_cases():
     2-4 sit in the flat rectangle (a zero determinant), 5-6 in it inside
     the border band (SMALL_DET there: klt_tpu's order, C records OOB),
     7-9 under the foreign block (a large residue), 10-11 are lost slots,
-    the rest lie on the scene's texture."""
+    the rest lie on the scene's texture.  The cases after the first four
+    take windows kernel G chunks differently (15x15: 8 cells a thread;
+    27x27: 23 cells a thread, in chunks of 256), with the flat rectangle
+    widened to 60x60 so that lanes 2-4 stay flat under them; lanes that run
+    max_iterations on every level (min_displacement 0); a lane count that
+    is no multiple of a block's warps (43); and a 139x139 window, whose
+    image-1 samples no block's shared memory holds (G samples image 1 again
+    every iteration there), on the whole 320x240 scene with its left 170
+    columns flat, 20 lanes."""
     rng = np.random.RandomState(23)
     base, xx, yy = _scene(1)
     crop = (slice(60, 180), slice(80, 240))
@@ -550,6 +571,21 @@ def exact_lk_cases():
     x[7:10], y[7:10] = [110.4, 115.7, 120.2], [25.3, 30.1, 36.6]
     val = np.zeros(n, np.int32)
     val[10:12] = [-1, -4]
+    wide1, wide2 = f1.copy(), f2.copy()
+    for f in (wide1, wide2):
+        f[60:120, 0:60] = 90
+    big1 = _warp_u8(base, xx, yy, (0.0, 0.0))
+    big2 = _warp_u8(base, xx, yy, (0.6, -0.4))
+    for f in (big1, big2):
+        f[:, 0:170] = 90
+    xb = rng.uniform(160.0, 245.0, 20).astype(np.float32)
+    yb = rng.uniform(75.0, 160.0, 20).astype(np.float32)
+    xb[:4], yb[:4] = [60.5, 252.3, 82.3, 86.8], [120.0, 100.0, 110.5, 140.2]
+    valb = np.zeros(20, np.int32)
+    valb[10:12] = [-1, -3]
+    x43 = np.concatenate([x, rng.uniform(30.0, 130.0, 3).astype(np.float32)])
+    y43 = np.concatenate([y, rng.uniform(20.0, 60.0, 3).astype(np.float32)])
+    val43 = np.concatenate([val, np.zeros(3, np.int32)])
     return [("default, 2 levels of subsampling 4", {}, f1, f2, x, y, val),
             ("3 iterations at most", {"max_iterations": 3}, f1, f2, x, y,
              val),
@@ -558,7 +594,22 @@ def exact_lk_cases():
               "subsampling": 2}, f1, f2, x, y, val),
             ("5x5 window, one level, no residue check",
              {"window_width": 5, "window_height": 5, "n_pyramid_levels": 1,
-              "max_residue": 0.0}, f1, f2, x, y, val)]
+              "max_residue": 0.0}, f1, f2, x, y, val),
+            ("15x15 window, 2 levels of subsampling 2, 43 lanes",
+             {"window_width": 15, "window_height": 15, "n_pyramid_levels": 2,
+              "subsampling": 2},
+             wide1, wide2, x43, y43, val43),
+            ("27x27 window, one level: 23 cells a thread",
+             {"window_width": 27, "window_height": 27, "n_pyramid_levels": 1,
+              "subsampling": 2},
+             wide1, wide2, x, y, val),
+            ("min displacement 0: max_iterations on every level",
+             {"min_displacement": 0.0}, f1, f2, x, y, val),
+            ("139x139 window, one level: image 1 not hoisted",
+             {"window_width": 139, "window_height": 139,
+              "smooth_sigma_fact": 0.02, "n_pyramid_levels": 1,
+              "subsampling": 2}, big1, big2, xb, yb,
+             valb)]
 
 
 def exact_replace_cases():
@@ -839,8 +890,8 @@ def phase_build(card: str) -> None:
           "lk_level_kernel", "lk_pyramid_kernel", "pyramid_tiles",
           "hpass_global", "vpass_global", "replace_lost", "hsum_products",
           "vsum_eigen", "response_tiles", "affine_track_kernel",
-          "affine_step_kernel", "exact_response",
-          "exact_track")
+          "affine_step_kernel", "exact_response_tiles",
+          "exact_response_global", "exact_track")
     for line in cuda.build_log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
@@ -3001,24 +3052,64 @@ G_RESIDUE_FLOPS = 2 * 10 + 2 * SAMPLE_FLOPS + 3
 def exact_track_work(stats, n: int, cfg) -> tuple[float, float]:
     """(bytes, flops) of kernel G on a frame pair, from the plain run's
     per-level stats (level, lanes that entered the loop, their iterations,
-    lanes whose residue was taken): each entering lane's (w+1)x(w+1)
-    footprint in the three planes of both frames once, the lanes' x, y,
-    val in and out; the lane program's operations."""
+    lanes whose residue was taken, the most iterations of a lane): each
+    entering lane's (w+1)x(w+1) footprint in the three planes of both
+    frames once, the lanes' x, y, val in and out; the lane program's
+    operations."""
     cells = cfg.window_width * cfg.window_height
     foot = (cfg.window_width + 1) ** 2 * 3 * 2 * 4
     n_bytes, n_flops = 2 * 12 * n, 0
-    for _, entered, iters, resid in stats:
+    for _, entered, iters, resid, _ in stats:
         n_bytes += entered * foot
         n_flops += cells * (iters * G_ITER_FLOPS + resid * G_RESIDUE_FLOPS) \
             + iters * 15
     return n_bytes, n_flops
 
 
+def exact_response_entries(gx, gy, win, errs) -> bool:
+    """Kernel H2's two entries against the plain version on the card: the
+    one exact_response_cuda picks (the tiled entry where a tile holds the
+    window) and the global-memory entry; True when both give its bits.
+    The tile rule of the plain model must be the library's."""
+    tiled = library_exact_tile_rows(*win) > 0
+    check(exact_response_tile(*win) == library_exact_tile_rows(*win),
+          "the tile rule of H2's plain model differs from the library's")
+    counts = (cuda.EXACT_RESPONSE.launches,
+              cuda.EXACT_RESPONSE_GLOBAL.launches)
+    got = exact_response_cuda(gx, gy, *win)
+    took = (cuda.EXACT_RESPONSE.launches - counts[0],
+            cuda.EXACT_RESPONSE_GLOBAL.launches - counts[1])
+    check(took == ((1, 0) if tiled else (0, 1)),
+          f"unexpected choice of kernel H2's entry (window {win})")
+    glob = exact_response_global_cuda(gx, gy, *win)
+    ref = exact_response_plain(gx, gy, *win)
+    tiled_entry = cuda.EXACT_RESPONSE if tiled else cuda.EXACT_RESPONSE_GLOBAL
+    errs[tiled_entry.symbol].append(max_err([got], [ref]))
+    errs[cuda.EXACT_RESPONSE_GLOBAL.symbol].append(max_err([glob], [ref]))
+    return bits_equal(got, ref) and bits_equal(glob, ref)
+
+
+# the latency of a dependent f32 add on an H100, in cycles, and the SXM
+# part's boost clock
+FADD_CYCLES = 4
+SM_CLOCK_HZ = 1.98e9
+
+
+def exact_chain_floor(stats, cfg) -> float:
+    """ms: the least time of kernel G's slowest lane as chains, from the
+    plain run's per-level stats: on every level its most iterations of
+    win*win dependent adds (the five sums run side by side), and one more
+    chain for the residue."""
+    cells = cfg.window_width * cfg.window_height
+    chains = sum(most + 1 for *_, most in stats)
+    return chains * cells * FADD_CYCLES / SM_CLOCK_HZ * 1e3
+
+
 def phase_exact_kernels(errs) -> None:
-    """Kernel A as the exact tier takes it and H2 on exact_cases, G on
-    exact_lk_cases and R's tie entry on replace_cases and
-    exact_replace_cases, against their plain versions on the card, bit for
-    bit."""
+    """Kernel A as the exact tier takes it and both entries of H2 on
+    exact_cases, H2 also on response_cases, G on exact_lk_cases and R's tie
+    entry on replace_cases and exact_replace_cases, against their plain
+    versions on the card, bit for bit."""
     for name, kw, frame in exact_cases():
         cfg = klt.TrackingConfig(**kw)
         img = torch.from_numpy(frame).cuda()
@@ -3027,18 +3118,23 @@ def phase_exact_kernels(errs) -> None:
             ref = build_pyramid_stacks_plain(img, cfg, n, smooth)
             same = all(bits_equal(a, b) for a, b in zip(got, ref))
             errs[cuda.PYRAMID.symbol].append(max_err(got, ref))
-            resp = exact_response_cuda(got[0][1], got[0][2], cfg.window_width,
-                                       cfg.window_height)
-            rref = exact_response_plain(got[0][1], got[0][2],
-                                        cfg.window_width, cfg.window_height)
-            r_same = bits_equal(resp, rref)
-            errs[cuda.EXACT_RESPONSE.symbol].append(max_err([resp], [rref]))
+            r_same = exact_response_entries(
+                got[0][1], got[0][2], (cfg.window_width, cfg.window_height),
+                errs)
             print(f"[30 kernels A, H2] {name}, {n} level(s), "
                   f"{'smoothed' if smooth else 'not smoothed'}: A bit-equal "
-                  f"to its plain version: {same}; H2 on its level 0: "
-                  f"{r_same}")
+                  f"to its plain version: {same}; H2's two entries on its "
+                  f"level 0: {r_same}")
             check(same and r_same, f"kernel A or H2 differs from its plain "
                   f"version ({name})")
+    for name, gx, gy, win in response_cases():
+        gx, gy = torch.from_numpy(gx).cuda(), torch.from_numpy(gy).cuda()
+        same = exact_response_entries(gx, gy, win, errs)
+        tiled = library_exact_tile_rows(*win) > 0
+        print(f"[30 kernel H2] {name}: window {win[0]}x{win[1]}, "
+              f"{'tiled' if tiled else 'global-memory'} entry and the "
+              f"global-memory entry bit-equal to the plain version: {same}")
+        check(same, f"kernel H2 differs from its plain version ({name})")
     for name, kw, f1, f2, x, y, val in exact_lk_cases():
         cfg = klt.TrackingConfig(**kw)
         p1 = build_pyramids_exact(torch.from_numpy(f1).cuda(), cfg)
@@ -3094,16 +3190,17 @@ def run_exact_card(dev_frames, feats, cfg, tier="exact", chunk=32):
             {k: after[k] - before[k] for k in after})
 
 
-def check_exact_launches(tag, launches, repaired, n_frames, tier) -> None:
+def check_exact_launches(tag, launches, repaired, n_frames, tier,
+                         response=cuda.EXACT_RESPONSE) -> None:
     """Every step computed is one launch each of A (the new frame's
-    pyramid), G (or B), H2 and R's tie entry, the first frame one of A, a
-    repair one more of H2 (its response, from the kept pyramid); no other
-    kernel."""
+    pyramid), G (or B), H2 (`response`: the entry the window takes) and
+    R's tie entry, the first frame one of A, a repair one more of H2 (its
+    response, from the kept pyramid); no other kernel."""
     steps = launches[cuda.REPLACE_LOST_TIE.symbol]
     rep = len(repaired)
     track = cuda.EXACT_TRACK if tier == "exact" else cuda.LK_PYRAMID
     want = {track.symbol: steps, cuda.PYRAMID.symbol: 1 + steps,
-            cuda.EXACT_RESPONSE.symbol: steps + rep,
+            response.symbol: steps + rep,
             cuda.REPLACE_LOST_TIE.symbol: steps}
     got = {k: v for k, v in launches.items() if v}
     print(f"[{tag}] launches of the {tier} tier: {got} ({rep} frames "
@@ -3200,6 +3297,56 @@ def run_exact_flagship(frames, n_feats, cfg, tag) -> dict:
     return launches
 
 
+def run_exact_wide(frames, n_feats, tag, card, times) -> dict:
+    """The exact run with EXACT_WIDE's 121x121 window: no tile of kernel H2
+    holds it (the global-memory entry runs), and kernel G runs a lane a
+    block with 176 KB of image-1 samples.  The card's table bit-equal to
+    the plain CPU run; then H2's global-memory entry timed on the last
+    frame's gradients.  Returns the run's launches (not the timing's)."""
+    cfg = klt.TrackingConfig(**EXACT_WIDE)
+    win = (cfg.window_width, cfg.window_height)
+    check(library_exact_tile_rows(*win) == 0,
+          "a tile of kernel H2 holds the wide window")
+    fl = klt.FeatureList.create(n_feats)
+    klt.KLTracker(cfg, device="cuda").select_good_features(frames[0], fl)
+    feats = [torch.from_numpy(a) for a in (fl.x, fl.y, fl.val)]
+    (xs, ys, vs), repaired, secs, launches = run_exact_card(
+        torch.from_numpy(frames).cuda(), [f.cuda() for f in feats], cfg)
+    check_exact_launches(tag, launches, repaired, len(frames), "exact",
+                         cuda.EXACT_RESPONSE_GLOBAL)
+    t0 = time.perf_counter()
+    cpu = [a.numpy() for a in track_sequence_replace_exact(
+        torch.from_numpy(frames), *feats, cfg)]
+    t_cpu = time.perf_counter() - t0
+    same = all(np.array_equal(a.view(np.int32), b.view(np.int32))
+               for a, b in zip((xs, ys, vs), cpu))
+    print(f"[{tag}] {frames.shape[2]}x{frames.shape[1]}, {len(frames)} "
+          f"frames, {fl.count_remaining()} of {n_feats} features, window "
+          f"{win[0]}x{win[1]}, one level: {secs:.3f} s on the card, "
+          f"tracked per frame {(vs >= 0).sum(axis=1).tolist()}, replaced "
+          f"{(vs > 0).sum(axis=1).tolist()}; plain CPU run {t_cpu:.1f} s, "
+          f"card bit-equal to it: {same}")
+    check(same, "wide-window exact run on the card differs from the plain "
+          "CPU run")
+    check(fl.count_remaining() > 0 and (vs[-1] >= 0).any(),
+          "the wide-window exact run tracked nothing")
+
+    _, gx, gy = build_pyramids_exact(torch.from_numpy(frames[-1]).cuda(),
+                                     cfg)[0]
+    g_ms, g_host = kernel_times(lambda: exact_response_cuda(gx, gy, *win), 20)
+    g_plain = cuda_ms(lambda: exact_response_plain(gx, gy, *win), 1)
+    g_bound = bound(*exact_response_work(*frames.shape[1:], cfg))
+    print(f"[{tag}] {card} | kernel H2's global-memory entry, "
+          f"{frames.shape[2]}x{frames.shape[1]}, window {win[0]}x{win[1]}, "
+          f"device us per call {g_ms * 1e3:.1f} ({g_bound[0] * 1e3:.1f} by "
+          f"{g_bound[1]}; host enqueue {g_host * 1e3:.1f}; plain version on "
+          f"the card {g_plain * 1e3:.1f})")
+    times["exact_response_global"] = {
+        "ms": g_ms, "plain_ms": g_plain, "bound_ms": g_bound[0],
+        "bound_by": g_bound[1]}
+    return launches
+
+
 def exact_state(frames, table, start, t: int, cfg):
     """Inputs of kernel G at step t of the exact run: the exact pyramids of
     frames t-1 and t on the card and the table's state after frame t-1."""
@@ -3259,6 +3406,14 @@ def phase_exact_times(card, frames, cfg, run, times, per_step) -> None:
     g_plain = cuda_ms(lambda: track_features_exact_plain(p1, p2, *lanes, cfg),
                       3)
     g_bound = bound(*exact_track_work(stats, len(lanes[0]), cfg))
+    g_floor = exact_chain_floor(stats, cfg)
+    # every lane that G does not kill runs max_iterations on every level
+    worst = dataclasses.replace(cfg, min_displacement=0.0)
+    w_stats = []
+    track_features_exact_plain(p1, p2, *lanes, worst, stats=w_stats)
+    gw_ms, _ = kernel_times(lambda: track_exact_cuda(p1, p2, *lanes, worst),
+                            20)
+    gw_floor = exact_chain_floor(w_stats, worst)
     gx, gy = p2[0][1], p2[0][2]
     win = (cfg.window_width, cfg.window_height)
     r2_ms, r2_host = kernel_times(lambda: exact_response_cuda(gx, gy, *win),
@@ -3289,9 +3444,13 @@ def phase_exact_times(card, frames, cfg, run, times, per_step) -> None:
     print(f"[32 times] {card} | {size}, step {t} of the exact run, device us "
           f"per call (bound; host enqueue; plain version on the card): "
           f"kernel G {us(g_ms)} for {int((lanes[2] >= 0).sum())} live lanes "
-          f"(levels: lanes, iterations, residues {[s[1:] for s in stats]}) "
+          f"(levels: lanes, iterations, residues, most iterations of a lane "
+          f"{[s[1:] for s in stats]}) "
           f"= {g_bound[0] / g_ms:.5f} of its bound ({us(g_bound[0])} by "
-          f"{g_bound[1]}; {us(g_host)}; {us(g_plain)}); "
+          f"{g_bound[1]}; {us(g_host)}; {us(g_plain)}), its slowest lane's "
+          f"chains {us(g_floor)}; with min_displacement 0, every lane "
+          f"max_iterations a level ({[s[1:] for s in w_stats]}): "
+          f"{us(gw_ms)}, chains {us(gw_floor)}; "
           f"kernel H2 {us(r2_ms)} ({us(r2_bound[0])} by "
           f"{r2_bound[1]}; {us(r2_host)}; {us(r2_plain)}); kernel R's tie "
           f"entry at step {tr}, {n_lost} of {len(pre[0])} slots lost, "
@@ -3305,6 +3464,7 @@ def phase_exact_times(card, frames, cfg, run, times, per_step) -> None:
             ("replace_lost_tie", rt_ms, rt_plain, rt_bound)):
         times[name] = {"ms": ms, "plain_ms": plain, "bound_ms": bnd[0],
                        "bound_by": bnd[1]}
+    times["exact_track"]["worst_lanes_ms"] = gw_ms
 
 
 def phase_exact_profile(frames, n_feats, cfg) -> None:
@@ -3527,6 +3687,13 @@ def main() -> int:
     with phase("30 kernel G, exact run states"):
         phase_exact_track_states(traffic, exact_run, cfg, errs)
 
+    # path 10: the exact run with a window no tile of kernel H2 holds (its
+    # global-memory entry); run_exact_wide checks its launches
+    cuda.reset_launch_counts()
+    with phase("34 exact wide window"):
+        wide_launches = run_exact_wide(qvga[:EXACT_WIDE_FRAMES], 150,
+                                       "34 exact wide window", card, times)
+
     # path 6: selection from the card's response, both entries of kernel D
     with phase("26 device selection"):
         select_launches = run_device_selection(vga[0], 500,
@@ -3569,12 +3736,14 @@ def main() -> int:
     # R at the traffic run's 640x480 with 500 (D's global-memory entry with
     # a 111x111 window), C's entries at 32 x 320x240 x 150, F at step 10 of
     # the affine run's 640x480 with 2000 requested; G, H2 and R's tie
-    # entry at step 100 of the exact traffic run (640x480, 500).  No single
-    # PyTorch call computes any of these functions (a chain of separable
-    # passes with decimation, a Newton loop that ends by the data, a fused
-    # product, box sum and eigenvalue, a greedy loop, a Gauss-Newton loop
-    # with an elimination per step), and none keeps the C summation order
-    # of the exact tier, so library_ms is null throughout.
+    # entry at step 100 of the exact traffic run (640x480, 500), H2's
+    # global-memory entry on the wide-window run's 320x240 with 121x121.
+    # No single PyTorch call computes any of these functions (a chain of
+    # separable passes with decimation, a Newton loop that ends by the
+    # data, a fused product, box sum and eigenvalue, a greedy loop, a
+    # Gauss-Newton loop with an elimination per step), and none keeps the
+    # C summation order of the exact tier, so library_ms is null
+    # throughout.
     report = {"kernels": []}
     names = {cuda.PYRAMID: "pyramid", cuda.LK_LEVEL: "lk_level",
              cuda.LK_PYRAMID: "lk_pyramid",
@@ -3588,6 +3757,7 @@ def main() -> int:
              cuda.AFFINE_STEP: "affine_step",
              cuda.EXACT_TRACK: "exact_track",
              cuda.EXACT_RESPONSE: "exact_response",
+             cuda.EXACT_RESPONSE_GLOBAL: "exact_response_global",
              cuda.REPLACE_LOST_TIE: "replace_lost_tie"}
     for k in cuda.KERNELS:
         name = names[k]
@@ -3598,7 +3768,8 @@ def main() -> int:
             + batched_launches[k.symbol] + level_launches[k.symbol]
             + affine_launches[k.symbol] + select_launches[k.symbol]
             + step_launches[k.symbol] + b_step_launches[k.symbol]
-            + b_affine_launches[k.symbol] + exact_launches[k.symbol],
+            + b_affine_launches[k.symbol] + exact_launches[k.symbol]
+            + wide_launches[k.symbol],
             "max_abs_err": max(errs[k.symbol]), **times[name],
             "library_ms": None,
             "launches_per_step": {path: counts[k.symbol]

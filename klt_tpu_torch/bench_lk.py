@@ -26,9 +26,11 @@ stacks.
 After the affine lines, the exact replace run
 (`track_sequence_replace_exact`, 640x480, 500 features, 101 frames) as a
 cell, and one JSON line of device us per call of its kernels alone: G
-and H2 on the state at step 50, R's tie entry and R on the state of the
-step from there on that refilled the most slots (skipped on a revision
-without the exact tier; its pyramid is kernel A's, timed below).
+and H2 on the state at step 50 (G also with min_displacement 0, so that
+every lane it does not kill runs max_iterations on every level), R's tie
+entry and R on the state of the step from there on that refilled the most
+slots (skipped on a revision without the exact tier; its pyramid is
+kernel A's, timed below).
 
 Then one JSON line of device us per call of kernels A, E, R and D alone
 (CUDA events around back-to-back calls with the host enqueued ahead):
@@ -37,7 +39,8 @@ A at 320x240 and 640x480, E at 32 x 320x240 and 64 x 640x480, R at
 none, D on kernel A's level-0 gradients at 320x240 and 640x480 (7x7
 window); and, from torch.profiler, the device us of each launch of one
 call of A, of E and of D, in order.  --kernels-only prints that line
-alone.
+and the exact kernels' line alone (the exact run then runs once, untimed,
+to give their states).
 
 A last JSON line gives the host's cost of enqueueing one frame pair at
 640x480 (clock around a tight loop of calls, nothing awaited): the LK
@@ -424,9 +427,12 @@ def exact_kernel_costs(f, table, cfg, tag: str, card: str) -> None:
     tie = torch.zeros(1, dtype=torch.int32, device=f.device)
     fresh = lambda: [a.clone() for a in pre]
     n_lost = int((pre[2] < 0).sum())
+    worst = dataclasses.replace(cfg, min_displacement=0.0)
     out = {
         f"G 640x480, {int((lanes[2] >= 0).sum())} live lanes": us(
             lambda: track_exact_cuda(p1, p2, *lanes, cfg), 50),
+        "G 640x480, min_displacement 0": us(
+            lambda: track_exact_cuda(p1, p2, *lanes, worst), 20),
         "H2 640x480": us(lambda: exact_response_cuda(p2[0][1], p2[0][2],
                                                      *win), 200),
         f"R tie entry 640x480, step {tr}, {n_lost} of {len(pre[0])} lost, "
@@ -439,9 +445,10 @@ def exact_kernel_costs(f, table, cfg, tag: str, card: str) -> None:
                       "device_us_per_call": out}), flush=True)
 
 
-def exact_runs(args, tag: str, card: str) -> None:
+def exact_runs(args, tag: str, card: str, timed: bool = True) -> None:
     """The exact replace run (640x480, 500 features, 101 frames) end to
-    end, then its kernels alone; a revision without it says so."""
+    end (unless not `timed`), then its kernels alone; a revision without
+    it says so."""
     try:
         from klt_tpu_torch.runtime.pipeline import (
             track_sequence_replace_exact)
@@ -454,9 +461,10 @@ def exact_runs(args, tag: str, card: str) -> None:
     f = torch.from_numpy(frames).cuda()
     feats = [torch.from_numpy(a).cuda() for a in select(frames[0], 500, cfg)]
     run = lambda: track_sequence_replace_exact(f, *feats, cfg)
-    measure(f"track_sequence_replace_exact 640x480 x 500, "
-            f"{int((feats[2] >= 0).sum())} live", run, len(frames) - 1, 1,
-            args.reps, tag, card)
+    if timed:
+        measure(f"track_sequence_replace_exact 640x480 x 500, "
+                f"{int((feats[2] >= 0).sum())} live", run, len(frames) - 1,
+                1, args.reps, tag, card)
     exact_kernel_costs(f, run(), cfg, tag, card)
 
 
@@ -482,6 +490,7 @@ def main() -> int:
         return 0
     if args.kernels_only:
         kernel_costs(cfg, args.tag, card)
+        exact_runs(args, args.tag, card, timed=False)
         return 0
 
     qvga = synthetic_frames(10)

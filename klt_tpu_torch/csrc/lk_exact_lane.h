@@ -2,11 +2,14 @@
  * (src/V1/trackFeatures.c:381-486) and the coarse-to-fine walk with its
  * write-back (:1343-1501), for one feature, in plain C.
  *
- * This is the program of kernel G (csrc/exact.cu, one thread per feature)
- * and of the scalar host oracle (native/lk_exact_ref.c, built with
- * cc -O0 -ffp-contract=off): nvcc and gcc compile the same lines, so the
- * CPU tests run the kernel's own lane program.  The operation order is
- * klt_tpu/ops/lk_exact.py's, which cites trackFeatures.c line by line:
+ * This is the program of the scalar host oracle (native/lk_exact_ref.c,
+ * built with cc -O0 -ffp-contract=off), one feature after another.  Kernel
+ * G (csrc/exact.cu) spreads a lane over a warp and compiles this header's
+ * per-cell helpers (klt_x_oob, klt_x_cell, klt_x_blend) and its write-back
+ * (klt_x_write_back) from the same lines; its warp program keeps every
+ * sum below one chain in the same order, so the two agree to the bit.
+ * The operation order is klt_tpu/ops/lk_exact.py's, which cites
+ * trackFeatures.c line by line:
  *
  *   - a window sample at (x + i, y + j): cx = x + (float)i, xt = (int)cx
  *     (truncation), ax = cx - (float)xt, the blend grouped
@@ -185,6 +188,26 @@ KLT_LANE int klt_x_track_level(const KltExactArgs* a, int r, float x1,
   return status;
 }
 
+/* The write-back of a live lane from the last level's status and
+ * position: a lane outside level 0's border band becomes OOB unless it is
+ * SMALL_DET; a killed lane goes to (-1, -1) with its status. */
+KLT_LANE void klt_x_write_back(const KltExactArgs* a, int status, float xout,
+                               float yout, float* xo, float* yo, int* vo) {
+  const int border = xout < a->border_x0 || xout > a->border_x1 ||
+                     yout < a->border_y0 || yout > a->border_y1;
+  const int is_oob = status == KLT_X_OOB ||
+                     (status != KLT_X_SMALL_DET && border);
+  if (is_oob || status < 0) {
+    *xo = -1.0f;
+    *yo = -1.0f;
+    *vo = is_oob ? KLT_X_OOB : status;
+  } else {
+    *xo = xout;
+    *yo = yout;
+    *vo = KLT_X_TRACKED;
+  }
+}
+
 /* The whole coarse-to-fine track of one feature and its write-back. */
 KLT_LANE void klt_x_track_lane(const KltExactArgs* a, float x, float y,
                                int val, float* xo, float* yo, int* vo) {
@@ -211,19 +234,7 @@ KLT_LANE void klt_x_track_lane(const KltExactArgs* a, float x, float y,
     status = klt_x_track_level(a, r, xloc, yloc, &xout, &yout);
     if (status == KLT_X_SMALL_DET || status == KLT_X_OOB) alive = 0;
   }
-  const int border = xout < a->border_x0 || xout > a->border_x1 ||
-                     yout < a->border_y0 || yout > a->border_y1;
-  const int is_oob = status == KLT_X_OOB ||
-                     (status != KLT_X_SMALL_DET && border);
-  if (is_oob || status < 0) {
-    *xo = -1.0f;
-    *yo = -1.0f;
-    *vo = is_oob ? KLT_X_OOB : status;
-  } else {
-    *xo = xout;
-    *yo = yout;
-    *vo = KLT_X_TRACKED;
-  }
+  klt_x_write_back(a, status, xout, yout, xo, yo, vo);
 }
 
 #endif /* KLT_LK_EXACT_LANE_H */

@@ -99,8 +99,9 @@ def load_library() -> ctypes.CDLL:
             getattr(lib, name).restype = ctypes.c_int
         lib.klt_pyramid_needs_scratch.argtypes = [_I, _I, _I]
         lib.klt_pyramid_needs_scratch.restype = ctypes.c_int
-        lib.klt_corner_response_tile.argtypes = [_I, _I]
-        lib.klt_corner_response_tile.restype = ctypes.c_int
+        for name in ("klt_corner_response_tile", "klt_exact_response_tile"):
+            getattr(lib, name).argtypes = [_I, _I]
+            getattr(lib, name).restype = ctypes.c_int
         lib.klt_affine_max_cells.argtypes = []
         lib.klt_affine_max_cells.restype = ctypes.c_int
         lib.klt_exact_max_levels.argtypes = []
@@ -288,7 +289,7 @@ REPLACE_LOST_TIE = Kernel(
 
 # The bit-exact tier (csrc/exact.cu), none of it a TPU kernel: klt_tpu runs
 # it as XLA only; its pyramid is kernel A's.  H2: the C-order
-# min-eigenvalue response.
+# min-eigenvalue response, tiled in shared memory.
 EXACT_RESPONSE = Kernel(
     "klt_exact_response",
     # gradx, grady, rows, cols, window w/h, out, stream
@@ -296,7 +297,16 @@ EXACT_RESPONSE = Kernel(
     source="klt_tpu_torch/csrc/exact.cu",
     replaces="klt_tpu/ops/replace_exact.py:143")
 
-# G: the C-order LK walk of a frame pair, a thread per feature.
+# H2 for a window that no tile holds: a thread per pixel.
+EXACT_RESPONSE_GLOBAL = Kernel(
+    "klt_exact_response_global",
+    # gradx, grady, rows, cols, window w/h, out, stream
+    [_P, _P, _I, _I, _I, _I, _P, _P],
+    source="klt_tpu_torch/csrc/exact.cu",
+    replaces="klt_tpu/ops/replace_exact.py:143")
+
+# G: the C-order LK walk of a frame pair, a warp per feature, each window
+# sum one chain in the C order.
 EXACT_TRACK = Kernel(
     "klt_exact_track",
     # per-level host arrays: stacks1, stacks2 (device pointers), rows,
@@ -312,7 +322,8 @@ EXACT_TRACK = Kernel(
 KERNELS = (PYRAMID, LK_LEVEL, CORNER_RESPONSE, PYRAMID_BATCHED, REPLACE_LOST,
            LK_LEVEL_BATCHED, LK_PYRAMID, LK_PYRAMID_BATCHED,
            CORNER_RESPONSE_GLOBAL, AFFINE_TRACK, AFFINE_STEP,
-           REPLACE_LOST_TIE, EXACT_RESPONSE, EXACT_TRACK)
+           REPLACE_LOST_TIE, EXACT_RESPONSE, EXACT_TRACK,
+           EXACT_RESPONSE_GLOBAL)
 
 # The side of kernel R's tiles and the most tiles its map may have (kTile
 # and kMaxTiles of csrc/replace.cu; the library returns both).

@@ -1,5 +1,6 @@
 """Wrappers of the bit-exact tier's kernels (csrc/exact.cu): H2, the exact
-response; G, the exact LK walk of a frame pair.  The tier's pyramid is
+response (a tiled entry, and a global-memory entry for a window no tile
+holds); G, the exact LK walk of a frame pair.  The tier's pyramid is
 kernel A's (cuda/pyramid.py).
 
 The plain torch versions are `ops.replace_exact.exact_response_plain` and
@@ -11,23 +12,51 @@ and raises when the kernel does not take its inputs or fails to launch.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ..config import TrackingConfig
 from ..ops.lk_exact import check_exact_config, exact_constants
-from . import EXACT_MAX_LEVELS, EXACT_RESPONSE, EXACT_TRACK, check_cuda_tensor
+from . import (EXACT_MAX_LEVELS, EXACT_RESPONSE, EXACT_RESPONSE_GLOBAL,
+               EXACT_TRACK, check_cuda_tensor, load_library)
 
 
 def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+@functools.lru_cache(maxsize=64)
+def library_exact_tile_rows(window_width: int, window_height: int) -> int:
+    """Output rows of kernel H2's tile for this window as the library
+    chooses them, or 0: no tile holds it.
+    `ops.replace_exact.exact_response_tile` is the same rule in Python,
+    for the plain model of the tiling."""
+    return load_library().klt_exact_response_tile(window_width,
+                                                  window_height)
+
+
 def exact_response_cuda(gx: torch.Tensor, gy: torch.Tensor,
                         window_width: int, window_height: int
                         ) -> torch.Tensor:
     """f32 [H, W] CUDA gradients -> f32 [H, W] exact response, one launch
-    of kernel H2."""
+    of kernel H2: the tiled entry, or the global-memory entry for a window
+    that no tile holds."""
+    tiled = library_exact_tile_rows(window_width, window_height)
+    return _response(EXACT_RESPONSE if tiled else EXACT_RESPONSE_GLOBAL, gx,
+                     gy, window_width, window_height)
+
+
+def exact_response_global_cuda(gx: torch.Tensor, gy: torch.Tensor,
+                               window_width: int, window_height: int
+                               ) -> torch.Tensor:
+    """Kernel H2's global-memory entry (a thread per pixel) for any
+    window; the contract of `exact_response_cuda`."""
+    return _response(EXACT_RESPONSE_GLOBAL, gx, gy, window_width,
+                     window_height)
+
+
+def _response(kernel, gx, gy, window_width: int, window_height: int):
     check_cuda_tensor(gx, "gx", torch.float32, 2)
     check_cuda_tensor(gy, "gy", torch.float32, 2)
     if gx.shape != gy.shape or gx.device != gy.device:
@@ -38,8 +67,8 @@ def exact_response_cuda(gx: torch.Tensor, gy: torch.Tensor,
     h, w = gx.shape
     out = torch.empty((h, w), dtype=torch.float32, device=gx.device)
     with torch.cuda.device(gx.device):
-        EXACT_RESPONSE(gx.data_ptr(), gy.data_ptr(), h, w, window_width,
-                       window_height, out.data_ptr(), _stream(gx.device))
+        kernel(gx.data_ptr(), gy.data_ptr(), h, w, window_width,
+               window_height, out.data_ptr(), _stream(gx.device))
     return out
 
 

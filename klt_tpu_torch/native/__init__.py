@@ -5,8 +5,8 @@ Compiles the port's own `kltnative.c`, beside this file (a byte-for-byte
 copy of the JAX package's native source, which the tests hold equal),
 with `cc -O2 -shared -fPIC` into the port's build directory on first use,
 and again whenever the source is newer than the library.  `lk_exact_ref.c`
-(kernel G's lane program, csrc/lk_exact_lane.h, one feature after
-another) builds the same way with `cc -O0 -ffp-contract=off`, so that
+(the scalar lane program of csrc/lk_exact_lane.h, whose per-cell helpers
+kernel G shares, one feature after another) builds the same way with `cc -O0 -ffp-contract=off`, so that
 every f32 operation rounds on its own, as the reference's goldens were
 made (tools/fixtures/gen.sh).
 """
@@ -116,7 +116,8 @@ def _load_ref() -> ctypes.CDLL:
 
 
 def track_exact_ref(stacks1, stacks2, x, y, val, consts: dict):
-    """Kernel G's lane program on the host, one feature after another.
+    """The scalar lane program of csrc/lk_exact_lane.h on the host, one
+    feature after another (kernel G spreads each lane over a warp).
 
     stacks1, stacks2: finest-first f32 [3, H_l, W_l] numpy stacks of the
     two frames; x, y f32 [N], val i32 [N]; consts: the lane program's

@@ -1,5 +1,6 @@
-/* Scalar host oracle of the bit-exact LK tier: kernel G's lane program
- * (csrc/lk_exact_lane.h) run one feature after another on the CPU.
+/* Scalar host oracle of the bit-exact LK tier: the lane program of
+ * csrc/lk_exact_lane.h (whose per-cell helpers and write-back kernel G
+ * shares) run one feature after another on the CPU.
  *
  * Built with cc -O0 -ffp-contract=off (no contraction of a * b + c into an
  * FMA, every f32 operation rounded on its own, as the reference C tracker

@@ -17,7 +17,7 @@ all match it to the bit:
   sequential row-major chain, IEEE division, the reference's bounds test,
   residue check and status precedence, and the coarse-to-fine walk with
   its /= subsampling then *= subsampling scalings
-  (`track_features_exact`; kernel G on the card, one thread per feature).
+  (`track_features_exact`; kernel G on the card, a warp per feature).
 
 `track_features_exact_plain` is G's plain version: masked torch ops over
 the [N] lanes, each lane rounding in the lane program's order (window
@@ -125,7 +125,7 @@ def _track_level_plain(st1, st2, x1, y1, x2, y2, active,
     """One level of the lane program for all lanes: returns (x2, y2,
     status) with the inactive lanes' values meaningless.  With a list for
     `stats`, appends (lanes that entered the loop, iterations they ran,
-    lanes whose residue was taken)."""
+    lanes whose residue was taken, the most iterations a lane ran)."""
     rows, cols = st1.shape[-2:]
     win = cfg.window_width
     hw = win // 2
@@ -141,7 +141,7 @@ def _track_level_plain(st1, st2, x1, y1, x2, y2, active,
     status = torch.where(active & ~run, OOB, status)
     if rows < win + 1 or cols < win + 1:  # no window fits: every lane OOB
         if stats is not None:
-            stats.append((0, 0, 0))
+            stats.append((0, 0, 0, 0))
         return x2, y2, status
     entered = int(run.sum()) if stats is not None else 0
     offs = torch.arange(-hw, hw + 1, dtype=torch.float32, device=dev)
@@ -193,7 +193,8 @@ def _track_level_plain(st1, st2, x1, y1, x2, y2, active,
                          MAX_ITERATIONS, status)
     if stats is not None:
         stats.append((entered, int(iters[active].sum()),
-                      int(tracked.sum()) if cfg.max_residue > 0 else 0))
+                      int(tracked.sum()) if cfg.max_residue > 0 else 0,
+                      int(iters[active].max()) if bool(active.any()) else 0))
     return x2, y2, status
 
 
@@ -203,7 +204,7 @@ def track_features_exact_plain(stacks1, stacks2, x, y, val,
     """Plain torch version of kernel G, on any device (contract of
     `track_features_exact`).  With a list for `stats`, every level appends
     (level, lanes that entered its loop, their iterations, lanes whose
-    residue was taken)."""
+    residue was taken, the most iterations a lane ran)."""
     check_exact_config(cfg)
     nlev = len(stacks1)
     ss = _f32(cfg.subsampling)

@@ -30,6 +30,8 @@ the host with the native quicksort walk).
 Wrappers: `exact_response_from_grads` is kernel H2's (csrc/exact.cu),
 `replace_lost_exact_` the tie entry of kernel R's (csrc/replace.cu); each
 takes its plain version below for tensors on the CPU or with plain=True.
+`exact_response_tiled` writes H2's tiling out in plain torch, for the
+tests: the kernel cannot run without a card.
 """
 
 from __future__ import annotations
@@ -44,6 +46,12 @@ from .replace import replace_lost_plain_
 
 _INT_LIMIT = float(np.float32(2147483583.0))  # largest f32 below 2^31-1
 _OUTSIDE = float(np.float32(-3e38))
+
+# kernel H2's tile (kRespTileW, kRespTY of csrc/exact.cu): 32 output
+# columns, 16 rows; the three product planes of a tile and its halo must
+# fit a block's 227 KB of shared memory
+EXACT_TILE_W, EXACT_TILE_H = 32, 16
+_MAX_SHARED = 227 * 1024
 
 
 def _conv_h_exact(img: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
@@ -78,13 +86,71 @@ def exact_response_plain(gx: torch.Tensor, gy: torch.Tensor,
             gxx = gxx + a * a
             gxy = gxy + a * b
             gyy = gyy + b * b
+    out[hh:h - hh, hw:w - hw] = _min_eigenvalue_exact(gxx, gxy, gyy)
+    return out
+
+
+def _min_eigenvalue_exact(gxx, gxy, gyy) -> torch.Tensor:
+    """_minEigenvalue's mixed precision: disc and trace in f32, the square
+    root and the combine in double, one round to f32; then the clamp."""
     t1 = gxx - gyy
     disc = t1 * t1 + (4.0 * gxy) * gxy
     s = sqrt_rn(disc.to(torch.float64))
     lam = ((gxx + gyy).to(torch.float64) - s) / 2.0
     lam = lam.to(torch.float32)
-    lam = torch.where(lam > _INT_LIMIT, _INT_LIMIT, lam)  # NaN stays NaN
-    out[hh:h - hh, hw:w - hw] = lam
+    return torch.where(lam > _INT_LIMIT, _INT_LIMIT, lam)  # NaN stays NaN
+
+
+def exact_response_tile(window_width: int, window_height: int) -> int:
+    """Output rows of kernel H2's tile for this window, or 0 when no tile
+    holds it (the rule of klt_exact_response_tile, csrc/exact.cu)."""
+    if not (1 <= window_width <= 4096 and 1 <= window_height <= 4096):
+        return 0
+    pitch = (EXACT_TILE_W + window_width - 1) | 1
+    rows = EXACT_TILE_H + window_height - 1
+    return EXACT_TILE_H if 3 * rows * pitch * 4 <= _MAX_SHARED else 0
+
+
+def exact_response_tiled(gx: torch.Tensor, gy: torch.Tensor,
+                         window_width: int, window_height: int
+                         ) -> torch.Tensor:
+    """Kernel H2's tiled entry written out in plain torch, all tiles at
+    once: each tile of EXACT_TILE_H x EXACT_TILE_W outputs takes the
+    gradients under it and a halo of window_width - 1 columns and
+    window_height - 1 rows (zeros outside the image), forms gx*gx, gx*gy,
+    gy*gy once per pixel, and sums each output's window from those
+    products, one row-major chain a sum from 0.0f; the eigenvalue as the
+    plain version's, -3e38 outside the window interior.  Raises for a
+    window no tile holds (the card takes the global-memory entry there,
+    whose plain version is `exact_response_plain`)."""
+    if not exact_response_tile(window_width, window_height):
+        raise ValueError(f"no tile of kernel H2 holds a {window_width}x"
+                         f"{window_height} window")
+    h, w = gx.shape
+    th, tw = EXACT_TILE_H, EXACT_TILE_W
+    hw, hh = window_width // 2, window_height // 2
+    ny, nx = -(-h // th), -(-w // tw)
+    ih, iw = th + window_height - 1, tw + window_width - 1
+
+    def tiles(g):  # [ny, nx, ih, iw]: image pixel (y, x) at (y + hh, x + hw)
+        pad = torch.zeros((ny * th + window_height - 1,
+                           nx * tw + window_width - 1), dtype=torch.float32,
+                          device=g.device)
+        pad[hh:hh + h, hw:hw + w] = g
+        return pad.unfold(0, ih, th).unfold(1, iw, tw)
+
+    a, b = tiles(gx), tiles(gy)
+    prods = (a * a, a * b, b * b)
+    sums = [torch.zeros((ny, nx, th, tw), dtype=torch.float32,
+                        device=gx.device) for _ in range(3)]
+    for dy in range(window_height):
+        for dx in range(window_width):
+            for k in range(3):
+                sums[k] = sums[k] + prods[k][..., dy:dy + th, dx:dx + tw]
+    lam = _min_eigenvalue_exact(*sums).permute(0, 2, 1, 3).reshape(
+        ny * th, nx * tw)[:h, :w]
+    out = torch.full((h, w), _OUTSIDE, dtype=torch.float32, device=gx.device)
+    out[hh:h - hh, hw:w - hw] = lam[hh:h - hh, hw:w - hw]
     return out
 
 

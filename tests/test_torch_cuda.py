@@ -1,5 +1,5 @@
-"""Kernels A, B, C, D, E, F, R (and its tie entry), G and H2 held
-against their plain torch versions on a CUDA card.
+"""Kernels A, B, C, D, E, F, R (and its tie entry), G and H2 (both
+entries) held against their plain torch versions on a CUDA card.
 
 Every test here needs the card and skips without one.  The file imports
 neither jax nor klt_tpu nor conftest, so on a machine with a card and no
@@ -1083,9 +1083,10 @@ EXACT_CASES = exact_cases()
                          ids=[c[0] for c in EXACT_CASES])
 def test_exact_pyramid_and_response_kernels_equal_plain(case, smooth, dev):
     """Kernel A as the exact tier takes it (every level, and level 0
-    alone without the pre-smoothing) and H2 on its level-0 gradients,
-    against their plain versions on the card and on the CPU, bit for
-    bit."""
+    alone without the pre-smoothing) and H2 on its level-0 gradients (the
+    entry the wrapper picks, and the global-memory entry), against their
+    plain versions on the card and on the CPU, bit for bit."""
+    from klt_tpu_torch.cuda.exact import exact_response_global_cuda
     from klt_tpu_torch.ops.pyramid import (build_pyramid_stacks,
                                            build_pyramid_stacks_plain)
     from klt_tpu_torch.ops.replace_exact import (exact_response_from_grads,
@@ -1099,9 +1100,53 @@ def test_exact_pyramid_and_response_kernels_equal_plain(case, smooth, dev):
     assert_bits_equal_all(got, build_pyramid_stacks_plain(img.cpu(), cfg, n,
                                                           smooth))
     resp = exact_response_from_grads(got[0][1], got[0][2], cfg)
+    win = (cfg.window_width, cfg.window_height)
+    ref = exact_response_plain(got[0][1], got[0][2], *win)
+    assert_bits_equal_all([resp], [ref])
     assert_bits_equal_all(
-        [resp], [exact_response_plain(got[0][1], got[0][2], cfg.window_width,
-                                      cfg.window_height)])
+        [exact_response_global_cuda(got[0][1], got[0][2], *win)], [ref])
+
+
+@pytest.mark.parametrize("case", range(len(RESPONSE_CASES)),
+                         ids=[c[0] for c in RESPONSE_CASES])
+def test_exact_response_entries_equal_plain(case, dev):
+    """Kernel H2's tiled entry (every window of response_cases fits its
+    tile) and its global-memory entry, one call each, the plain version's
+    bits on the card and on the CPU; the plain model's tile rule is the
+    library's."""
+    from klt_tpu_torch import cuda
+    from klt_tpu_torch.cuda.exact import (exact_response_cuda,
+                                          exact_response_global_cuda,
+                                          library_exact_tile_rows)
+    from klt_tpu_torch.ops.replace_exact import (exact_response_plain,
+                                                 exact_response_tile)
+    _, gx, gy, win = RESPONSE_CASES[case]
+    gx, gy = torch.from_numpy(gx).to(dev), torch.from_numpy(gy).to(dev)
+    for w in (win, (121, 121), (115, 115), (117, 117)):
+        assert exact_response_tile(*w) == library_exact_tile_rows(*w)
+    cuda.reset_launch_counts()
+    got = exact_response_cuda(gx, gy, *win)
+    assert (cuda.EXACT_RESPONSE.launches,
+            cuda.EXACT_RESPONSE_GLOBAL.launches) == (1, 0)
+    ref = exact_response_plain(gx, gy, *win)
+    assert_bits_equal_all([got], [ref])
+    assert_bits_equal_all([exact_response_global_cuda(gx, gy, *win)], [ref])
+    assert_bits_equal_all([got], [exact_response_plain(gx.cpu(), gy.cpu(),
+                                                       *win)])
+
+
+def test_exact_response_takes_the_global_entry_for_a_wide_window(dev):
+    from klt_tpu_torch import cuda
+    from klt_tpu_torch.cuda.exact import exact_response_cuda
+    from klt_tpu_torch.ops.replace_exact import exact_response_plain
+    rng = np.random.RandomState(41)
+    gx, gy = (torch.from_numpy(rng.normal(0, 30, (150, 170)).astype(
+        np.float32)).to(dev) for _ in range(2))
+    cuda.reset_launch_counts()
+    got = exact_response_cuda(gx, gy, 121, 121)
+    assert (cuda.EXACT_RESPONSE.launches,
+            cuda.EXACT_RESPONSE_GLOBAL.launches) == (0, 1)
+    assert_bits_equal_all([got], [exact_response_plain(gx, gy, 121, 121)])
 
 
 LK_EXACT_CASES = exact_lk_cases()
