@@ -36,6 +36,18 @@ paths:
   101 frames of batched_affine_frames;
 * selection from the response computed on the card (KLT_TPU_EXACT_SELECT=0)
   with the default window and with one that no tile of kernel D holds;
+* selection and replacement through the prefilter (KLTracker with
+  prefilter=True: the candidates cut to the best few of each cell on the
+  card), held bit for bit against the full list at 640x480;
+* the SLAM pipeline of klt_tpu's bench (bench_slam_e2e) at the laptops
+  width, 640x480 with 1000 features over 1003 frames: the front end
+  (track_sequence_replace with precomp: kernels A, B, D, R, E), the
+  feature table, chains, keyframes, the keyframe pose graph and the gated
+  bundle adjustment (plain torch on the card), held against the plain CPU
+  run, a second card run and the CPU's back end; and klt_tpu's SLAM scale
+  tests (bundle_adjust_cg at 200 poses x 20,000 landmarks, the CG pose
+  graph of 800 keyframes, the gated BA on 40% outliers) against their
+  ground truth;
 * the bit-exact replace run (track_sequence_replace_exact, klt_tpu's
   traffic row on its exact tier: kernels A, G, H2 and kernel R's tie
   entry, tie-flagged frames repaired on the host) on the 551 traffic
@@ -124,13 +136,27 @@ from klt_tpu_torch.cuda.exact import (exact_response_cuda,
                                       track_exact_cuda)
 from klt_tpu_torch.cuda.replace import replace_lost_tie_cuda_
 from klt_tpu_torch.ops import lk_exact, replace_exact
+from klt_tpu_torch.ops import lk as lk_ops
 from klt_tpu_torch.ops import pyramid as pyramid_ops
+from klt_tpu_torch.ops import replace as replace_ops
+from klt_tpu_torch.ops import selection as selection_ops
 from klt_tpu_torch.ops.lk_exact import (build_pyramids_exact,
                                         track_features_exact_plain)
 from klt_tpu_torch.ops.replace_exact import (exact_response_plain,
                                              exact_response_tile,
                                              replace_lost_exact_)
 from klt_tpu_torch.utils.parity import table_parity_stats
+from klt_tpu_torch.interop import ba_problem_from_numpy, pose_graph_from_numpy
+from klt_tpu_torch.runtime.tracker import KLTracker
+from klt_tpu_torch.examples.slam_pipeline import (keyframe_observations,
+                                                  unit_depth_landmarks)
+from klt_tpu_torch.slam import (BAProblem, bundle_adjust_cg,
+                                bundle_adjust_gated, optimize_pose_graph,
+                                pose_graph, select_keyframes)
+from klt_tpu_torch.slam.ba import _residual_norms
+from klt_tpu_torch.slam.frontend import build_keyframe_pose_graph
+from klt_tpu_torch.slam.geometry import project as slam_project
+from klt_tpu_torch.slam.geometry import so3_exp
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PROCESS_START = time.perf_counter()
@@ -225,12 +251,13 @@ def _warp_u8(img, xx, yy, t) -> np.ndarray:
                    255).astype(np.uint8)
 
 
-def synthetic_frames(n_frames: int, scale: int = 1) -> np.ndarray:
-    """uint8 [T, 240*scale, 320*scale]: frame k is the fixture scene
-    (upsampled by `scale`) translated by shift(k)."""
+def synthetic_frames(n_frames: int, scale: int = 1,
+                     start: int = 0) -> np.ndarray:
+    """uint8 [T, 240*scale, 320*scale]: frame k (k = start .. n_frames-1)
+    is the fixture scene (upsampled by `scale`) translated by shift(k)."""
     base, xx, yy = _scene(scale)
     return np.stack([_warp_u8(base, xx, yy, shift(k))
-                     for k in range(n_frames)])
+                     for k in range(start, n_frames)])
 
 
 def batched_frames(n_seq: int, n_frames: int, scale: int = 1) -> np.ndarray:
@@ -2997,15 +3024,25 @@ def _refuse(*args, **kw):
     raise SmokeFailure("a plain version ran on the kernel path")
 
 
+# the plain versions the exact tier's kernels (A, G, H2, R's tie entry)
+# stand in for, and those of the front end's (A, B, D, R, E)
+EXACT_PLAIN = ((lk_exact, "track_features_exact_plain"),
+               (pyramid_ops, "build_pyramid_stacks_plain"),
+               (replace_exact, "exact_response_plain"),
+               (replace_exact, "replace_lost_plain_"))
+FRONT_END_PLAIN = ((pyramid_ops, "build_pyramid_stacks_plain"),
+                   (pyramid_ops, "build_pyramid_stacks_batched_plain"),
+                   (lk_ops, "track_features_pyramid_levels"),
+                   (selection_ops, "corner_response_plain"),
+                   (replace_ops, "replace_lost_plain_"))
+
+
 @contextmanager
-def no_plain_versions():
-    """The plain versions of A, G, H2 and R's tie entry raise while the
-    block runs: the kernel path must not reach one."""
-    saved = [(mod, name, getattr(mod, name)) for mod, name in (
-        (lk_exact, "track_features_exact_plain"),
-        (pyramid_ops, "build_pyramid_stacks_plain"),
-        (replace_exact, "exact_response_plain"),
-        (replace_exact, "replace_lost_plain_"))]
+def no_plain_versions(plain=EXACT_PLAIN):
+    """The given plain versions (by default those of A, G, H2 and R's tie
+    entry) raise while the block runs: the kernel path must not reach
+    one."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name in plain]
     for mod, name, _ in saved:
         setattr(mod, name, _refuse)
     try:
@@ -3484,6 +3521,529 @@ def phase_exact_profile(frames, n_feats, cfg) -> None:
          "kernel R, tie entry (replace_lost)": "replace_lost"})
 
 
+# ------------------------------------------------------------------ #
+# the selection prefilter and the SLAM back end                        #
+# ------------------------------------------------------------------ #
+
+PREFILTER_FRAMES = 64
+PREFILTER_K = 4           # candidates kept a cell (candidate_points_topk)
+SLAM_FRAMES = 1003        # images_laptops' length (klt_tpu's bench.py:977)
+SLAM_CPU_FRAMES = 50
+SLAM_GATED = dict(rounds=3, iterations=17, robust_delta=2.0, gate_px=2.0)
+# the back end on the card against the CPU on the same observations (plain
+# torch on both sides; products, solves and sums round differently)
+SLAM_COST_TOL = 1e-3      # relative, cost curves
+SLAM_POSE_TOL = 1e-3      # absolute, poses
+SLAM_ACTIVE_SHARE = 0.99  # gate decisions that must agree
+# phase 37's first two LM iterations, card against CPU, on their costs
+# (what LM accepts on): with cg_iters 120 the BA's CG stops unconverged
+# (relative residual 1.7e-2 and 3.1e-2 on the CPU, not 1e-5), and a CG
+# iterate short of convergence depends on the rounding of its dot
+# products, so the states are printed, not held (measured at 80,000
+# observations: costs 2.25e-3 apart, landmarks 0.107 of their largest
+# move)
+SLAM_CG_TOL = 1e-2        # relative, costs
+
+
+@contextmanager
+def counting_prefilter(calls: dict):
+    """Counts the prefiltered selections of KLTrackers with
+    prefilter=True, certified or fallen back, while the block runs."""
+    orig = KLTracker._suppress_prefiltered
+
+    def spy(self, *a, **k):
+        ok = orig(self, *a, **k)
+        if self.prefilter:
+            calls["certified" if ok else "fallback"] += 1
+        return ok
+
+    KLTracker._suppress_prefiltered = spy
+    try:
+        yield
+    finally:
+        KLTracker._suppress_prefiltered = orig
+
+
+def corner_scene() -> np.ndarray:
+    """uint8 [120, 160]: isolated corners of distinct strengths on a faint
+    texture (the scene of klt_tpu's tests/test_selection.py whose
+    replacement the prefilter's audit certifies)."""
+    rng = np.random.RandomState(11)
+    img = rng.randint(98, 102, (120, 160)).astype(np.uint8)
+    for i, (cy, cx) in enumerate([(30, 40), (60, 100), (90, 50),
+                                  (40, 130), (80, 20)]):
+        amp = 60 + 20 * i
+        img[cy:cy + 6, cx:cx + 6] = 100 + amp
+        img[cy + 3:cy + 6, cx:cx + 3] = 100 - amp // 2
+    return img
+
+
+def same_list(a, b) -> bool:
+    return all(np.array_equal(getattr(a, f), getattr(b, f))
+               for f in ("x", "y", "val"))
+
+
+def run_prefilter(frames, tag) -> dict:
+    """KLTracker(prefilter=True) against prefilter=False: a selection of
+    2000 features on frame 0, then select 500 and track + replace through
+    the frames (the replacement's response is kernel D's on the card, cut
+    to the best PREFILTER_K a cell there).  The lists must be bit-equal
+    after every call.  Returns the launch counts."""
+    cfg = klt.TrackingConfig(sequential_mode=True)
+    rows, cols = frames.shape[1:]
+    calls = {"certified": 0, "fallback": 0}
+    cuda.reset_launch_counts()
+    with counting_prefilter(calls):
+        sel = []
+        for pre in (True, False):
+            fl = klt.FeatureList.create(2000)
+            klt.KLTracker(cfg, prefilter=pre).select_good_features(frames[0],
+                                                                   fl)
+            sel.append(fl)
+        check(same_list(*sel), "prefilter=True selected another list")
+        at_select = dict(calls)
+        trackers = [klt.KLTracker(cfg, prefilter=pre) for pre in (True, False)]
+        lists = [klt.FeatureList.create(500) for _ in trackers]
+        for tr, fl in zip(trackers, lists):
+            tr.select_good_features(frames[0], fl)
+        replaced, secs = 0, [0.0, 0.0]
+        for i in range(1, frames.shape[0]):
+            for tr, fl in zip(trackers, lists):
+                tr.track_features(frames[i - 1], frames[i], fl)
+            lost = lists[0].val < 0
+            for j, (tr, fl) in enumerate(zip(trackers, lists)):
+                t0 = time.perf_counter()
+                tr.replace_lost_features(frames[i], fl)
+                secs[j] += time.perf_counter() - t0
+            check(same_list(*lists),
+                  f"prefilter=True differs from the full list at frame {i}")
+            replaced += int((lost & (lists[0].val > 0)).sum())
+        # a replacement the audit certifies: 4 corners selected and
+        # tracked in place, one lost, refilled from the card's response
+        before = calls["certified"]
+        scene = corner_scene()
+        corners = []
+        for pre in (True, False):
+            tr = klt.KLTracker(cfg, prefilter=pre)
+            fl = klt.FeatureList.create(4)
+            tr.select_good_features(scene, fl)
+            tr.track_features(scene, scene, fl)
+            fl.val[2] = -1
+            tr.replace_lost_features(scene, fl)
+            corners.append(fl)
+        check(same_list(*corners) and (corners[0].val >= 0).all(),
+              "prefilter=True refilled the corner scene otherwise")
+        check(calls["certified"] >= before + 2,
+              "the corner scene's selection and replacement not certified")
+    launches = launch_counts()
+    cell = cfg.mindist
+    n_cells = -(-rows // cell) * -(-cols // cell)
+    cut = n_cells * (PREFILTER_K + 1) * 8  # int32 value + in-cell index
+    print(f"[{tag}] {cols}x{rows}: selection of 2000 on frame 0 and select "
+          f"500 + track + replace over {frames.shape[0]} frames ({replaced} "
+          f"slots replaced): prefilter=True bit-equal to prefilter=False "
+          f"after every call; prefiltered calls certified "
+          f"{calls['certified']}, fallen back to the full list "
+          f"{calls['fallback']} (of them at the selection: "
+          f"{at_select['fallback']} fallen back, {at_select['certified']} "
+          f"certified; the corner scene's selection and replacement, "
+          f"certified: 2)")
+    print(f"[{tag}] read back a call: cut {n_cells} cells x "
+          f"{PREFILTER_K + 1} x 8 B = {cut} B (k * nCells * 12 B = "
+          f"{PREFILTER_K * n_cells * 12} B as triples) against the whole "
+          f"response {rows * cols * 4} B, plus the whole map on a fallback; "
+          f"host seconds in replace_lost_features over the run: "
+          f"prefilter {secs[0]:.3f}, full list {secs[1]:.3f}")
+    check(calls["certified"] + calls["fallback"] >= 3,
+          "too few prefiltered selections ran")
+    return launches
+
+
+def slam_back_end(obs, shape, device, gated=SLAM_GATED) -> dict:
+    """The keyframe pose graph (built and optimized 10 iterations) and the
+    gated BA on `device`, as bench_slam_e2e runs them; seconds of each
+    stage (host clock, the card synchronised)."""
+    kfs, lm_idx, cam, u, v = obs
+    h, w = shape
+    fx = fy = 0.9 * w
+    cx, cy = w / 2.0, h / 2.0
+    n_pose = len(kfs)
+    lm0 = unit_depth_landmarks(lm_idx, u, v, fx, fy, cx, cy)
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" \
+        else (lambda: None)
+    secs = []
+    t0 = time.perf_counter()
+    pg = build_keyframe_pose_graph(lm_idx, cam, u, v, n_pose, fx, fy, cx, cy,
+                                   device=device)
+    sync()
+    secs.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    R0, t0_, pg_costs = optimize_pose_graph(pg, iterations=10)
+    sync()
+    secs.append(time.perf_counter() - t0)
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    prob = BAProblem(R=R0, t=t0_, landmarks=on(lm0), cam_idx=on(cam),
+                     lm_idx=on(lm_idx),
+                     uv=on(np.stack([u, v], -1).astype(np.float32)),
+                     weight=torch.ones(len(cam), dtype=torch.float32,
+                                       device=device),
+                     fx=fx, fy=fy, cx=cx, cy=cy)
+    t0 = time.perf_counter()
+    R, t, lm, costs, active = bundle_adjust_gated(prob, **gated)
+    sync()
+    secs.append(time.perf_counter() - t0)
+    return {"pg": [pg.R, pg.t, pg.Rz, pg.tz], "R0": R0, "t0": t0_,
+            "pg_costs": pg_costs, "prob": prob, "R": R, "t": t, "lm": lm,
+            "costs": costs, "active": active, "secs": secs}
+
+
+def back_ends_bit_equal(a: dict, b: dict) -> bool:
+    tensors = lambda r: r["pg"] + [r[k] for k in ("R0", "t0", "pg_costs", "R",
+                                                  "t", "lm", "costs")]
+    return all(bits_equal(x, y) for x, y in zip(tensors(a), tensors(b))) \
+        and np.array_equal(a["active"], b["active"])
+
+
+def rel_curve(a, b) -> float:
+    a, b = a.double().cpu().numpy(), b.double().cpu().numpy()
+    return float(np.abs(a / b - 1).max())
+
+
+def run_slam(frames, n_feats, tag, n_cpu) -> dict:
+    """bench_slam_e2e (klt_tpu's "config 5") on the card: the front end
+    (track_sequence_replace with precomp: kernels A, B, D, R and E) at
+    the laptops width, the feature table, chains, keyframes, the keyframe
+    pose graph and the gated bundle adjustment.  Holds the front end to
+    its launch counts, without a plain version, and to the plain CPU run
+    over its first n_cpu frames; the back end to a second card run (bit
+    for bit) and to the CPU's back end on the same observations.  Returns
+    the front end's launch counts."""
+    check(not torch.backends.cuda.matmul.allow_tf32 and
+          torch.get_float32_matmul_precision() == "highest",
+          "f32 matrix products on the card are not full f32")
+    cfg = klt.TrackingConfig(sequential_mode=True)
+    t_len = frames.shape[0]
+    steps = t_len - 1
+    fl = klt.FeatureList.create(n_feats)
+    klt.KLTracker(cfg).select_good_features(frames[0], fl)
+    dev_frames = torch.from_numpy(frames).cuda()
+    feats = [torch.from_numpy(a).cuda() for a in (fl.x, fl.y, fl.val)]
+    track_sequence_replace(dev_frames[:PRECOMP_FRAMES + 1], *feats, cfg,
+                           precomp=True)
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    with no_plain_versions(FRONT_END_PLAIN):
+        t0 = time.perf_counter()
+        out = track_sequence_replace(dev_frames, *feats, cfg, precomp=True)
+        torch.cuda.synchronize()
+        t_fe = time.perf_counter() - t0
+    launches = launch_counts()
+    want = {k.symbol: 0 for k in cuda.KERNELS} | {
+        cuda.PYRAMID.symbol: 1,
+        cuda.PYRAMID_BATCHED.symbol: -(-steps // PRECOMP_FRAMES),
+        cuda.LK_PYRAMID.symbol: steps,
+        cuda.CORNER_RESPONSE.symbol: steps,
+        cuda.REPLACE_LOST.symbol: steps}
+    print(f"[{tag}] front end launches {launches} (expected {want})")
+    check(launches == want, "SLAM front end launch counts differ")
+    xs, ys, vs = (a.cpu().numpy() for a in out)
+    check(np.isfinite(xs).all() and np.isfinite(ys).all(),
+          "bad SLAM front end table")
+    cpu = [a.numpy() for a in track_sequence_replace(
+        torch.from_numpy(frames[:n_cpu]),
+        *[torch.from_numpy(a) for a in (fl.x, fl.y, fl.val)], cfg,
+        precomp=True)]
+    card_cpu = all(np.array_equal(a[:n_cpu - 1], b)
+                   for a, b in zip((xs, ys, vs), cpu))
+    check(card_cpu, "SLAM front end differs from the plain CPU run")
+    table = klt.FeatureTable.create(t_len, n_feats)
+    table.store_list(fl, 0)
+    table.x[:, 1:], table.y[:, 1:], table.val[:, 1:] = xs.T, ys.T, vs.T
+    print(f"[{tag}] front end: {frames.shape[2]}x{frames.shape[1]}, "
+          f"{fl.count_remaining()} of {n_feats} features selected, {t_len} "
+          f"frames in {t_fe:.3f} s: {steps / t_fe:.1f} frames/s; "
+          f"{int((vs > 0).sum())} slots replaced; bit-equal to the plain "
+          f"CPU run over {n_cpu} frames: {card_cpu}; no plain version "
+          f"reached")
+
+    by_overlap = select_keyframes(table.val, overlap_thresh=0.8)
+    t0 = time.perf_counter()
+    obs = keyframe_observations(table)
+    t_obs = time.perf_counter() - t0
+    print(f"[{tag}] keyframes by overlap 0.8: {by_overlap.tolist()}"
+          f"{'; evenly spaced instead' if len(by_overlap) < 3 else ''} "
+          "(the synthetic frames move within +-4 px, so few features "
+          "leave the view)")
+    kfs, lm_idx, cam = obs[:3]
+    shape = frames.shape[1:]
+    runs = [slam_back_end(obs, shape, "cuda") for _ in range(2)]
+    same = back_ends_bit_equal(*runs)
+    on_cpu = slam_back_end(obs, shape, "cpu")
+    card = runs[1]
+    pg_rel = rel_curve(card["pg_costs"], on_cpu["pg_costs"])
+    ba_rel = rel_curve(card["costs"], on_cpu["costs"])
+    pose_err = max(float((card[k].cpu() - on_cpu[k]).abs().max())
+                   for k in ("R0", "t0", "R", "t"))
+    active_same = float((card["active"] == on_cpu["active"]).mean())
+    costs = card["costs"].cpu().numpy()
+    rn = _residual_norms(card["R"], card["t"], card["lm"],
+                         card["prob"]).cpu().numpy()
+    active = card["active"]
+    inl = active & (rn <= 2.0)
+    inlier_rms = float(np.sqrt(np.mean(rn[inl] ** 2))) if inl.any() else -1.0
+    print(f"[{tag}] keyframes {len(kfs)} ({kfs.tolist()}), landmarks "
+          f"{int(lm_idx.max()) + 1}, observations {len(cam)}; chains + "
+          f"keyframes {t_obs:.3f} s (host)")
+    print(f"[{tag}] back end on the card (the second of two runs): pose "
+          f"graph build {card['secs'][0]:.3f} s, optimization (10 "
+          f"iterations) {card['secs'][1]:.3f} s, gated BA (3 rounds x 17 "
+          f"iterations) {card['secs'][2]:.3f} s; first run "
+          f"{', '.join(f'{s:.3f}' for s in runs[0]['secs'])} s; the CPU "
+          f"{', '.join(f'{s:.3f}' for s in on_cpu['secs'])} s")
+    print(f"[{tag}] pose graph cost {float(card['pg_costs'][0]):.6g} -> "
+          f"{float(card['pg_costs'][-1]):.6g}; BA cost {costs[0]:.6g} -> "
+          f"{costs[-1]:.6g}; inlier RMS {inlier_rms:.4f} px, gated out "
+          f"{1.0 - active.mean():.4f}, active {int(active.sum())}")
+    print(f"[{tag}] two card runs bit-equal: {same}; card against the CPU: "
+          f"pose graph costs {pg_rel:.3g} and BA costs {ba_rel:.3g} "
+          f"relative (tolerance {SLAM_COST_TOL}), poses {pose_err:.3g} "
+          f"(tolerance {SLAM_POSE_TOL}), gate decisions equal on "
+          f"{active_same:.5f} of the observations (at least "
+          f"{SLAM_ACTIVE_SHARE})")
+    check(same, "two card runs of the SLAM back end differ")
+    check(pg_rel <= SLAM_COST_TOL and ba_rel <= SLAM_COST_TOL,
+          "SLAM back end cost curves differ from the CPU's")
+    check(pose_err <= SLAM_POSE_TOL, "SLAM poses differ from the CPU's")
+    check(active_same >= SLAM_ACTIVE_SHARE,
+          "SLAM gate decisions differ from the CPU's")
+    check(costs[-1] < costs[0], "the BA cost did not fall")
+    # the profiler's cost grows with its events: the back end with one
+    # round of 4 iterations of gated BA (3 x 17 above)
+    profile_device(lambda: slam_back_end(obs, shape, "cuda",
+                                         dict(SLAM_GATED, rounds=1,
+                                              iterations=4)), 1, tag,
+                   "the SLAM back end (pose graph build, 10 iterations of "
+                   "its optimization, 4 of gated BA)", {})
+    return launches
+
+
+def count_syncs(run) -> int:
+    """Host synchronisations in run(), as torch's sync debug mode flags
+    them."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def scale_ba_fields():
+    """tests/test_slam.py:241-287 (klt_tpu's north-star scale contract,
+    there over an 8-device mesh): 200 poses, 20,000 landmarks seen by 4
+    consecutive poses each, exact observations, landmarks perturbed by
+    0.02.  Returns (numpy fields, true landmarks)."""
+    rng = np.random.RandomState(4)
+    n_pose, n_lm, obs_per_lm = 200, 20000, 4
+    lm = rng.uniform([-4, -4, 4], [4, 4, 12], (n_lm, 3)).astype(np.float32)
+    R = np.stack([so3_exp(torch.from_numpy(
+        rng.randn(3).astype(np.float32) * 0.01)).numpy()
+        for _ in range(n_pose)])
+    t = np.stack([[0.02 * p, 0, 0] for p in range(n_pose)]).astype(
+        np.float32)
+    first = rng.randint(0, n_pose - obs_per_lm, n_lm)
+    cam = (first[:, None] + np.arange(obs_per_lm)[None, :]).reshape(-1) \
+        .astype(np.int32)
+    lmi = np.repeat(np.arange(n_lm, dtype=np.int32), obs_per_lm)
+    pc = np.einsum("mij,mj->mi", R[cam], lm[lmi]) + t[cam]
+    uv = slam_project(torch.from_numpy(pc.astype(np.float32)), 300.0, 300.0,
+                      160.0, 120.0).numpy()
+    lm0 = lm + 0.02 * rng.randn(*lm.shape).astype(np.float32)
+    return dict(R=R, t=t, landmarks=lm0.astype(np.float32), cam_idx=cam,
+                lm_idx=lmi, uv=uv, weight=np.ones(len(cam), np.float32),
+                fx=300.0, fy=300.0, cx=160.0, cy=120.0), lm
+
+
+def scale_pose_graph_fields():
+    """tests/test_slam.py:302-351: an 800-keyframe chain with loop
+    closures every 50, exact edges, noisy initial poses.  Returns (numpy
+    fields, true t)."""
+    rng = np.random.RandomState(6)
+    n = 800
+    R_true = [np.eye(3, dtype=np.float32)]
+    t_true = [np.zeros(3, np.float32)]
+    for _ in range(1, n):
+        w = rng.randn(3).astype(np.float32) * 0.01
+        R_true.append(so3_exp(torch.from_numpy(w)).numpy() @ R_true[-1])
+        t_true.append(t_true[-1] + [0.05, 0, 0])
+    R_true, t_true = np.stack(R_true), np.stack(t_true)
+    ei = np.arange(n - 1, dtype=np.int32)
+    ej = ei + 1
+    li = np.arange(0, n - 50, 50, dtype=np.int32)
+    ei, ej = np.concatenate([ei, li]), np.concatenate([ej, li + 50])
+    Rz = np.einsum("eij,ekj->eik", R_true[ei], R_true[ej])
+    tz = t_true[ei] - np.einsum("eij,ej->ei", Rz, t_true[ej])
+    R0 = np.stack([so3_exp(torch.from_numpy(
+        rng.randn(3).astype(np.float32) * (0 if p == 0 else 0.005))).numpy()
+        @ R_true[p] for p in range(n)])
+    t0 = t_true + 0.01 * rng.randn(n, 3).astype(np.float32)
+    t0[0] = t_true[0]
+    return dict(R=R0.astype(np.float32), t=t0.astype(np.float32), ei=ei,
+                ej=ej, Rz=Rz.astype(np.float32), tz=tz.astype(np.float32),
+                weight=np.ones(len(ei), np.float32)), t_true
+
+
+def spiked_ba_fields(n_pose=30, n_lm=2000):
+    """tests/test_slam.py:16-52 and :88-126 at 30 poses x 2000 landmarks:
+    every landmark seen by every pose, 0.3 px of noise, poses and
+    landmarks perturbed, 40% of the observations moved by 8-60 px.
+    Returns (numpy fields, spiked mask)."""
+    rng = np.random.RandomState(7)
+    fx = fy = 300.0
+    cx, cy = 160.0, 120.0
+    lm = rng.uniform([-2, -2, 4], [2, 2, 8], (n_lm, 3)).astype(np.float32)
+    R_true = np.stack([so3_exp(torch.from_numpy(
+        rng.randn(3).astype(np.float32) * 0.02)).numpy()
+        for _ in range(n_pose)])
+    t_true = np.stack([[0.1 * p, 0, 0] for p in range(n_pose)]).astype(
+        np.float32)
+    cam = np.repeat(np.arange(n_pose, dtype=np.int32), n_lm)
+    lmi = np.tile(np.arange(n_lm, dtype=np.int32), n_pose)
+    pc = np.einsum("mij,mj->mi", R_true[cam], lm[lmi]) + t_true[cam]
+    uv = slam_project(torch.from_numpy(pc.astype(np.float32)), fx, fy, cx,
+                      cy).numpy()
+    uv = uv + 0.3 * rng.randn(*uv.shape).astype(np.float32)
+    R0, t0 = [], []
+    for p in range(n_pose):
+        w = rng.randn(3).astype(np.float32) * (0 if p == 0 else 0.02)
+        R0.append(so3_exp(torch.from_numpy(w)).numpy() @ R_true[p])
+        t0.append(t_true[p] + (0 if p == 0 else
+                               0.02 * rng.randn(3).astype(np.float32)))
+    lm0 = lm + 0.05 * rng.randn(*lm.shape).astype(np.float32)
+    m = len(cam)
+    spike = rng.rand(m) < 0.4
+    off = rng.uniform(8.0, 60.0, (m, 2)).astype(np.float32) * \
+        np.sign(rng.randn(m, 2)).astype(np.float32)
+    uv = uv + np.where(spike[:, None], off, 0.0)
+    return dict(R=np.stack(R0).astype(np.float32),
+                t=np.stack(t0).astype(np.float32),
+                landmarks=lm0.astype(np.float32), cam_idx=cam, lm_idx=lmi,
+                uv=uv.astype(np.float32),
+                weight=np.ones(m, np.float32), fx=fx, fy=fy, cx=cx,
+                cy=cy), spike
+
+
+def solver_costs(out):
+    """The cost curve of a solver's output (the last tensor but the
+    gated BA's active mask)."""
+    return out[3] if len(out) == 5 else out[-1]
+
+
+def run_solver_at_scale(tag, name, solve, iterations, first_two,
+                        start) -> tuple:
+    """solve(device, iterations) on the card: one warm-up run, then host
+    seconds and host syncs per LM iteration, device launches per LM
+    iteration (profiler), and the first two LM iterations against the
+    CPU (first_two(device) runs them; start: the CPU tensors of the state
+    they begin from, in the order of the output).  Returns the card's
+    output."""
+    solve("cuda", iterations)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = solve("cuda", iterations)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    syncs = count_syncs(lambda: solve("cuda", iterations))
+    # the profiler's cost grows with its events: two LM iterations (the
+    # gated BA: one round of two)
+    profile_device(lambda: first_two("cuda"), 2, tag,
+                   f"{name}: its first two LM iterations", {})
+    two = [first_two(d) for d in ("cuda", "cpu")]
+    rel = rel_curve(solver_costs(two[0]), solver_costs(two[1]))
+    # the largest difference over the largest move of any state entry
+    # (the poses of these problems start at or near the truth and barely
+    # move, so each tensor's own move is no scale)
+    step = max(float((a.cpu() - b).abs().max())
+               for a, b, _ in zip(two[0], two[1], start)) / \
+        max(float((b - s).abs().max()) for b, s in zip(two[1], start))
+    print(f"[{tag}] {name}: {secs:.3f} s, {secs / iterations * 1e3:.2f} ms "
+          f"and {syncs / iterations:.1f} host syncs per LM iteration; first "
+          f"two LM iterations against the CPU: costs "
+          f"{solver_costs(two[0]).tolist()} and "
+          f"{solver_costs(two[1]).tolist()}, {rel:.3g} relative (tolerance "
+          f"{SLAM_CG_TOL}); states {step:.3g} of their largest move")
+    check(rel <= SLAM_CG_TOL,
+          f"{name}: the card's first LM iterations differ from the CPU's")
+    return out
+
+
+def run_slam_scale(tag) -> None:
+    """klt_tpu's SLAM scale tests (tests/test_slam.py, slow there and run
+    over an 8-device mesh) on one card, with known ground truth."""
+    f, lm_true = scale_ba_fields()
+    prob = {d: ba_problem_from_numpy(f, d) for d in ("cuda", "cpu")}
+    kw = dict(damping=1e-4, cg_iters=120)
+    out = run_solver_at_scale(
+        tag, "bundle_adjust_cg, 200 poses x 20,000 landmarks x 4 "
+        "observations, 8 iterations, cg_iters 120",
+        lambda d, its: bundle_adjust_cg(prob[d], iterations=its, **kw), 8,
+        lambda d: bundle_adjust_cg(prob[d], iterations=2, **kw),
+        (prob["cpu"].R, prob["cpu"].t, prob["cpu"].landmarks))
+    costs = out[3].cpu().numpy()
+    lm_err = float(np.abs(out[2].cpu().numpy() - lm_true).max())
+    print(f"[{tag}] bundle_adjust_cg: cost after the first and the last "
+          f"iteration {costs[0]:.6g} -> {costs[-1]:.6g} "
+          f"({costs[0] / costs[-1]:.3g}x), landmarks within {lm_err:.3g} of "
+          f"the truth")
+    check(costs[-1] < costs[0] * 1e-2 and lm_err < 2e-2,
+          "bundle_adjust_cg missed its scale contract")
+
+    f, t_true = scale_pose_graph_fields()
+    graph = {d: pose_graph_from_numpy(f, d) for d in ("cuda", "cpu")}
+    kw = dict(solver="cg", damping=1e-4, cg_iters=400)
+    out = run_solver_at_scale(
+        tag, "optimize_pose_graph(solver=\"cg\"), 800 keyframes, loop "
+        "closures every 50, 8 iterations, cg_iters 400",
+        lambda d, its: optimize_pose_graph(graph[d], iterations=its, **kw),
+        8, lambda d: optimize_pose_graph(graph[d], iterations=2, **kw),
+        (graph["cpu"].R, graph["cpu"].t))
+    costs = out[2].cpu().numpy()
+    t_err = float(np.abs(out[1].cpu().numpy() - t_true).max())
+    start = float(pose_graph._edge_cost(graph["cuda"].R, graph["cuda"].t,
+                                        graph["cuda"]))
+    print(f"[{tag}] optimize_pose_graph: cost {start:.6g} at the start, "
+          f"{costs[0]:.6g} -> {costs[-1]:.6g} after the first and the last "
+          f"iteration ({costs[0] / costs[-1]:.3g}x), t within {t_err:.3g} "
+          f"of the truth")
+    check(costs[-1] < costs[0] * 1e-2 and t_err < 3e-2,
+          "optimize_pose_graph missed its scale contract")
+
+    f, spike = spiked_ba_fields()
+    prob = {d: ba_problem_from_numpy(f, d) for d in ("cuda", "cpu")}
+    kw = dict(damping=1e-2, robust_delta=2.0, gate_px=3.0)
+    out = run_solver_at_scale(
+        tag, "bundle_adjust_gated, 30 poses x 2,000 landmarks, 40% spiked, "
+        "3 rounds x 10 iterations",
+        lambda d, its: bundle_adjust_gated(prob[d], rounds=3,
+                                           iterations=its // 3, **kw), 30,
+        lambda d: bundle_adjust_gated(prob[d], rounds=1, iterations=2, **kw),
+        (prob["cpu"].R, prob["cpu"].t, prob["cpu"].landmarks))
+    R, t, lm, costs, active = out
+    rn = _residual_norms(R, t, lm, prob["cuda"]).cpu().numpy()
+    rms = float(np.sqrt(np.mean(rn[active] ** 2)))
+    print(f"[{tag}] bundle_adjust_gated: spikes active "
+          f"{active[spike].mean():.4f} (at most 0.05), clean observations "
+          f"active {active[~spike].mean():.4f} (at least 0.70), inlier RMS "
+          f"{rms:.4f} px (at most 1)")
+    check(active[spike].mean() <= 0.05 and active[~spike].mean() >= 0.70 and
+          rms <= 1.0, "bundle_adjust_gated missed its contract")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -3700,6 +4260,29 @@ def main() -> int:
                                                "26 device selection", card,
                                                times)
 
+    # path 11: selection and replacement through the prefilter (the cut
+    # made on the card from kernel D's response); run_prefilter counts
+    # its launches
+    with phase("35 prefilter"):
+        prefilter_launches = run_prefilter(traffic[:PREFILTER_FRAMES],
+                                           "35 prefilter")
+
+    # main path 12: the SLAM pipeline (klt_tpu's bench_slam_e2e) at the
+    # laptops width, front end on the kernels, back end in plain torch;
+    # run_slam counts and checks the front end's launches
+    with phase("36 inputs"):
+        laptops = np.concatenate([traffic, synthetic_frames(
+            SLAM_FRAMES, scale=2, start=len(traffic))])
+    with phase("36 slam pipeline"):
+        slam_launches = run_slam(laptops, 1000, "36 slam pipeline",
+                                 n_cpu=SLAM_CPU_FRAMES)
+        per_step["36 slam front end"] = {
+            k: round(n / (len(laptops) - 1), 3)
+            for k, n in slam_launches.items()}
+    del laptops
+    with phase("37 slam solvers at scale"):
+        run_slam_scale("37 slam solvers at scale")
+
     with phase("12 no sync"):
         phase_no_sync(traffic[:PRECOMP_FRAMES + 2], 500, cfg)
 
@@ -3769,7 +4352,8 @@ def main() -> int:
             + affine_launches[k.symbol] + select_launches[k.symbol]
             + step_launches[k.symbol] + b_step_launches[k.symbol]
             + b_affine_launches[k.symbol] + exact_launches[k.symbol]
-            + wide_launches[k.symbol],
+            + wide_launches[k.symbol] + prefilter_launches[k.symbol]
+            + slam_launches[k.symbol],
             "max_abs_err": max(errs[k.symbol]), **times[name],
             "library_ms": None,
             "launches_per_step": {path: counts[k.symbol]

@@ -1,8 +1,8 @@
 """Carrying state across from the JAX package without importing it.
 
-The tests hand the same configuration, pyramids and features to
-`klt_tpu` and to this port as plain dicts and numpy arrays, for one
-sequence or for a batch of B.  klt_tpu's exact tier keeps a pyramid as
+The tests hand the same configuration, pyramids, features and SLAM
+problems (bundle adjustment, pose graph) to `klt_tpu` and to this port as
+plain dicts and numpy arrays, for one sequence or for a batch of B.  klt_tpu's exact tier keeps a pyramid as
 three tuples (imgs, gxs, gys) of [H_l, W_l] maps; the port as its usual
 finest-first [3, H_l, W_l] stacks.
 """
@@ -16,6 +16,8 @@ import torch
 
 from .config import TrackingConfig
 from .ops.affine import AffineState
+from .slam.ba import BAProblem
+from .slam.pose_graph import PoseGraph
 
 # TrackingConfig fields that only steer klt_tpu's TPU kernels (re-anchor
 # rounds of the VMEM patch canvas) and have no counterpart here.
@@ -91,3 +93,48 @@ def affine_state_from_numpy(fields: dict, device="cpu") -> AffineState:
 def affine_state_to_numpy(state: AffineState) -> dict:
     """The ten fields of klt_tpu's `AffineState` as numpy arrays."""
     return {k: getattr(state, k).cpu().numpy() for k in _AFFINE_FIELDS}
+
+
+_BA_TENSORS = ("R", "t", "landmarks", "cam_idx", "lm_idx", "uv", "weight")
+_BA_CONSTS = ("fx", "fy", "cx", "cy")
+_PG_TENSORS = ("R", "t", "ei", "ej", "Rz", "tz", "weight")
+
+
+def _tensor_of(a, device):
+    a = np.array(a)
+    dtype = np.int32 if np.issubdtype(a.dtype, np.integer) else np.float32
+    return torch.from_numpy(a.astype(dtype)).to(device)
+
+
+def ba_problem_from_numpy(fields: dict, device="cpu") -> BAProblem:
+    """A BAProblem on `device` from numpy arrays (or jax
+    arrays) and floats named as the fields of klt_tpu's `BAProblem`
+    (`dataclasses.asdict` of one, or `vars`)."""
+    if set(fields) != set(_BA_TENSORS + _BA_CONSTS):
+        raise ValueError(f"expected the fields {_BA_TENSORS + _BA_CONSTS}, "
+                         f"got {sorted(fields)}")
+    return BAProblem(**{k: _tensor_of(fields[k], device)
+                        for k in _BA_TENSORS},
+                     **{k: float(fields[k]) for k in _BA_CONSTS})
+
+
+def ba_problem_to_numpy(prob: BAProblem) -> dict:
+    """The fields of a BAProblem as numpy arrays and floats, as klt_tpu's
+    `BAProblem(**fields)` takes them."""
+    return {k: getattr(prob, k).cpu().numpy() for k in _BA_TENSORS} | {
+        k: float(getattr(prob, k)) for k in _BA_CONSTS}
+
+
+def pose_graph_from_numpy(fields: dict, device="cpu") -> PoseGraph:
+    """A PoseGraph on `device` from the seven arrays of
+    klt_tpu's `PoseGraph`."""
+    if set(fields) != set(_PG_TENSORS):
+        raise ValueError(f"expected the fields {_PG_TENSORS}, got "
+                         f"{sorted(fields)}")
+    return PoseGraph(**{k: _tensor_of(fields[k], device)
+                        for k in _PG_TENSORS})
+
+
+def pose_graph_to_numpy(pg: PoseGraph) -> dict:
+    """The fields of a PoseGraph as numpy arrays."""
+    return {k: getattr(pg, k).cpu().numpy() for k in _PG_TENSORS}

@@ -1,5 +1,6 @@
-"""ctypes bindings for the native host runtime (sort + suppression) and
-for the scalar oracle of the bit-exact LK tier.
+"""ctypes bindings for the native host runtime (sort + suppression, the
+threaded PGM batch loader) and for the scalar oracle of the bit-exact LK
+tier.
 
 Compiles the port's own `kltnative.c`, beside this file (a byte-for-byte
 copy of the JAX package's native source, which the tests hold equal),
@@ -51,6 +52,11 @@ def _load() -> ctypes.CDLL:
             ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
             ctypes.c_int32, ctypes.c_int32]
         lib.klt_min_dist_suppress.restype = None
+        lib.klt_load_pgm_batch.argtypes = [
+            ctypes.POINTER(ctypes.c_char_p), ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_int64]
+        lib.klt_load_pgm_batch.restype = ctypes.c_int64
         _lib = lib
         return lib
 
@@ -94,6 +100,31 @@ def min_dist_suppress(pts: np.ndarray, fx: np.ndarray, fy: np.ndarray,
         ctypes.c_int32(ncols), ctypes.c_int32(nrows),
         ctypes.c_int32(max(mindist, 0)), ctypes.c_int32(min_eigenvalue),
         ctypes.c_int32(1 if overwrite_all else 0))
+
+
+def load_pgm_batch(paths, height: int, width: int,
+                   n_threads: int = 8) -> np.ndarray:
+    """Threaded batch load of binary PGM frames -> uint8 [n, h, w].
+
+    The native analogue of looping pgmReadFile (src/V1/pnmio.c:206-230),
+    parallelized across files for long sequences.  Every file must be
+    height x width; raises OSError naming the first file that fails."""
+    n = len(paths)
+    if height <= 0 or width <= 0:
+        raise ValueError("height and width must be positive")
+    out = np.empty((n, height, width), np.uint8)
+    if n == 0:
+        return out
+    names = [os.fsencode(p) for p in paths]
+    arr = (ctypes.c_char_p * n)(*names)
+    rc = _load().klt_load_pgm_batch(
+        arr, ctypes.c_int64(n),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        ctypes.c_int64(height), ctypes.c_int64(width),
+        ctypes.c_int64(n_threads))
+    if rc != 0:
+        raise OSError(f"failed to load PGM file: {paths[rc - 1]}")
+    return out
 
 
 def _load_ref() -> ctypes.CDLL:

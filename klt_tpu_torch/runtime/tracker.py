@@ -14,6 +14,11 @@ KLTReplaceLostFeatures, src/V1/klt.h:150-169), bound to one torch device:
     (int)-cast sort makes selection ulp-sensitive);
   - with KLT_TPU_EXACT_SELECT=0 (the switch klt_tpu reads): the corner
     response of the frame's gradients on the device;
+  with prefilter=True the candidates are first cut to the best few of
+  each (mindist x mindist) cell on the response's device
+  (ops/selection.py::candidate_points_topk), so that a response on the
+  card comes back as O(k * nCells) values instead of the whole map; the
+  full list is taken whenever the exactness audit cannot certify the cut;
 * tracking builds pyramids and runs the coarse-to-fine LK on the device;
   sequential mode keeps the previous frame's pyramids there between
   calls — the V3 lesson (src/V3/trackFeaturesGPU.cu:481-484): never
@@ -42,7 +47,8 @@ from ..device import default_device
 from ..features import FeatureList
 from ..ops.convolve import compute_gradients
 from ..ops.exact_select import selection_response_exact
-from ..ops.selection import candidate_points, corner_response
+from ..ops.selection import (candidate_points, candidate_points_topk,
+                             corner_response, selection_prefilter_audit)
 from ..ops.pyramid import build_pyramid_stacks
 from ..ops.lk import track_features_pyramid_stacks
 from ..ops.affine import AffineState, affine_consistency_step
@@ -73,11 +79,16 @@ class KLTracker:
     """Stateful tracker bound to one TrackingConfig and one device."""
 
     def __init__(self, cfg: TrackingConfig | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 prefilter: bool = False):
         """device None is the card ("cuda"), and raises without one; the
-        CPU is taken only when the caller names it (device="cpu")."""
+        CPU is taken only when the caller names it (device="cpu").
+        prefilter=True selects from the per-cell prefiltered candidate
+        list where the audit certifies it (klt_tpu's KLT_TPU_PREFILTER=1);
+        the selected features are the same either way."""
         self.cfg = cfg or TrackingConfig()
         self.device = default_device(device)
+        self.prefilter = prefilter
         self.sequential = self.cfg.sequential_mode
         self._pyr_last = None  # finest-first [3, H_l, W_l] stacks
         self._affine = None    # AffineState, made at the first track
@@ -113,23 +124,60 @@ class KLTracker:
             # level-0 gradients (src/V1/selectGoodFeatures.c:342-348)
             lvl0 = self._pyr_last[0]
             response = corner_response(lvl0[1], lvl0[2], cfg.window_width,
-                                       cfg.window_height).cpu().numpy()
+                                       cfg.window_height)
         elif _exact_select_enabled():
             response = selection_response_exact(img, cfg)
         else:
             response = self._device_response(img)
         newly = None if overwrite_all else (fl.val < 0)
-        pts = candidate_points(response, cfg, ncols, nrows)
-        native.sort_points_desc(pts)
-        native.min_dist_suppress(pts, fl.x, fl.y, fl.val, ncols, nrows,
-                                 cfg.mindist, cfg.min_eigenvalue,
-                                 overwrite_all)
+        if not self._suppress_prefiltered(response, fl, ncols, nrows,
+                                          overwrite_all):
+            if isinstance(response, torch.Tensor):
+                response = response.cpu().numpy()
+            pts = candidate_points(response, cfg, ncols, nrows)
+            native.sort_points_desc(pts)
+            native.min_dist_suppress(pts, fl.x, fl.y, fl.val, ncols, nrows,
+                                     cfg.mindist, cfg.min_eigenvalue,
+                                     overwrite_all)
         # reset the affine reference patches of (re)selected slots
         if cfg.affine_consistency_check >= 0 and self._affine is not None:
             reset = np.ones(fl.n_features, bool) if overwrite_all else newly
             self._affine.invalidate(np.nonzero(reset)[0])
 
-    def _device_response(self, img: np.ndarray) -> np.ndarray:
+    def _suppress_prefiltered(self, response, fl: FeatureList, ncols: int,
+                              nrows: int, overwrite_all: bool) -> bool:
+        """Sort and suppression on the prefiltered candidate list; True
+        when the exactness audit certifies that it selected what the full
+        list would.  Otherwise (and without prefilter, or with mindist
+        under 2) returns False with the feature list as it was, and the
+        caller takes the full list.  Reference contract:
+        src/V1/selectGoodFeatures.c:135-239."""
+        cfg = self.cfg
+        if not self.prefilter or cfg.mindist < 2:
+            return False
+        pts, dropped_cells = candidate_points_topk(response, cfg, ncols,
+                                                   nrows)
+        save = (fl.x.copy(), fl.y.copy(), fl.val.copy())
+        native.sort_points_desc(pts)
+        native.min_dist_suppress(pts, fl.x, fl.y, fl.val, ncols, nrows,
+                                 cfg.mindist, cfg.min_eigenvalue,
+                                 overwrite_all)
+        target = np.ones(fl.n_features, bool) if overwrite_all \
+            else (save[2] < 0)
+        added = target & (fl.val >= 0)  # every target slot now filled
+        n_unfilled = int((target & (fl.val < 0)).sum())
+        exist = np.zeros(fl.n_features, bool) if overwrite_all \
+            else (save[2] >= 0)
+        ok = selection_prefilter_audit(
+            pts, dropped_cells, fl.val[added],
+            fl.x[added].astype(np.int32), fl.y[added].astype(np.int32),
+            save[0][exist].astype(np.int32), save[1][exist].astype(np.int32),
+            n_unfilled, cfg)
+        if not ok:
+            fl.x[:], fl.y[:], fl.val[:] = save
+        return ok
+
+    def _device_response(self, img: np.ndarray) -> torch.Tensor:
         """The selection response computed on the tracker's device: the
         smoothed frame's gradients (kernel A's level 0 with one pyramid
         level: the smoothing and gradient chain of _KLTSelectGoodFeatures,
@@ -142,8 +190,7 @@ class KLTracker:
         else:
             gx, gy = compute_gradients(frame.to(torch.float32),
                                        cfg.grad_sigma)
-        return corner_response(gx, gy, cfg.window_width,
-                               cfg.window_height).cpu().numpy()
+        return corner_response(gx, gy, cfg.window_width, cfg.window_height)
 
     def _upload(self, img: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(img)).to(self.device)

@@ -1,0 +1,471 @@
+"""Sparse bundle adjustment via the Schur complement, on one device.
+
+Counterpart of klt_tpu/slam/ba.py.  The normal equations have the arrow
+structure
+
+    [ U   W ] [dx_pose]   [ b_p ]
+    [ W^T V ] [dx_lm  ] = [ b_l ]
+
+with U block-diagonal over poses (6x6), V block-diagonal over landmarks
+(3x3).  The pose update solves the Schur complement S = U - W V^-1 W^T;
+landmarks back-substitute.  Per-observation residuals and Jacobians come
+from `torch.func.jacfwd` under `torch.func.vmap`; U, V, b and the dense W
+are summed per segment in a fixed order (slam/solvers.py), so two runs on
+the card give the same bits.  The LM loops keep their accept flags,
+damping and cost curves on the device: an LM iteration asks the host
+nothing on the dense path, and on the CG path only for CG's stop rule
+(slam/solvers.py::pcg).
+
+The dense step takes a batch of B independent problems of one shape
+(the keyframe pair solves of slam/frontend.py); the public entry points
+solve one problem (B = 1).  klt_tpu shards the observation axis over a
+device mesh; a `mesh` argument here raises (multi-device is not
+ported).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+from torch.func import jacfwd, vmap
+
+from ..parallel.batch import _refuse_mesh
+from ..utils.linalg import gj_solve_spd, inv3
+from .geometry import project, se3_apply, se3_exp
+from .solvers import Segments, pcg
+
+
+@dataclasses.dataclass
+class BAProblem:
+    """Dense-indexed bundle adjustment problem, all tensors on one device.
+
+    R: [P, 3, 3] f32; t: [P, 3] f32 — camera-from-world poses.
+    landmarks: [L, 3] f32 world points.
+    cam_idx, lm_idx: [M] int; uv: [M, 2] f32; weight: [M] f32
+    (0 disables an observation — used for padding).
+    fx, fy, cx, cy: floats.
+    """
+
+    R: torch.Tensor
+    t: torch.Tensor
+    landmarks: torch.Tensor
+    cam_idx: torch.Tensor
+    lm_idx: torch.Tensor
+    uv: torch.Tensor
+    weight: torch.Tensor
+    fx: float
+    fy: float
+    cx: float
+    cy: float
+
+    def pad_observations(self, multiple: int) -> "BAProblem":
+        """Zero-weight observations of (pose 0, landmark 0) up to a
+        multiple of `multiple` (the shard size of a mesh)."""
+        m = self.cam_idx.shape[0]
+        pad = (-m) % multiple
+        if pad == 0:
+            return self
+        z = lambda a, v: torch.cat(
+            [a, torch.full((pad,) + tuple(a.shape[1:]), v, dtype=a.dtype,
+                           device=a.device)])
+        return dataclasses.replace(
+            self, cam_idx=z(self.cam_idx, 0), lm_idx=z(self.lm_idx, 0),
+            uv=z(self.uv, 0.0), weight=z(self.weight, 0.0))
+
+    @property
+    def consts(self):
+        return self.fx, self.fy, self.cx, self.cy
+
+
+class _Plan:
+    """Flat observation indices of B problems of P poses and L landmarks
+    (cam_idx, lm_idx [B, M] local to each problem) and their segment
+    layouts, built once per solve.  `drop` [B, M] marks rows left out of
+    every sum (padding known to carry weight 0)."""
+
+    def __init__(self, cam_idx, lm_idx, n_pose: int, n_lm: int,
+                 joint: bool, drop=None):
+        cam = cam_idx.reshape(-1, cam_idx.shape[-1]).long()
+        lm = lm_idx.reshape(cam.shape).long()
+        b, m = cam.shape
+        off = torch.arange(b, device=cam.device)[:, None]
+        self.B, self.M, self.P, self.L = b, m, n_pose, n_lm
+        self.cam = (cam + off * n_pose).reshape(-1)
+        self.lm = (lm + off * n_lm).reshape(-1)
+        joint_id = self.lm * n_pose + cam.reshape(-1)
+        if drop is not None:
+            gone = drop.reshape(-1)
+            neg = torch.full_like(self.cam, -1)
+            seg = lambda a: torch.where(gone, neg, a)
+        else:
+            seg = lambda a: a
+        self.seg_cam = Segments(seg(self.cam), b * n_pose)
+        self.seg_lm = Segments(seg(self.lm), b * n_lm)
+        self.seg_joint = Segments(seg(joint_id), b * n_lm * n_pose) \
+            if joint else None
+
+
+def _residual_one(xi, dlm, R, t, lm, uv, fx, fy, cx, cy):
+    """Reprojection residual of one observation at local updates
+    (xi, dlm)."""
+    dR, dt = se3_exp(xi[None])
+    p = se3_apply(R, t, lm + dlm)
+    p = se3_apply(dR[0], dt[0], p)
+    return project(p, fx, fy, cx, cy) - uv
+
+
+def _gather(R, t, lm, plan: _Plan):
+    return (R.reshape(-1, 3, 3)[plan.cam], t.reshape(-1, 3)[plan.cam],
+            lm.reshape(-1, 3)[plan.lm])
+
+
+def _obs_blocks(R, t, lm, plan: _Plan, uv, weight, consts):
+    """Per-observation weighted residuals [BM, 2] and Jacobians
+    [BM, 2, 6], [BM, 2, 3], by jacfwd under vmap."""
+    Ro, to, lmo = _gather(R, t, lm, plan)
+    z6 = torch.zeros(6, dtype=R.dtype, device=R.device)
+    z3 = torch.zeros(3, dtype=R.dtype, device=R.device)
+
+    def one(Ri, ti, lmi, uvi):
+        def f(xi, dl):
+            r = _residual_one(xi, dl, Ri, ti, lmi, uvi, *consts)
+            return r, r
+
+        (jp, jl), r = jacfwd(f, argnums=(0, 1), has_aux=True)(z6, z3)
+        return r, jp, jl
+
+    r, jp, jl = vmap(one)(Ro, to, lmo, uv)
+    w = weight[:, None, None]
+    return r * weight[:, None], jp * w, jl * w
+
+
+def _residuals(R, t, lm, plan: _Plan, uv, consts):
+    """Unweighted residuals [BM, 2] (no Jacobians)."""
+    Ro, to, lmo = _gather(R, t, lm, plan)
+    return project(se3_apply(Ro, to, lmo), *consts) - uv
+
+
+def _costs(R, t, lm, plan: _Plan, uv, weight, consts) -> torch.Tensor:
+    """[B] sums of squared weighted residuals."""
+    r = _residuals(R, t, lm, plan, uv, consts) * weight[:, None]
+    return torch.sum((r * r).reshape(plan.B, -1), dim=1)
+
+
+def _residual_norms_flat(R, t, lm, plan: _Plan, uv, consts):
+    r = _residuals(R, t, lm, plan, uv, consts)
+    return torch.sqrt(torch.sum(r * r, dim=-1))
+
+
+def _huber(norms, delta: float):
+    """sqrt of the Huber weight: enters r and J, so the normal equations
+    carry the weight itself."""
+    d = norms.new_full((), delta)
+    return torch.where(norms <= d, torch.ones_like(norms),
+                       torch.sqrt(d / torch.maximum(norms, d)))
+
+
+def _tr(a):
+    return a.transpose(-1, -2)
+
+
+def _mv(A, v):
+    return (A @ v[..., None])[..., 0]
+
+
+def _pose_sums(plan, r, jp):
+    """U [BP, 6, 6] and b_p [BP, 6]."""
+    s = plan.seg_cam.sum(torch.cat([(_tr(jp) @ jp).reshape(-1, 36),
+                                    -_mv(_tr(jp), r)], 1))
+    return s[:, :36].reshape(-1, 6, 6), s[:, 36:]
+
+
+def _landmark_sums(plan, r, jl):
+    """V [BL, 3, 3] and b_l [BL, 3]."""
+    s = plan.seg_lm.sum(torch.cat([(_tr(jl) @ jl).reshape(-1, 9),
+                                   -_mv(_tr(jl), r)], 1))
+    return s[:, :9].reshape(-1, 3, 3), s[:, 9:]
+
+
+def _damp(A, lam):
+    """Marquardt scaling: damp in proportion to each block's diagonal
+    (the mixed rad/px/unit scales), plus a small absolute floor for
+    unobserved parameters.  lam: 0-dim, or one per problem [B] with A
+    [B, K, n, n]."""
+    n = A.shape[-1]
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    lamv = lam.reshape((-1,) + (1,) * (A.dim() - 1)) if lam.dim() else lam
+    return (A + lamv * (torch.diagonal(A, dim1=-2, dim2=-1)[..., None] * eye)
+            + 1e-6 * eye)
+
+
+def _apply(dx_pose, R, t):
+    dR, dt = se3_exp(dx_pose)
+    return dR @ R, _mv(dR, t) + dt
+
+
+def _gn_step(R, t, lm, plan: _Plan, uv, weight, consts, lam, fix_first):
+    """One damped Schur Gauss-Newton step with W and S dense, for B
+    problems at once: R [B, P, 3, 3], t [B, P, 3], lm [B, L, 3]; lam 0-dim
+    or [B].  Returns (R, t, lm, cost [B])."""
+    b_, P, L = plan.B, plan.P, plan.L
+    r, jp, jl = _obs_blocks(R, t, lm, plan, uv, weight, consts)
+    U, bp = _pose_sums(plan, r, jp)
+    V, bl = _landmark_sums(plan, r, jl)
+    W = plan.seg_joint.sum((_tr(jp) @ jl).reshape(-1, 18))
+    W = W.reshape(b_, L, P, 6, 3).transpose(1, 2)          # [B, P, L, 6, 3]
+    cost = torch.sum((r * r).reshape(b_, -1), dim=1)
+    U = _damp(U.reshape(b_, P, 6, 6), lam)
+    V = _damp(V.reshape(b_, L, 3, 3), lam)
+    bp, bl = bp.reshape(b_, P, 6), bl.reshape(b_, L, 3)
+
+    Vinv = inv3(V)                                          # [B, L, 3, 3]
+    WVinv = W @ Vinv[:, None]                               # [B, P, L, 6, 3]
+    S = -torch.einsum("bplik,bqlmk->bpiqm", WVinv, W)       # -W V^-1 W^T
+    eye_p = torch.eye(P, dtype=S.dtype, device=S.device)
+    S = (S + torch.einsum("pq,bpim->bpiqm", eye_p, U)).reshape(
+        b_, P * 6, P * 6)
+    rhs = bp - torch.einsum("bplik,blk->bpi", WVinv, bl)
+    if fix_first:
+        # gauge fix: clamp pose 0 by zeroing its rows/cols + identity
+        mask = torch.ones(P * 6, dtype=S.dtype, device=S.device)
+        mask[:6] = 0.0
+        S = S * mask[:, None] * mask[None, :] + torch.diag(1.0 - mask)
+        rhs = rhs * mask.reshape(P, 6)
+    # Jacobi preconditioning: the raw Schur system spans ~8 orders of
+    # magnitude in f32 (fx^2-scaled rotation blocks vs unit translation
+    # blocks); scaling by sqrt(diag) keeps the f32 solve accurate.
+    d = torch.sqrt(torch.clamp(torch.diagonal(S, dim1=-2, dim2=-1),
+                               min=1e-12))
+    Sp = S / d[..., :, None] / d[..., None, :]
+    sol = torch.linalg.solve_ex(Sp, rhs.reshape(b_, -1) / d)[0]
+    dx_pose = (sol / d).reshape(b_, P, 6)
+    dx_lm = _mv(Vinv, bl - torch.einsum("bplik,bpi->blk", W, dx_pose))
+    R_new, t_new = _apply(dx_pose, R, t)
+    return R_new, t_new, lm + dx_lm, cost
+
+
+def _gn_step_cg(R, t, lm, plan: _Plan, uv, weight, consts, lam, fix_first,
+                cg_iters: int, cg_tol: float):
+    """Matrix-free Schur Gauss-Newton step for one large problem (B = 1).
+
+    Never builds W (the [P, L, 6, 3] pose-landmark coupling) or the dense
+    Schur matrix: S·x products stream through the per-observation
+    Jacobians with two segment sums, so memory is O(M + P + L).  The pose
+    system solves with preconditioned CG (block-Jacobi on the damped U
+    blocks); landmarks back-substitute per landmark."""
+    if plan.B != 1:
+        raise ValueError("the CG step solves one problem")
+    P = plan.P
+    cam, lmi = plan.cam, plan.lm
+    r, jp, jl = _obs_blocks(R, t, lm, plan, uv, weight, consts)
+    U, bp = _pose_sums(plan, r, jp)
+    V, bl = _landmark_sums(plan, r, jl)
+    cost = torch.sum(r * r)[None]
+    U, V = _damp(U, lam), _damp(V, lam)
+    Vinv = inv3(V)
+    mask = torch.ones((P, 6), dtype=torch.float32, device=R.device)
+    if fix_first:
+        mask[0] = 0.0
+
+    def w_times(wl):       # W w for w [L, 3]
+        return plan.seg_cam.sum(_mv(_tr(jp), _mv(jl, wl[lmi])))
+
+    def wt_times(v):       # W^T v for v [P, 6]
+        return plan.seg_lm.sum(_mv(_tr(jl), _mv(jp, v[cam])))
+
+    rhs = (bp - w_times(_mv(Vinv, bl))) * mask
+    eye6 = torch.eye(6, dtype=U.dtype, device=U.device).expand(U.shape)
+    Uinv, _ = gj_solve_spd(U, eye6)  # block-Jacobi preconditioner
+
+    def precond(v):
+        return _mv(Uinv, v) * mask
+
+    def s_matvec(v):
+        v = v * mask
+        out = (_mv(U, v) - w_times(_mv(Vinv, wt_times(v)))) * mask
+        # identity on the gauge-fixed block keeps S definite
+        return out + v * (1.0 - mask) if fix_first else out
+
+    dx_pose = pcg(s_matvec, precond, rhs, cg_iters, cg_tol)
+    # landmark back-substitution: dl = V^-1 (bl - W^T dx)
+    dx_lm = _mv(Vinv, bl - wt_times(dx_pose))
+    R_new, t_new = _apply(dx_pose[None], R, t)
+    return R_new, t_new, lm + dx_lm[None], cost
+
+
+def _total_cost(R, t, landmarks, prob: BAProblem) -> torch.Tensor:
+    """Sum of squared weighted residuals of one problem (0-dim)."""
+    plan = _Plan(prob.cam_idx, prob.lm_idx, R.shape[0],
+                 landmarks.shape[0], joint=False)
+    return _costs(R[None], t[None], landmarks[None], plan, prob.uv,
+                  prob.weight, prob.consts)[0]
+
+
+def _residual_norms(R, t, landmarks, prob: BAProblem) -> torch.Tensor:
+    """Per-observation UNWEIGHTED residual norms [M] (for IRLS and the
+    gate)."""
+    plan = _Plan(prob.cam_idx, prob.lm_idx, R.shape[0],
+                 landmarks.shape[0], joint=False)
+    return _residual_norms_flat(R[None], t[None], landmarks[None], plan,
+                                prob.uv, prob.consts)
+
+
+def _lm_drive(prob: BAProblem, plan: _Plan, iterations: int,
+              damping: float, gn_step, robust_delta=None):
+    """Levenberg-Marquardt with masked accept: ok, lam and the cost
+    curve stay on the device."""
+    consts = prob.consts
+    R, t, lm = prob.R[None], prob.t[None], prob.landmarks[None]
+    lam = torch.full((), damping, dtype=torch.float32, device=R.device)
+    costs = []
+    for _ in range(iterations):
+        w = prob.weight
+        if robust_delta is not None:
+            # Huber IRLS on the current estimate
+            w = w * _huber(_residual_norms_flat(R, t, lm, plan, prob.uv,
+                                                consts), robust_delta)
+        c_cur = _costs(R, t, lm, plan, prob.uv, w, consts)
+        Rn, tn, lmn, _ = gn_step(R, t, lm, plan, prob.uv, w, consts, lam)
+        c_new = _costs(Rn, tn, lmn, plan, prob.uv, w, consts)
+        ok = (c_new < c_cur)[0]
+        R = torch.where(ok, Rn, R)
+        t = torch.where(ok, tn, t)
+        lm = torch.where(ok, lmn, lm)
+        lam = torch.where(ok, torch.clamp(lam * 0.5, min=1e-6), lam * 4.0)
+        costs.append(torch.where(ok, c_new, c_cur)[0])
+    costs = torch.stack(costs) if costs else R.new_zeros(0)
+    return R[0], t[0], lm[0], costs
+
+
+def _plan_of(prob: BAProblem, joint: bool) -> _Plan:
+    return _Plan(prob.cam_idx, prob.lm_idx, prob.R.shape[0],
+                 prob.landmarks.shape[0], joint)
+
+
+def bundle_adjust(prob: BAProblem, mesh=None, iterations: int = 10,
+                  damping: float = 10.0, fix_first: bool = True,
+                  robust_delta: float | None = None):
+    """Levenberg-Marquardt with adaptive damping and the dense Schur
+    step.
+
+    Each iteration computes one damped Schur step; the step is accepted
+    only if it lowers the total cost (otherwise the damping is raised and
+    the step retried on the next iteration — classic LM, a fixed number of
+    iterations with masked accept).
+
+    robust_delta (px): Huber IRLS — observations with residual norm n
+    beyond delta are down-weighted by delta/n each iteration.  None =
+    plain least squares.
+
+    Returns (R, t, landmarks, costs [iterations]) on the problem's device
+    — costs are the accepted (weighted) cost after each iteration."""
+    _refuse_mesh(mesh)
+    return _lm_drive(prob, _plan_of(prob, joint=True), iterations, damping,
+                     lambda R, t, lm, plan, uv, w, consts, lam: _gn_step(
+                         R, t, lm, plan, uv, w, consts, lam, fix_first),
+                     robust_delta)
+
+
+def _bundle_adjust_cg(prob: BAProblem, plan: _Plan, iterations, damping,
+                      fix_first, cg_iters, cg_tol, robust_delta):
+    return _lm_drive(prob, plan, iterations, damping,
+                     lambda R, t, lm, plan, uv, w, consts, lam: _gn_step_cg(
+                         R, t, lm, plan, uv, w, consts, lam, fix_first,
+                         cg_iters, cg_tol),
+                     robust_delta)
+
+
+def bundle_adjust_cg(prob: BAProblem, mesh=None, iterations: int = 10,
+                     damping: float = 10.0, fix_first: bool = True,
+                     cg_iters: int = 250, cg_tol: float = 1e-5,
+                     robust_delta: float | None = None):
+    """Levenberg-Marquardt with the matrix-free Schur/CG inner solver
+    (_gn_step_cg) — the path for hundreds of keyframes and tens of
+    thousands of landmarks.  Same accept/reject semantics as
+    `bundle_adjust` (incl. the Huber IRLS option); prefer it whenever
+    n_pose * n_lm is too large to build W densely."""
+    _refuse_mesh(mesh)
+    return _bundle_adjust_cg(prob, _plan_of(prob, joint=False), iterations,
+                             damping, fix_first, cg_iters, cg_tol,
+                             robust_delta)
+
+
+def _refit_landmarks(R, t, lm, prob: BAProblem, iters: int = 3,
+                     robust_delta: float = 2.0, plan: _Plan | None = None):
+    """Robust landmark-only refinement with poses FIXED: per-landmark
+    damped GN on its own observations, parallel over landmarks.
+
+    Rescues landmarks the gating loop would otherwise freeze dead: a
+    landmark whose support fell below the gate keeps a stale 3D position,
+    so its clean observations never pass the gate again.  With poses
+    near-correct, a Huber refit pulls each landmark to the consistent
+    majority of its observations."""
+    plan = plan or _plan_of(prob, joint=False)
+    R, t, lm = R[None], t[None], lm[None]
+    eye3 = torch.eye(3, dtype=torch.float32, device=R.device)
+    for _ in range(iters):
+        hub = _huber(_residual_norms_flat(R, t, lm, plan, prob.uv,
+                                          prob.consts), robust_delta)
+        r, _, jl = _obs_blocks(R, t, lm, plan, prob.uv, prob.weight * hub,
+                               prob.consts)
+        V, bl = _landmark_sums(plan, r, jl)
+        dlm = _mv(inv3(V + 1e-4 * eye3), bl)
+        lm = lm + dlm[None]
+    return lm[0]
+
+
+def bundle_adjust_gated(prob: BAProblem, mesh=None, rounds: int = 3,
+                        iterations: int = 20, damping: float = 10.0,
+                        fix_first: bool = True, cg_iters: int = 250,
+                        cg_tol: float = 1e-5, robust_delta: float = 2.0,
+                        gate_px: float = 2.0, min_obs_per_lm: int = 2):
+    """Geometrically gated BA: robust LM rounds (bundle_adjust_cg)
+    alternated with reprojection-threshold track pruning — the classic
+    SLAM inlier gating loop.
+
+    After each round the active set is RE-EVALUATED from the current
+    solution: observations whose UNWEIGHTED residual norm exceeds the
+    gate sit out the next round (weight 0), and landmarks left with fewer
+    than `min_obs_per_lm` live observations are dropped entirely.  The
+    gate is annealed: gate_px * 2^(rounds - 2 - round), wide early (the
+    first solution is still outlier-pulled), gate_px for the final round.
+    The per-round gating runs on the host (numpy), as in klt_tpu.
+
+    Returns (R, t, landmarks, costs [rounds*iterations] on the problem's
+    device, active [M] numpy bool — the observations the final solution
+    is supported by)."""
+    _refuse_mesh(mesh)
+    plan = _plan_of(prob, joint=False)
+    R, t, lm = prob.R, prob.t, prob.landmarks
+    weight = prob.weight.cpu().numpy()
+    active = weight > 0
+    fed = weight > 0  # caller's hard zero-weights
+    lm_idx = prob.lm_idx.cpu().numpy()
+    n_lm = int(prob.landmarks.shape[0])
+    base_w = prob.weight
+    costs_all = []
+    for rd in range(rounds):
+        act_t = torch.from_numpy(active).to(base_w.device)
+        pw = dataclasses.replace(
+            prob, R=R, t=t, landmarks=lm,
+            weight=torch.where(act_t, base_w, torch.zeros_like(base_w)))
+        R, t, lm, costs = _bundle_adjust_cg(
+            pw, plan, iterations, damping, fix_first, cg_iters, cg_tol,
+            robust_delta)
+        costs_all.append(costs)
+        if rd < rounds - 1:
+            # rescue frozen landmarks before re-evaluating the gate
+            lm = _refit_landmarks(R, t, lm, prob, 3, robust_delta, plan)
+            rn = _residual_norms_flat(R[None], t[None], lm[None], plan,
+                                      prob.uv, prob.consts).cpu().numpy()
+            gate = gate_px * (2.0 ** (rounds - 2 - rd))
+            act = fed & (rn <= gate)
+            cnt = np.zeros(n_lm, np.int32)
+            np.add.at(cnt, lm_idx, act.astype(np.int32))
+            act &= cnt[lm_idx] >= min_obs_per_lm
+            if act.sum() < 6:  # never gate into a degenerate problem
+                break
+            active = act
+    return R, t, lm, torch.cat(costs_all), active

@@ -1264,3 +1264,161 @@ def test_exact_wrappers_refuse_cpu_tensors(dev):
     with pytest.raises(ValueError, match="tie must be"):
         replace_lost_tie_cuda_(st[0][1], x.to(dev), x.to(dev), val.to(dev),
                                cfg, tie.cpu())
+
+
+# ------------------------------------------------------------------ #
+# the selection prefilter and the SLAM back end (plain torch on both    #
+# sides: the card's results against the CPU's)                          #
+# ------------------------------------------------------------------ #
+
+def test_prefilter_on_card_equals_cpu(dev):
+    """cell_topk of a response on the card is the CPU's to the bit, and
+    KLTracker(prefilter=True) on the card (the cut made from the card's
+    response) selects and replaces what the CPU tracker and the full list
+    do."""
+    from klt_tpu_torch.ops.selection import cell_topk
+    frames = replace_frames(6)
+    cfg = kt.TrackingConfig(sequential_mode=True)
+    st = build_pyramid_stacks_plain(torch.from_numpy(frames[1]), cfg)
+    resp = corner_response_plain(st[0][1], st[0][2], 7, 7)
+    for cell, k, step in ((10, 4, 1), (7, 1, 1), (3, 8, 2)):
+        card = cell_topk(resp.to(dev), cell, k, 24, 24, step)
+        cpu = cell_topk(resp, cell, k, 24, 24, step)
+        for a, b in zip(card, cpu):
+            assert torch.equal(a.cpu(), b)
+    out = []
+    for device, pre in ((dev, True), ("cpu", True), (dev, False)):
+        tr = kt.KLTracker(cfg, device, prefilter=pre)
+        fl = kt.FeatureList.create(150)
+        tr.select_good_features(frames[0], fl)
+        for i in range(1, 6):
+            tr.track_features(frames[i - 1], frames[i], fl)
+            tr.replace_lost_features(frames[i], fl)
+        out.append(fl)
+    for fl in out[1:]:
+        for f in ("x", "y", "val"):
+            np.testing.assert_array_equal(getattr(out[0], f), getattr(fl, f))
+
+
+def slam_problem(seed, n_pose=6, n_lm=200, noise=0.3):
+    """A BA problem (every landmark seen by every pose, 0.3 px of noise,
+    poses and landmarks perturbed) as numpy fields."""
+    from klt_tpu_torch.slam.geometry import project, so3_exp
+    rng = np.random.RandomState(seed)
+    lm = rng.uniform([-2, -2, 4], [2, 2, 8], (n_lm, 3)).astype(np.float32)
+    w = rng.randn(n_pose, 3).astype(np.float32) * 0.02
+    R = so3_exp(torch.from_numpy(w)).numpy()
+    t = np.stack([[0.1 * p, 0, 0] for p in range(n_pose)]).astype(np.float32)
+    cam = np.repeat(np.arange(n_pose, dtype=np.int32), n_lm)
+    lmi = np.tile(np.arange(n_lm, dtype=np.int32), n_pose)
+    pc = np.einsum("mij,mj->mi", R[cam], lm[lmi]) + t[cam]
+    uv = project(torch.from_numpy(pc.astype(np.float32)), 300.0, 300.0,
+                 160.0, 120.0).numpy()
+    uv = (uv + noise * rng.randn(*uv.shape)).astype(np.float32)
+    t0 = t + 0.02 * rng.randn(n_pose, 3).astype(np.float32)
+    t0[0] = t[0]
+    return dict(R=R, t=t0.astype(np.float32),
+                landmarks=(lm + 0.05 * rng.randn(n_lm, 3)).astype(
+                    np.float32), cam_idx=cam, lm_idx=lmi, uv=uv,
+                weight=np.ones(len(cam), np.float32), fx=300.0, fy=300.0,
+                cx=160.0, cy=120.0)
+
+
+def slam_graph(seed, n=12):
+    from klt_tpu_torch.slam.geometry import so3_exp
+    rng = np.random.RandomState(seed)
+    R = so3_exp(torch.from_numpy(rng.randn(n, 3).astype(np.float32) *
+                                 0.1)).numpy()
+    t = rng.randn(n, 3).astype(np.float32)
+    ei = np.r_[np.arange(n - 1), 0, 3].astype(np.int32)
+    ej = np.r_[np.arange(1, n), n - 1, 9].astype(np.int32)
+    Rz = np.einsum("eij,ekj->eik", R[ei], R[ej])
+    tz = t[ei] - np.einsum("eij,ej->ei", Rz, t[ej]) + \
+        0.01 * rng.randn(len(ei), 3)
+    dR = so3_exp(torch.from_numpy(rng.randn(n, 3).astype(np.float32) *
+                                  0.05)).numpy()
+    R0 = np.einsum("pij,pjk->pik", dR, R)
+    R0[0] = R[0]
+    return dict(R=R0.astype(np.float32), t=t, ei=ei, ej=ej,
+                Rz=Rz.astype(np.float32), tz=tz.astype(np.float32),
+                weight=np.ones(len(ei), np.float32))
+
+
+def assert_steps_close(card, cpu, old, tol=1e-4):
+    """The card's new state within tol of the CPU's, relative to the
+    step's size (both plain torch; the matrix products and solves round
+    differently)."""
+    for a, b, o in zip(card, cpu, old):
+        a, b, o = a.cpu().numpy(), b.numpy(), o.numpy()
+        assert np.abs(a - b).max() <= tol * np.abs(b - o).max()
+
+
+def bits(out):
+    return [o.view(torch.int32) if o.dtype == torch.float32 else o
+            for o in out]
+
+
+@pytest.mark.parametrize("solver", ["dense", "cg"])
+def test_ba_step_on_card_equals_cpu_and_repeats(solver, dev):
+    from klt_tpu_torch.interop import ba_problem_from_numpy
+    from klt_tpu_torch.slam import ba
+    f = slam_problem(1)
+    res = []
+    for device in (dev, dev, "cpu"):
+        P = ba_problem_from_numpy(f, device)
+        plan = ba._plan_of(P, joint=solver == "dense")
+        lam = torch.tensor(10.0, device=device)
+        state = (P.R[None], P.t[None], P.landmarks[None])
+        if solver == "dense":
+            out = ba._gn_step(*state, plan, P.uv, P.weight, P.consts, lam,
+                              True)
+        else:
+            out = ba._gn_step_cg(*state, plan, P.uv, P.weight, P.consts,
+                                 lam, True, 250, 1e-5)
+        res.append([o.cpu() for o in out])
+    for a, b in zip(bits(res[0]), bits(res[1])):
+        assert torch.equal(a, b)  # two runs on the card: the same bits
+    P = ba_problem_from_numpy(f)
+    assert_steps_close(res[0][:3], res[2][:3],
+                       (P.R[None], P.t[None], P.landmarks[None]))
+
+
+@pytest.mark.parametrize("solver", ["dense", "cg"])
+def test_pose_graph_step_on_card_equals_cpu_and_repeats(solver, dev):
+    from klt_tpu_torch.interop import pose_graph_from_numpy
+    from klt_tpu_torch.slam import pose_graph
+    f = slam_graph(2)
+    res = []
+    for device in (dev, dev, "cpu"):
+        G = pose_graph_from_numpy(f, device)
+        plan = pose_graph._Plan(G, G.R.shape[0], dense=solver == "dense")
+        lam = torch.tensor(1e-3, device=device)
+        if solver == "dense":
+            out = pose_graph._gn_step(G.R, G.t, G, plan, lam, True)
+        else:
+            out = pose_graph._gn_step_cg(G.R, G.t, G, plan, lam, True, 200,
+                                         1e-6)
+        res.append([o.cpu() for o in out])
+    for a, b in zip(bits(res[0]), bits(res[1])):
+        assert torch.equal(a, b)
+    G = pose_graph_from_numpy(f)
+    assert_steps_close(res[0], res[2], (G.R, G.t))
+
+
+def test_pair_solve_on_card_equals_cpu_and_repeats(dev):
+    """The keyframe pair solve (the hand-batched two-pose LM of
+    slam/frontend.py) on the card: twice the same bits, and the CPU's
+    poses within 1e-5."""
+    from klt_tpu_torch.slam import frontend
+    f = slam_problem(3, n_pose=5, n_lm=120, noise=0.2)
+    lm_idx, cam, uv = f["lm_idx"], f["cam_idx"], f["uv"]
+    res = []
+    for device in (dev, dev, "cpu"):
+        pg = frontend.build_keyframe_pose_graph(lm_idx, cam, uv[:, 0],
+                                                uv[:, 1], 5, 300.0, 300.0,
+                                                160.0, 120.0, device=device)
+        res.append([pg.R.cpu(), pg.t.cpu(), pg.Rz.cpu(), pg.tz.cpu()])
+    for a, b in zip(bits(res[0]), bits(res[1])):
+        assert torch.equal(a, b)
+    for a, b in zip(res[0], res[2]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-5)

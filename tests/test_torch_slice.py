@@ -162,6 +162,28 @@ def test_port_runs_without_jax():
         "assert torch.equal(bx[:, 0], xs) and torch.equal(bv[:, 0], vs)\n"
         "kt.track_sequence_replace_exact(torch.from_numpy(fr),\n"
         "    *[torch.from_numpy(a) for a in (fl.x, fl.y, fl.val)], cfg)\n"
+        "fp = kt.FeatureList.create(20)\n"
+        "kt.KLTracker(cfg, device='cpu', prefilter=True)\\\n"
+        "    .select_good_features(fr[0], fp)\n"
+        "assert (fp.val == fl.val).all() or fp.count_remaining() > 10\n"
+        "from klt_tpu_torch import slam, interop\n"
+        "from klt_tpu_torch.slam import frontend, geometry, pose_graph\n"
+        "from klt_tpu_torch.io import dataset\n"
+        "from klt_tpu_torch.examples import slam_pipeline\n"
+        "rng = np.random.RandomState(0)\n"
+        "lm = rng.uniform([-2, -2, 4], [2, 2, 8], (30, 3)).astype('f4')\n"
+        "cam = np.repeat(np.arange(3, dtype='i4'), 30)\n"
+        "lmi = np.tile(np.arange(30, dtype='i4'), 3)\n"
+        "pc = lm[lmi] + np.array([[0.1, 0, 0]], 'f4') * cam[:, None]\n"
+        "uv = (300 * pc[:, :2] / pc[:, 2:] + 160).astype('f4')\n"
+        "R, t, c = frontend.keyframe_pose_graph_init(lmi, cam, uv[:, 0],\n"
+        "    uv[:, 1], 3, 300.0, 300.0, 160.0, 160.0, device='cpu')\n"
+        "prob = slam.BAProblem(torch.from_numpy(R), torch.from_numpy(t),\n"
+        "    torch.from_numpy(lm + 0.01), torch.from_numpy(cam),\n"
+        "    torch.from_numpy(lmi), torch.from_numpy(uv),\n"
+        "    torch.ones(90), 300.0, 300.0, 160.0, 160.0)\n"
+        "out = slam.bundle_adjust_gated(prob, rounds=2, iterations=3)\n"
+        "assert torch.isfinite(out[3]).all() and out[4].shape == (90,)\n"
         "assert not any(m == 'klt_tpu' or m.startswith(('klt_tpu.', 'jax.'))\n"
         "               for m in sys.modules)\n"
         "print('tracked', int((vs[-1] == 0).sum()))\n")
