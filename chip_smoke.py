@@ -57,6 +57,17 @@ paths:
   the host repairs); the same run with tier="fast"; and at 320x240 with
   a 121x121 window, which no tile of kernel H2 holds (its global-memory
   entry), over EXACT_WIDE_FRAMES frames;
+* the tooling: the debug checks (KLT_TPU_DEBUG unset: the launches and
+  host syncs of no checks; set: one warning for a feature planted outside
+  the frame), write_internal_images from kernel A's stacks, the profiler
+  wrapper's op_breakdown against profile_device, the track_sequence
+  example at 640x480 with 1000 features over 64 frames written as PGMs
+  (plain, --replace, --affine 2) against a KLTracker loop, and the graft
+  entry's pair step against the plain CPU step;
+* multi-device in a world of one rank on NCCL: make_batch_step and
+  track_batch over a mesh at the batched flagship's size, the bundle
+  adjustments and the CG pose graph at the scale tests' sizes, each
+  bit-equal to mesh=None, and dryrun_multichip(1);
 
 checks the tracks against the known motion of the synthetic frames and
 against the plain versions on the CPU, checks that the replacement loop
@@ -130,6 +141,7 @@ from klt_tpu_torch.runtime.pipeline import (PRECOMP_FRAMES, track_sequence,
                                             track_sequence_affine,
                                             track_sequence_replace,
                                             track_sequence_replace_exact)
+from klt_tpu_torch.utils import profiling
 from klt_tpu_torch.cuda.exact import (exact_response_cuda,
                                       exact_response_global_cuda,
                                       library_exact_tile_rows,
@@ -1660,7 +1672,7 @@ PYRAMID_KERNELS = ("pyramid_tiles", "hpass_global", "vpass_global")
 
 
 def profile_device(run, steps: int, tag: str, label: str, groups,
-                   expect=None, per_step=None) -> None:
+                   expect=None, per_step=None, host: bool = True):
     """torch.profiler over run() (after one warm-up run): device busy
     share of the wall time, and each group of kernels' share of device
     time; groups maps a name to the kernel-name substrings it covers,
@@ -1671,53 +1683,58 @@ def profile_device(run, steps: int, tag: str, label: str, groups,
     The profiler now and then drops the first device events of its
     window (none in a process's first seconds, a handful in one that has
     tracked for a minute or two, a marker kernel at the head of the window
-    among them; a pause at the window's edges does not help).  So the
-    window opens with a run that is not read, and the run that is
-    read lies between two marker kernels: only the device events between
-    them are counted, the events before the first marker are counted to
-    show the loss, and a profile without both markers is not read at all.
+    among them), and the last ones (the closing marker among them after
+    some 18,000 launches in the window).  So the window opens with a run
+    that is not read, and the run that is read lies between two marker
+    kernels, the second followed by a pause and launches that are not
+    read (profiling.close_window): only the device events between the
+    markers are counted, the events before the first marker are counted
+    to show the loss, and a profile without both markers is not read at
+    all.
     A profile that differs from the expected counts is taken once more,
-    and the second one must match."""
+    and the second one must match.  Returns the read profile's device us
+    and device launches per step ({"device_us", "launches"}), None when
+    the profiler recorded no device event.  host=False traces the device
+    alone (no CPU activity: a cheaper profile of tens of thousands of
+    launches)."""
     run()
     torch.cuda.synchronize()
     for attempt in (1, 2):
-        wrong = _profile_once(run, steps, tag, label, groups, expect,
-                              per_step)
+        wrong, read = _profile_once(run, steps, tag, label, groups, expect,
+                                    per_step, host)
         if not wrong:
-            return
+            return read
         print(f"[{tag}] {'; '.join(wrong)}"
               f"{': profiling once more' if attempt == 1 else ''}")
     check(False, "; ".join(wrong))
 
 
-def _profile_once(run, steps, tag, label, groups, expect, per_step) -> list:
+def _profile_once(run, steps, tag, label, groups, expect, per_step,
+                  host=True):
     """One profiled run of profile_device, printed; returns what differs
-    from the expected launch counts, a list of messages."""
+    from the expected launch counts, a list of messages, and the device
+    us and launches per step read."""
     from torch.profiler import ProfilerActivity, profile
 
-    def marker():
-        torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * host +
+                 [ProfilerActivity.CUDA]) as prof:
         run()   # not read: the window's first device events may be lost
-        marker()
+        profiling.marker()
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        marker()
+        profiling.close_window()
     events = sorted((ev for ev in prof.events()
                      if "CUDA" in str(ev.device_type)),
                     key=lambda ev: ev.time_range.start)
     if not events:
         print(f"[{tag}] the profiler recorded no device event: device "
               "busy share not measured")
-        return []
+        return [], None
     marks = [i for i, ev in enumerate(events) if "spin_kernel" in ev.name]
     if len(marks) != 2:
-        return [f"{len(marks)} of the 2 marker kernels in the profile"]
+        return [f"{len(marks)} of the 2 marker kernels in the profile"], None
     dev_us, dev_n = {}, {}
     for ev in events[marks[0] + 1:marks[1]]:
         dev_us[ev.name] = dev_us.get(ev.name, 0.0) + \
@@ -1740,8 +1757,9 @@ def _profile_once(run, steps, tag, label, groups, expect, per_step) -> list:
                          f"{want}")
     print(f"[{tag}] the same run at the head of the profiler's window, not "
           f"read: {marks[0]} of {marks[1] - marks[0] - 1} device events "
-          f"recorded, {time.perf_counter() - PROCESS_START:.0f} s into the "
-          f"process")
+          f"recorded; after the closing marker {len(events) - marks[1] - 1} "
+          f"of {profiling.TAIL_LAUNCHES} launches, not read; "
+          f"{time.perf_counter() - PROCESS_START:.0f} s into the process")
     print(f"[{tag}] {label}, {steps} steps (profiler on): wall "
           f"{wall * 1e6 / steps:.1f} us per step, device busy "
           f"{total / (wall * 1e6):.3f} of the wall time "
@@ -1758,7 +1776,8 @@ def _profile_once(run, steps, tag, label, groups, expect, per_step) -> list:
             abs(sum(dev_n.values()) / steps - per_step) > 0.1:
         wrong.append(f"{sum(dev_n.values()) / steps:.2f} device launches "
                      f"per step, expected {per_step}")
-    return wrong
+    return wrong, {"device_us": total / steps,
+                   "launches": sum(dev_n.values()) / steps}
 
 
 def phase_profile(frames, n_feats, cfg) -> None:
@@ -3944,6 +3963,11 @@ def solver_costs(out):
     return out[3] if len(out) == 5 else out[-1]
 
 
+# phase 37's wall ms and device us per LM iteration, by solver (phase 39
+# prints them beside its mesh runs)
+SCALE_TIMES = {}
+
+
 def run_solver_at_scale(tag, name, solve, iterations, first_two,
                         start) -> tuple:
     """solve(device, iterations) on the card: one warm-up run, then host
@@ -3961,8 +3985,10 @@ def run_solver_at_scale(tag, name, solve, iterations, first_two,
     syncs = count_syncs(lambda: solve("cuda", iterations))
     # the profiler's cost grows with its events: two LM iterations (the
     # gated BA: one round of two)
-    profile_device(lambda: first_two("cuda"), 2, tag,
-                   f"{name}: its first two LM iterations", {})
+    read = profile_device(lambda: first_two("cuda"), 2, tag,
+                          f"{name}: its first two LM iterations", {})
+    SCALE_TIMES[name.split(",")[0]] = (
+        secs / iterations * 1e3, read and read["device_us"])
     two = [first_two(d) for d in ("cuda", "cpu")]
     rel = rel_curve(solver_costs(two[0]), solver_costs(two[1]))
     # the largest difference over the largest move of any state entry
@@ -4042,6 +4068,345 @@ def run_slam_scale(tag) -> None:
           f"{rms:.4f} px (at most 1)")
     check(active[spike].mean() <= 0.05 and active[~spike].mean() >= 0.70 and
           rms <= 1.0, "bundle_adjust_gated missed its contract")
+
+
+# ------------------------------------------------------------------ #
+# tooling (phase 38) and multi-device (phase 39)                       #
+# ------------------------------------------------------------------ #
+
+POS_TOL = 1e-3   # px, tests/test_torch_slice.py's: plain CPU against card
+EXAMPLE_FRAMES = 64
+EXAMPLE_MODES = ((), ("--replace",), ("--affine", "2"))
+
+
+def debug_warnings(run) -> tuple:
+    """(run()'s result, the messages of the debug checks' warnings)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = run()
+    return out, [str(w.message) for w in caught
+                 if "debug check failed" in str(w.message)]
+
+
+def example_table_direct(frames, n_feats: int, mode) -> klt.FeatureTable:
+    """The track_sequence example's loop written out with KLTracker on
+    the card: its feature table."""
+    cfg = klt.TrackingConfig(
+        sequential_mode=True, affine_consistency_check=int(mode[1])
+        if "--affine" in mode else -1)
+    tracker = klt.KLTracker(cfg)
+    fl = klt.FeatureList.create(n_feats)
+    ft = klt.FeatureTable.create(len(frames), n_feats)
+    tracker.select_good_features(frames[0], fl)
+    ft.store_list(fl, 0)
+    for i in range(1, len(frames)):
+        tracker.track_features(frames[i - 1], frames[i], fl)
+        if "--replace" in mode:
+            tracker.replace_lost_features(frames[i], fl)
+        ft.store_list(fl, i - 1)
+    return ft
+
+
+def phase_tooling(vga, aff, cfg, tag: str) -> dict:
+    """Phase 38: the tooling on the card.  Returns each kernel's launches
+    in the phase (all of them made by the paths it drives)."""
+    from klt_tpu_torch import graft_entry
+    from klt_tpu_torch.examples import track_sequence as example
+    from klt_tpu_torch.io.features_io import read_feature_table
+    from klt_tpu_torch.utils.debug import write_internal_images
+
+    os.environ.pop("KLT_TPU_DEBUG", None)
+    cuda.reset_launch_counts()
+    launches = {k.symbol: 0 for k in cuda.KERNELS}
+
+    def take():   # the counts so far into `launches`, then from 0
+        for k in cuda.KERNELS:
+            launches[k.symbol] += k.launches
+        cuda.reset_launch_counts()
+
+    fl = klt.FeatureList.create(2000)
+    klt.KLTracker(cfg).select_good_features(vga[0], fl)
+    dev_frames = torch.from_numpy(vga).cuda()
+    feats = [torch.from_numpy(a).cuda() for a in (fl.x, fl.y, fl.val)]
+    run = lambda: track_sequence(dev_frames, *feats, cfg)
+    steps = len(vga) - 1
+    groups = {"kernel B (lk_pyramid_kernel)": "lk_pyramid_kernel",
+              "kernel A (pyramid_tiles)": PYRAMID_KERNELS}
+    expect = {"kernel A (pyramid_tiles)":
+              len(vga) * (1 + cfg.n_pyramid_levels)}
+    label = f"track_sequence of {vga.shape[2]}x{vga.shape[1]}, " \
+        f"{int((fl.val >= 0).sum())} features"
+
+    # the checks with KLT_TPU_DEBUG unset against no checks at all
+    def measure(what):
+        take()   # launches_per_step counts from 0
+        counts = launches_per_step(run, steps)
+        syncs = count_syncs(run)
+        read = profile_device(run, steps, tag, f"{label}, {what}", groups,
+                              expect)
+        return counts, syncs, read
+    first = count_syncs(run)   # a process's first sync check may flag one
+    with_checks = measure("the checks, KLT_TPU_DEBUG unset")
+    saved = lk_ops._debug_checks
+    lk_ops._debug_checks = lambda *a: None
+    try:
+        without = measure("no checks")
+    finally:
+        lk_ops._debug_checks = saved
+    print(f"[{tag}] host syncs of a first checked run: {first}")
+    print(f"[{tag}] KLT_TPU_DEBUG unset: kernel launches per step "
+          f"{ {k: v for k, v in with_checks[0].items() if v} }, host syncs "
+          f"{with_checks[1]}, device launches per step "
+          f"{with_checks[2]['launches']:.2f}; without the checks "
+          f"{ {k: v for k, v in without[0].items() if v} }, {without[1]}, "
+          f"{without[2]['launches']:.2f}")
+    check(with_checks[0] == without[0] and with_checks[1] == without[1] and
+          with_checks[2]["launches"] == without[2]["launches"],
+          "the checks cost launches or host syncs with debug off")
+
+    # debug on, one feature planted outside the frame
+    x = fl.x.copy()
+    x[0] = -5.0
+    val = fl.val.copy()
+    val[0] = 0
+    planted = [torch.from_numpy(a).cuda() for a in (x, fl.y, val)]
+    off, none = debug_warnings(
+        lambda: track_sequence(dev_frames, *planted, cfg))
+    os.environ["KLT_TPU_DEBUG"] = "1"
+    try:
+        on, msgs = debug_warnings(
+            lambda: track_sequence(dev_frames, *planted, cfg))
+    finally:
+        del os.environ["KLT_TPU_DEBUG"]
+    same = all(bits_equal(a, b) for a, b in zip(on, off))
+    print(f"[{tag}] KLT_TPU_DEBUG=1, feature 0 planted at x = -5: "
+          f"{len(msgs)} warning(s) {msgs} over {steps} steps (none with "
+          f"debug off: {len(none)}); table the same as with debug off: "
+          f"{same}")
+    check(len(msgs) == 1 and not none and same,
+          "debug mode did not warn once, or changed the table")
+
+    # write_internal_images from kernel A's stacks and the plain version's
+    img = torch.from_numpy(vga[1]).cuda()
+    stacks = {"kernel": pyramid_ops.build_pyramid_stacks(img, cfg),
+              "plain": build_pyramid_stacks_plain(img, cfg)}
+    with tempfile.TemporaryDirectory() as d:
+        files = {k: write_internal_images([s[0] for s in st],
+                                          [s[1] for s in st],
+                                          [s[2] for s in st], f"{d}/{k}")
+                 for k, st in stacks.items()}
+        data = {k: [open(p, "rb").read() for p in v]
+                for k, v in files.items()}
+    print(f"[{tag}] write_internal_images: {len(files['kernel'])} PGMs "
+          f"from kernel A's stacks, bytes equal to the plain version's: "
+          f"{data['kernel'] == data['plain']}")
+    check(data["kernel"] == data["plain"],
+          "write_internal_images differs between kernel A and plain")
+
+    # op_breakdown over a traced run against profile_device's
+    with tempfile.TemporaryDirectory() as d:
+        with profiling.trace(d, head=run):
+            run()
+        rows = profiling.op_breakdown(d, runs=steps, top=1000)
+    total = sum(r[0] for r in rows)
+    named = {k: sum(r[1] for r in rows if any(s in r[3] for s in keys))
+             for k, keys in (("A", PYRAMID_KERNELS),
+                             ("B", ("lk_pyramid_kernel",)))}
+    ref = with_checks[2]["device_us"]
+    print(f"[{tag}] op_breakdown of {label}: {total:.1f} us of device "
+          f"time per step (profile_device: {ref:.1f}, "
+          f"{abs(total - ref) / ref:.3f} apart), launches per step: kernel "
+          f"A {named['A']:.3f}, kernel B {named['B']:.3f}; top rows:")
+    for us, n, cat, name in rows[:6]:
+        print(f"[{tag}]   {us:9.2f} us/step  n={n:6.3f}  {cat:10s} "
+              f"{name[:80]}")
+    check(abs(named["A"] - expect["kernel A (pyramid_tiles)"] / steps) < 1e-9
+          and named["B"] == 1.0 and abs(total - ref) <= 0.1 * ref,
+          "op_breakdown disagrees with profile_device")
+
+    # the track_sequence example against a KLTracker loop, three modes
+    frames = aff[:EXAMPLE_FRAMES]
+    with tempfile.TemporaryDirectory() as d:
+        os.makedirs(f"{d}/images_smoke")
+        for i, f in enumerate(frames):
+            klt.write_pgm(f"{d}/images_smoke/img{i}.pgm", f)
+        saved_root = os.environ.get("KLT_DATA_ROOT")
+        os.environ["KLT_DATA_ROOT"] = d
+        try:
+            for mode in EXAMPLE_MODES:
+                out = f"{d}/out{len(mode)}{''.join(mode)}"
+                t0 = time.perf_counter()
+                check(example.main(["images_smoke", "1000",
+                                    str(EXAMPLE_FRAMES), *mode, "--out",
+                                    out]) == 0, "the example failed")
+                secs = time.perf_counter() - t0
+                got = read_feature_table(f"{out}/features.ft")
+                ref = example_table_direct(frames, 1000, mode)
+                equal = all(np.array_equal(getattr(got, k).view(np.int32),
+                                           getattr(ref, k).view(np.int32))
+                            for k in ("x", "y", "val"))
+                print(f"[{tag}] example {' '.join(mode) or '(plain)'}, "
+                      f"{frames.shape[2]}x{frames.shape[1]} x 1000 x "
+                      f"{EXAMPLE_FRAMES} frames: {secs:.2f} s, "
+                      f"{int((got.val[:, -2] == 0).sum())} tracked at the "
+                      f"last step, features.ft equal to a KLTracker loop's: "
+                      f"{equal}")
+                check(equal, f"the example {mode} differs from KLTracker")
+        finally:
+            if saved_root is None:
+                del os.environ["KLT_DATA_ROOT"]
+            else:
+                os.environ["KLT_DATA_ROOT"] = saved_root
+
+    # the graft entry's pair step on the card against the plain CPU step
+    fn, args = graft_entry.entry()
+    card_out = [o.cpu() for o in fn(*args)]
+    fn_c, args_c = graft_entry.entry(device="cpu")
+    cpu_out = fn_c(*args_c)
+    err = max_err(card_out[:2], cpu_out[:2])
+    print(f"[{tag}] graft_entry.entry(): statuses equal to the plain CPU "
+          f"step's: {torch.equal(card_out[2], cpu_out[2])} "
+          f"({int((card_out[2] == 0).sum())} of 150 tracked), positions "
+          f"within {err:.3g} px (tolerance {POS_TOL})")
+    check(torch.equal(card_out[2], cpu_out[2]) and err <= POS_TOL,
+          "graft_entry.entry() on the card differs from the CPU")
+    torch.cuda.synchronize()
+    take()
+    return launches
+
+
+def timed_iterations(solve, mesh, iterations: int, tag: str, label: str):
+    """(solve(mesh, iterations), wall ms per LM iteration: the host clock
+    around that synchronised run, device us per LM iteration:
+    profile_device over solve(mesh, 1), the device traced alone)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = solve(mesh, iterations)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / iterations
+    read = profile_device(lambda: solve(mesh, 1), 1, tag, label, {},
+                          host=False)
+    return out, wall, read and read["device_us"]
+
+
+def same_bits(a, b) -> bool:
+    """Two outputs (tuples of tensors and numpy arrays) equal bit for
+    bit."""
+    return all(bits_equal(x, y) if isinstance(x, torch.Tensor)
+               else np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def phase_multi_device(flag_b, flag_feats, cfg, tag: str) -> dict:
+    """Phase 39: multi-device on the card, in a world of one rank on NCCL
+    (a FileStore in a temporary directory).  Returns each kernel's
+    launches in the phase."""
+    import torch.distributed as dist
+    from klt_tpu_torch import graft_entry
+    from klt_tpu_torch.parallel import (make_batch_step, make_mesh,
+                                        track_batch)
+    from klt_tpu_torch.slam import bundle_adjust
+
+    cuda.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", init_method=f"file://{d}/store",
+                                rank=0, world_size=1)
+        try:
+            data = make_mesh({"data": -1})
+            both = make_mesh({"data": 1, "feat": 1})
+            frames = torch.from_numpy(flag_b).cuda()
+            feats = [torch.from_numpy(a).cuda() for a in flag_feats]
+            pair = (frames[:, 0].contiguous(), frames[:, 1].contiguous())
+            for mesh, feat in ((data, None), (both, "feat")):
+                step = make_batch_step(cfg, mesh, feat_axis=feat)(*pair,
+                                                                  *feats)
+                ref = make_batch_step(cfg)(*pair, *feats)
+                seq = track_batch(frames, *feats, cfg, mesh, feat)
+                seq_ref = track_batch(frames, *feats, cfg)
+                ok = same_bits(step, ref) and same_bits(seq, seq_ref)
+                print(f"[{tag}] make_batch_step and track_batch over "
+                      f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+                      f"(feat_axis {feat}), {flag_b.shape[0]} x "
+                      f"{flag_b.shape[3]}x{flag_b.shape[2]} x "
+                      f"{flag_feats[0].shape[1]} over {flag_b.shape[1]} "
+                      f"frames: bit-equal to mesh=None: {ok} "
+                      f"({int((seq[2][-1] == 0).sum())} lanes tracked)")
+                check(ok, "a mesh run differs from mesh=None")
+
+            f, _ = scale_ba_fields()
+            big = ba_problem_from_numpy(f, "cuda")
+            f, _ = spiked_ba_fields()
+            spiked = ba_problem_from_numpy(f, "cuda")
+            f, _ = scale_pose_graph_fields()
+            graph = pose_graph_from_numpy(f, "cuda")
+            solves = (
+                ("bundle_adjust_cg", "bundle_adjust_cg, 80,000 "
+                 "observations", lambda m, its: bundle_adjust_cg(
+                     big, m, iterations=its, damping=1e-4, cg_iters=120)),
+                ("bundle_adjust", "bundle_adjust (dense), 60,000 "
+                 "observations", lambda m, its: bundle_adjust(
+                     spiked, m, iterations=its, damping=1e-2,
+                     robust_delta=2.0)),
+                ("bundle_adjust_gated", "bundle_adjust_gated, 60,000 "
+                 "observations, rounds of 1 iteration",
+                 lambda m, its: bundle_adjust_gated(
+                     spiked, m, rounds=its, iterations=1, damping=1e-2,
+                     robust_delta=2.0, gate_px=3.0)),
+                ('optimize_pose_graph(solver="cg")', "optimize_pose_graph "
+                 "cg, 800 keyframes, cg_iters 400",
+                 lambda m, its: optimize_pose_graph(
+                     graph, m, iterations=its, solver="cg", damping=1e-4,
+                     cg_iters=400)))
+            for key, label, solve in solves:
+                ref, w0, d0 = timed_iterations(solve, None, 3, tag,
+                                               f"{label}, mesh=None")
+                got, w1, d1 = timed_iterations(solve, data, 3, tag,
+                                               f"{label}, mesh {{data: 1}}")
+                ok = same_bits(got, ref)
+                p37 = SCALE_TIMES.get(key)
+                nan = float("nan")
+                print(f"[{tag}] {label}, 3 LM iterations: bit-equal to "
+                      f"mesh=None: {ok}; per LM iteration, wall ms / device "
+                      f"ms (one iteration profiled): mesh {w1:.2f} / "
+                      f"{(d1 or nan) / 1e3:.2f}, mesh=None {w0:.2f} / "
+                      f"{(d0 or nan) / 1e3:.2f}"
+                      + (f"; phase 37 (8 or 30 iterations, two profiled) "
+                         f"{p37[0]:.2f} / {(p37[1] or nan) / 1e3:.2f}"
+                         if p37 else "; phase 37 does not run it"))
+                check(ok, f"{label}: the mesh run differs from mesh=None")
+
+            # the host's cost of one reduce: 2000 calls enqueued, then a
+            # sync
+            from klt_tpu_torch.parallel.mesh import all_reduce_sum
+            parts = [torch.ones(6, device="cuda"),
+                     torch.ones(800, 6, device="cuda")]
+            group = data.get_group(0)
+            for name, fn in (
+                    ("all_reduce_sum of [6] and [800, 6]",
+                     lambda: all_reduce_sum(parts, data, "data")),
+                    ("dist.all_reduce of [800, 6] alone",
+                     lambda: dist.all_reduce(parts[1], group=group))):
+                fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(2000):
+                    fn()
+                torch.cuda.synchronize()
+                us = (time.perf_counter() - t0) * 1e6 / 2000
+                print(f"[{tag}] {name}: {us:.1f} us of wall a call (2000 "
+                      f"calls, one sync)")
+
+            graft_entry.dryrun_multichip(1)
+            print(f"[{tag}] graft_entry.dryrun_multichip(1) on the card: "
+                  f"ok")
+        finally:
+            dist.destroy_process_group()
+    print(f"[{tag}] runs of more than one rank are held on the CPU with "
+          f"gloo (tests/test_torch_mesh.py: 2 and 4 ranks); a run across "
+          f"cards waits for a machine with more than one "
+          f"({torch.cuda.device_count()} card here)")
+    torch.cuda.synchronize()
+    return launch_counts()
 
 
 def main() -> int:
@@ -4283,6 +4648,18 @@ def main() -> int:
     with phase("37 slam solvers at scale"):
         run_slam_scale("37 slam solvers at scale")
 
+    # path 13: the tooling (checks, debug dumps, the profiler wrapper, the
+    # track_sequence example, the graft entry); path 14: multi-device in
+    # a world of one on NCCL; each counts its launches from 0
+    with phase("38 tooling"):
+        tooling_launches = phase_tooling(vga, aff, cfg, "38 tooling")
+    with phase("39 multi-device"):
+        mesh_launches = phase_multi_device(flag_b, flag_feats, cfg,
+                                           "39 multi-device")
+    for tag, counts in (("38", tooling_launches), ("39", mesh_launches)):
+        print(f"[{tag} launches] "
+              f"{ {k: n for k, n in counts.items() if n} }")
+
     with phase("12 no sync"):
         phase_no_sync(traffic[:PRECOMP_FRAMES + 2], 500, cfg)
 
@@ -4353,7 +4730,8 @@ def main() -> int:
             + step_launches[k.symbol] + b_step_launches[k.symbol]
             + b_affine_launches[k.symbol] + exact_launches[k.symbol]
             + wide_launches[k.symbol] + prefilter_launches[k.symbol]
-            + slam_launches[k.symbol],
+            + slam_launches[k.symbol] + tooling_launches[k.symbol]
+            + mesh_launches[k.symbol],
             "max_abs_err": max(errs[k.symbol]), **times[name],
             "library_ms": None,
             "launches_per_step": {path: counts[k.symbol]

@@ -4,7 +4,8 @@ Counterpart of klt_tpu/io/dataset.py: loads the reference benchmark
 sequences (images_provided: img0..img9; images_traffic: img1..img551;
 images_laptops: img1..img1003) from a data root — the directory named by
 KLT_DATA_ROOT (the variable klt_tpu reads), else `data/` at the root of
-the checkout.  Nothing here downloads.
+the checkout.  `download_dataset` fetches a benchmark sequence by name;
+nothing else here touches the network.
 """
 
 from __future__ import annotations
@@ -89,3 +90,44 @@ def load_sequence_array(name: str, max_frames: int | None = None):
     seq = ImageSequence(path)
     n = len(seq) if max_frames is None else min(len(seq), max_frames)
     return native.load_pgm_batch(seq.paths(n), seq.nrows, seq.ncols)
+
+
+DATASET_URLS = {
+    # reference: src/V2/download_dataset.py:7-10
+    "images_laptops": ("https://huggingface.co/datasets/FatimaSohailll/"
+                       "PPM-Image-Dataset-for-KLT-Feature-Tracking/resolve/"
+                       "main/images_laptops.zip"),
+    "images_traffic": ("https://huggingface.co/datasets/FatimaSohailll/"
+                       "PPM-Image-Dataset-for-KLT-Feature-Tracking/resolve/"
+                       "main/images_traffic.zip"),
+}
+
+
+def download_dataset(name: str, dest_root: str = "data",
+                     timeout: float = 60.0) -> str:
+    """Fetch and unzip a benchmark sequence (the analogue of
+    src/V2/download_dataset.py) into dest_root/name; returns that
+    directory at once when it already exists.  Requires network access;
+    raises RuntimeError with a clear message in offline environments."""
+    import io
+    import urllib.request
+    import zipfile
+
+    if name not in DATASET_URLS:
+        raise KeyError(f"unknown dataset '{name}'; "
+                       f"have {sorted(DATASET_URLS)}")
+    dest = os.path.join(dest_root, name)
+    if os.path.isdir(dest):
+        return dest
+    os.makedirs(dest_root, exist_ok=True)
+    try:
+        with urllib.request.urlopen(DATASET_URLS[name],
+                                    timeout=timeout) as r:
+            blob = r.read()
+    except Exception as e:  # offline / blocked egress
+        raise RuntimeError(
+            f"could not download '{name}' ({e}); place the unzipped "
+            f"sequence at {dest} or set KLT_DATA_ROOT") from e
+    with zipfile.ZipFile(io.BytesIO(blob)) as z:
+        z.extractall(dest_root)
+    return dest

@@ -26,6 +26,11 @@ import torch
 from ..kernels import gaussian_kernels
 
 
+def to_float_image(img: torch.Tensor) -> torch.Tensor:
+    """uint8 frame -> float32 image (reference: src/V1/convolve.c:37-53)."""
+    return img.to(torch.float32)
+
+
 def convolve_1d(img: torch.Tensor, taps: np.ndarray, dim: int) -> torch.Tensor:
     """One zero-bordered pass of reversed `taps` along `dim` (-1 rows,
     -2 columns) of a [..., H, W] f32 image."""

@@ -16,7 +16,16 @@ then classified OOB anyway).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def window_offsets(width: int, height: int) -> tuple[np.ndarray, np.ndarray]:
+    """Integer window offsets (dx, dy), row-major like the reference's
+    `for j ... for i ...` window walks — each f32 [height*width]."""
+    hw, hh = width // 2, height // 2
+    dy, dx = np.mgrid[-hh:hh + 1, -hw:hw + 1]
+    return dx.ravel().astype(np.float32), dy.ravel().astype(np.float32)
 
 
 def bilinear_sample(img: torch.Tensor, x: torch.Tensor,

@@ -50,6 +50,8 @@ import torch
 
 from ..config import (TrackingConfig, TRACKED, SMALL_DET, MAX_ITERATIONS,
                       OOB, LARGE_RESIDUE)
+from ..utils.checks import (check_in_bounds, check_same_shape,
+                            debug_enabled)
 from .ieee import sqrt_rn
 from .interp import sample_stack_windows
 
@@ -332,6 +334,18 @@ def _check_frame_pair(stacks1, stacks2, x, cfg: TrackingConfig) -> None:
                          f"features {tuple(x.shape)}")
 
 
+def _debug_checks(stacks1, stacks2, x, y, val) -> None:
+    """klt_tpu's debug-mode checks of a frame pair (utils/checks.py):
+    nothing at all unless KLT_TPU_DEBUG=1."""
+    if not debug_enabled() or not len(stacks1):
+        return
+    check_same_shape(stacks1[0], stacks2[0], "frame pair")
+    alive = val >= 0
+    check_in_bounds(torch.where(alive, x, 0.0), torch.where(alive, y, 0.0),
+                    stacks1[0].shape[-1], stacks1[0].shape[-2],
+                    "input feature positions")
+
+
 def track_features_pyramid_stacks(stacks1, stacks2, x, y, val,
                                   cfg: TrackingConfig, plain: bool = False):
     """Coarse-to-fine tracking of all features between two frames, on
@@ -343,6 +357,7 @@ def track_features_pyramid_stacks(stacks1, stacks2, x, y, val,
     CUDA stacks: one launch of kernel B's pyramid entry, or of kernel C's
     for B sequences.  CPU stacks, or plain=True on any device:
     `track_features_pyramid_levels`, the plain version."""
+    _debug_checks(stacks1, stacks2, x, y, val)
     if not plain and len(stacks1) and stacks1[0].is_cuda:
         # the wrapper checks what `_check_frame_pair` checks, and more
         from ..cuda.lk_level import lk_pyramid_batched_cuda, lk_pyramid_cuda

@@ -25,7 +25,23 @@ import torch
 
 from ..config import TrackingConfig, pyramid_shapes
 from ..kernels import gaussian_kernels
-from .convolve import convolve_separable
+from .convolve import compute_smoothed_image, convolve_separable
+
+
+def build_pyramid(img: torch.Tensor, cfg: TrackingConfig
+                  ) -> list[torch.Tensor]:
+    """List of per-level float32 images, finest first: `img` itself (no
+    pre-smoothing), then each coarser level the previous one smoothed
+    with pyramid_sigma and decimated at [sh::s, sh::s]."""
+    s = cfg.subsampling
+    sh = s // 2
+    shapes = pyramid_shapes(img.shape[-1], img.shape[-2], cfg)
+    levels = [img]
+    for lvl in range(1, cfg.n_pyramid_levels):
+        sm = compute_smoothed_image(levels[-1], cfg.pyramid_sigma)
+        ncols, nrows = shapes[lvl]
+        levels.append(sm[..., sh::s, sh::s][..., :nrows, :ncols])
+    return levels
 
 
 def build_pyramid_stacks_plain(img: torch.Tensor, cfg: TrackingConfig,

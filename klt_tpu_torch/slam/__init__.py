@@ -14,8 +14,9 @@ computes all of it in XLA, outside any Pallas kernel):
 
 Jacobians come from torch.func.jacfwd under torch.func.vmap; normal
 equations are summed in a fixed order (solvers.py), so runs on the card
-repeat to the bit.  A `mesh` argument raises: multi-device is not
-ported.
+repeat to the bit.  With a mesh (parallel/mesh.py) the bundle adjustments
+and the pose graph shard their observation (edge) sums over its "data"
+axis, one all_reduce per sum, as klt_tpu psums them.
 """
 
 from .chains import tracks_from_table, select_keyframes

@@ -18,9 +18,13 @@ nothing on the dense path, and on the CG path only for CG's stop rule
 
 The dense step takes a batch of B independent problems of one shape
 (the keyframe pair solves of slam/frontend.py); the public entry points
-solve one problem (B = 1).  klt_tpu shards the observation axis over a
-device mesh; a `mesh` argument here raises (multi-device is not
-ported).
+solve one problem (B = 1).  With a mesh (parallel/mesh.py), as in
+klt_tpu, the problem is padded to the mesh's "data" size and replicated
+on every rank; only the normal equations are sharded: each rank sums
+U, V, W, b_p, b_l and each CG matvec's observation sums over its
+contiguous block of the observations, and one all_reduce over "data"
+adds the blocks (klt_tpu's psum).  The LM accept test, the gate and the
+landmark refit run on the whole problem, so every rank decides alike.
 """
 
 from __future__ import annotations
@@ -31,10 +35,9 @@ import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
-from ..parallel.batch import _refuse_mesh
 from ..utils.linalg import gj_solve_spd, inv3
 from .geometry import project, se3_apply, se3_exp
-from .solvers import Segments, pcg
+from .solvers import Segments, Shard, data_size, pcg
 
 
 @dataclasses.dataclass
@@ -205,17 +208,23 @@ def _apply(dx_pose, R, t):
     return dR @ R, _mv(dR, t) + dt
 
 
-def _gn_step(R, t, lm, plan: _Plan, uv, weight, consts, lam, fix_first):
+def _gn_step(R, t, lm, plan: _Plan, uv, weight, consts, lam, fix_first,
+             shard: Shard | None = None):
     """One damped Schur Gauss-Newton step with W and S dense, for B
     problems at once: R [B, P, 3, 3], t [B, P, 3], lm [B, L, 3]; lam 0-dim
-    or [B].  Returns (R, t, lm, cost [B])."""
+    or [B].  With a shard (one problem over a mesh) the blocks are summed
+    over its observations and all-reduced.  Returns (R, t, lm, cost
+    [B])."""
     b_, P, L = plan.B, plan.P, plan.L
-    r, jp, jl = _obs_blocks(R, t, lm, plan, uv, weight, consts)
-    U, bp = _pose_sums(plan, r, jp)
-    V, bl = _landmark_sums(plan, r, jl)
-    W = plan.seg_joint.sum((_tr(jp) @ jl).reshape(-1, 18))
-    W = W.reshape(b_, L, P, 6, 3).transpose(1, 2)          # [B, P, L, 6, 3]
+    shard = shard or Shard(uv.shape[0], None, plan, None)
+    sp, rows = shard.plan, shard.rows
+    r, jp, jl = _obs_blocks(R, t, lm, sp, uv[rows], weight[rows], consts)
+    U, bp = _pose_sums(sp, r, jp)
+    V, bl = _landmark_sums(sp, r, jl)
+    W = sp.seg_joint.sum((_tr(jp) @ jl).reshape(-1, 18))
     cost = torch.sum((r * r).reshape(b_, -1), dim=1)
+    U, bp, V, bl, W, cost = shard.reduce([U, bp, V, bl, W, cost])
+    W = W.reshape(b_, L, P, 6, 3).transpose(1, 2)          # [B, P, L, 6, 3]
     U = _damp(U.reshape(b_, P, 6, 6), lam)
     V = _damp(V.reshape(b_, L, 3, 3), lam)
     bp, bl = bp.reshape(b_, P, 6), bl.reshape(b_, L, 3)
@@ -247,22 +256,28 @@ def _gn_step(R, t, lm, plan: _Plan, uv, weight, consts, lam, fix_first):
 
 
 def _gn_step_cg(R, t, lm, plan: _Plan, uv, weight, consts, lam, fix_first,
-                cg_iters: int, cg_tol: float):
+                cg_iters: int, cg_tol: float, shard: Shard | None = None):
     """Matrix-free Schur Gauss-Newton step for one large problem (B = 1).
 
     Never builds W (the [P, L, 6, 3] pose-landmark coupling) or the dense
     Schur matrix: S·x products stream through the per-observation
     Jacobians with two segment sums, so memory is O(M + P + L).  The pose
     system solves with preconditioned CG (block-Jacobi on the damped U
-    blocks); landmarks back-substitute per landmark."""
+    blocks); landmarks back-substitute per landmark.  With a shard, every
+    observation sum (U, V, b and each product with W or W^T) runs over its
+    observations and is all-reduced, so CG's stop rule reads the same
+    values on every rank."""
     if plan.B != 1:
         raise ValueError("the CG step solves one problem")
     P = plan.P
-    cam, lmi = plan.cam, plan.lm
-    r, jp, jl = _obs_blocks(R, t, lm, plan, uv, weight, consts)
-    U, bp = _pose_sums(plan, r, jp)
-    V, bl = _landmark_sums(plan, r, jl)
+    shard = shard or Shard(uv.shape[0], None, plan, None)
+    sp, rows = shard.plan, shard.rows
+    cam, lmi = sp.cam, sp.lm
+    r, jp, jl = _obs_blocks(R, t, lm, sp, uv[rows], weight[rows], consts)
+    U, bp = _pose_sums(sp, r, jp)
+    V, bl = _landmark_sums(sp, r, jl)
     cost = torch.sum(r * r)[None]
+    U, bp, V, bl, cost = shard.reduce([U, bp, V, bl, cost])
     U, V = _damp(U, lam), _damp(V, lam)
     Vinv = inv3(V)
     mask = torch.ones((P, 6), dtype=torch.float32, device=R.device)
@@ -270,10 +285,12 @@ def _gn_step_cg(R, t, lm, plan: _Plan, uv, weight, consts, lam, fix_first,
         mask[0] = 0.0
 
     def w_times(wl):       # W w for w [L, 3]
-        return plan.seg_cam.sum(_mv(_tr(jp), _mv(jl, wl[lmi])))
+        return shard.reduce(
+            [sp.seg_cam.sum(_mv(_tr(jp), _mv(jl, wl[lmi])))])[0]
 
     def wt_times(v):       # W^T v for v [P, 6]
-        return plan.seg_lm.sum(_mv(_tr(jl), _mv(jp, v[cam])))
+        return shard.reduce(
+            [sp.seg_lm.sum(_mv(_tr(jl), _mv(jp, v[cam])))])[0]
 
     rhs = (bp - w_times(_mv(Vinv, bl))) * mask
     eye6 = torch.eye(6, dtype=U.dtype, device=U.device).expand(U.shape)
@@ -344,6 +361,21 @@ def _plan_of(prob: BAProblem, joint: bool) -> _Plan:
                  prob.landmarks.shape[0], joint)
 
 
+def _shard_of(prob: BAProblem, plan: _Plan, mesh) -> Shard | None:
+    """This rank's block of the (padded) problem's observations over the
+    mesh's "data" axis; its plan counts the problem's global poses and
+    landmarks, so the partial blocks have the full shapes to reduce."""
+    if mesh is None:
+        return None
+    return Shard(plan.M, mesh, plan, lambda rows: _Plan(
+        prob.cam_idx[rows], prob.lm_idx[rows], plan.P, plan.L,
+        plan.seg_joint is not None))
+
+
+def _padded(prob: BAProblem, mesh) -> BAProblem:
+    return prob if mesh is None else prob.pad_observations(data_size(mesh))
+
+
 def bundle_adjust(prob: BAProblem, mesh=None, iterations: int = 10,
                   damping: float = 10.0, fix_first: bool = True,
                   robust_delta: float | None = None):
@@ -359,21 +391,30 @@ def bundle_adjust(prob: BAProblem, mesh=None, iterations: int = 10,
     beyond delta are down-weighted by delta/n each iteration.  None =
     plain least squares.
 
+    mesh: a DeviceMesh with a "data" axis (parallel/mesh.py): the
+    observations are padded to its size and their normal equations
+    sharded over it (see the module docstring); every rank passes the
+    same problem and gets the same result.
+
     Returns (R, t, landmarks, costs [iterations]) on the problem's device
     — costs are the accepted (weighted) cost after each iteration."""
-    _refuse_mesh(mesh)
-    return _lm_drive(prob, _plan_of(prob, joint=True), iterations, damping,
+    prob = _padded(prob, mesh)
+    plan = _plan_of(prob, joint=True)
+    shard = _shard_of(prob, plan, mesh)
+    return _lm_drive(prob, plan, iterations, damping,
                      lambda R, t, lm, plan, uv, w, consts, lam: _gn_step(
-                         R, t, lm, plan, uv, w, consts, lam, fix_first),
+                         R, t, lm, plan, uv, w, consts, lam, fix_first,
+                         shard),
                      robust_delta)
 
 
 def _bundle_adjust_cg(prob: BAProblem, plan: _Plan, iterations, damping,
-                      fix_first, cg_iters, cg_tol, robust_delta):
+                      fix_first, cg_iters, cg_tol, robust_delta,
+                      shard: Shard | None = None):
     return _lm_drive(prob, plan, iterations, damping,
                      lambda R, t, lm, plan, uv, w, consts, lam: _gn_step_cg(
                          R, t, lm, plan, uv, w, consts, lam, fix_first,
-                         cg_iters, cg_tol),
+                         cg_iters, cg_tol, shard),
                      robust_delta)
 
 
@@ -385,11 +426,14 @@ def bundle_adjust_cg(prob: BAProblem, mesh=None, iterations: int = 10,
     (_gn_step_cg) — the path for hundreds of keyframes and tens of
     thousands of landmarks.  Same accept/reject semantics as
     `bundle_adjust` (incl. the Huber IRLS option); prefer it whenever
-    n_pose * n_lm is too large to build W densely."""
-    _refuse_mesh(mesh)
-    return _bundle_adjust_cg(prob, _plan_of(prob, joint=False), iterations,
-                             damping, fix_first, cg_iters, cg_tol,
-                             robust_delta)
+    n_pose * n_lm is too large to build W densely.  A mesh shards the
+    observations as in `bundle_adjust`, with one all_reduce per CG
+    matvec."""
+    prob = _padded(prob, mesh)
+    plan = _plan_of(prob, joint=False)
+    return _bundle_adjust_cg(prob, plan, iterations, damping, fix_first,
+                             cg_iters, cg_tol, robust_delta,
+                             _shard_of(prob, plan, mesh))
 
 
 def _refit_landmarks(R, t, lm, prob: BAProblem, iters: int = 3,
@@ -431,13 +475,17 @@ def bundle_adjust_gated(prob: BAProblem, mesh=None, rounds: int = 3,
     than `min_obs_per_lm` live observations are dropped entirely.  The
     gate is annealed: gate_px * 2^(rounds - 2 - round), wide early (the
     first solution is still outlier-pulled), gate_px for the final round.
-    The per-round gating runs on the host (numpy), as in klt_tpu.
+    The per-round gating runs on the host (numpy), as in klt_tpu, on the
+    whole problem; a mesh shards each round's normal equations as in
+    `bundle_adjust_cg`.
 
     Returns (R, t, landmarks, costs [rounds*iterations] on the problem's
     device, active [M] numpy bool — the observations the final solution
     is supported by)."""
-    _refuse_mesh(mesh)
+    m = int(prob.cam_idx.shape[0])
+    prob = _padded(prob, mesh)
     plan = _plan_of(prob, joint=False)
+    shard = _shard_of(prob, plan, mesh)
     R, t, lm = prob.R, prob.t, prob.landmarks
     weight = prob.weight.cpu().numpy()
     active = weight > 0
@@ -453,7 +501,7 @@ def bundle_adjust_gated(prob: BAProblem, mesh=None, rounds: int = 3,
             weight=torch.where(act_t, base_w, torch.zeros_like(base_w)))
         R, t, lm, costs = _bundle_adjust_cg(
             pw, plan, iterations, damping, fix_first, cg_iters, cg_tol,
-            robust_delta)
+            robust_delta, shard)
         costs_all.append(costs)
         if rd < rounds - 1:
             # rescue frozen landmarks before re-evaluating the gate
@@ -468,4 +516,4 @@ def bundle_adjust_gated(prob: BAProblem, mesh=None, rounds: int = 3,
             if act.sum() < 6:  # never gate into a degenerate problem
                 break
             active = act
-    return R, t, lm, torch.cat(costs_all), active
+    return R, t, lm, torch.cat(costs_all), active[:m]

@@ -10,7 +10,10 @@ linearized by `torch.func.jacfwd` under `torch.func.vmap` through the same
 Taylor-guarded exp map the BA uses.  The normal equations are summed per
 pose in a fixed order (slam/solvers.py), so two runs on the card give the
 same bits; the LM loop keeps its accept flag, damping and cost curve on
-the device.
+the device.  With a mesh (parallel/mesh.py) the edges are padded to its
+"data" size and only the normal equations are sharded: each rank sums its
+contiguous block of the edges and one all_reduce over "data" adds them
+(klt_tpu's psum); the LM accept test runs on the whole graph.
 """
 
 from __future__ import annotations
@@ -20,10 +23,9 @@ import dataclasses
 import torch
 from torch.func import jacfwd, vmap
 
-from ..parallel.batch import _refuse_mesh
 from ..utils.linalg import gj_solve_spd
 from .geometry import so3_exp
-from .solvers import Segments, pcg
+from .solvers import Segments, Shard, data_size, pcg
 
 def _max(a: torch.Tensor, b: float) -> torch.Tensor:
     """jnp.maximum(a, b): half the tangent to each side at a tie."""
@@ -183,15 +185,26 @@ def _apply(dx, R, t):
     return dR @ R, _mv(dR, t) + dx[:, 3:]
 
 
-def _gn_step(R, t, pg: PoseGraph, plan: _Plan, damping, fix_first):
-    """One damped Gauss-Newton step with the dense [6P, 6P] H."""
+def _edges(pg: PoseGraph, rows: slice) -> PoseGraph:
+    return dataclasses.replace(pg, ei=pg.ei[rows], ej=pg.ej[rows],
+                               Rz=pg.Rz[rows], tz=pg.tz[rows],
+                               weight=pg.weight[rows])
+
+
+def _gn_step(R, t, pg: PoseGraph, plan: _Plan, damping, fix_first,
+             shard: Shard | None = None):
+    """One damped Gauss-Newton step with the dense [6P, 6P] H (with a
+    shard: summed over its edges and all-reduced)."""
     n = R.shape[0]
-    r, ji, jj = _edge_blocks(R, t, pg)
+    shard = shard or Shard(pg.ei.shape[0], None, plan, None)
+    plan = shard.plan
+    r, ji, jj = _edge_blocks(R, t, _edges(pg, shard.rows))
     tr = lambda a: a.transpose(-1, -2)
     blocks = torch.cat([tr(ji) @ ji, tr(ji) @ jj, tr(jj) @ ji, tr(jj) @ jj])
-    H = plan.joint.sum(blocks).reshape(n, n, 6, 6)
+    H = plan.joint.sum(blocks)
     g = torch.cat([-_mv(tr(ji), r), -_mv(tr(jj), r)])
-    b = plan.ends.sum(g)
+    H, b = shard.reduce([H, plan.ends.sum(g)])
+    H = H.reshape(n, n, 6, 6)
 
     Hm = H.permute(0, 2, 1, 3).reshape(n * 6, n * 6)
     eye = torch.eye(n * 6, dtype=Hm.dtype, device=Hm.device)
@@ -209,21 +222,27 @@ def _gn_step(R, t, pg: PoseGraph, plan: _Plan, damping, fix_first):
 
 
 def _gn_step_cg(R, t, pg: PoseGraph, plan: _Plan, damping, fix_first,
-                cg_iters: int, cg_tol: float):
+                cg_iters: int, cg_tol: float, shard: Shard | None = None):
     """Matrix-free edge-list Gauss-Newton step: never builds the
     [P,6,P,6] H.  Each CG matvec streams through the per-edge Jacobians
-    (two gathers + one segment sum), so memory is O(E + P)."""
+    (two gathers + one segment sum), so memory is O(E + P).  With a
+    shard, every edge sum runs over its edges and is all-reduced."""
     n = R.shape[0]
     dev = R.device
     mask = torch.ones((n, 6), dtype=torch.float32, device=dev)
     if fix_first:
         mask[0] = 0.0
+    shard = shard or Shard(pg.ei.shape[0], None, plan, None)
+    plan = shard.plan
+    pg = _edges(pg, shard.rows)
     r, ji, jj = _edge_blocks(R, t, pg)
     ei, ej = pg.ei.long(), pg.ej.long()
     tr = lambda a: a.transpose(-1, -2)
-    b = -plan.ends.sum(torch.cat([_mv(tr(ji), r), _mv(tr(jj), r)]))
-    # block-diagonal of H for damping + preconditioning
-    Hd = plan.ends.sum(torch.cat([tr(ji) @ ji, tr(jj) @ jj]))
+    # b and the block-diagonal of H (damping + preconditioning)
+    b, Hd = shard.reduce([
+        plan.ends.sum(torch.cat([_mv(tr(ji), r), _mv(tr(jj), r)])),
+        plan.ends.sum(torch.cat([tr(ji) @ ji, tr(jj) @ jj]))])
+    b = -b
     diag = torch.diagonal(Hd, dim1=-2, dim2=-1)
     eye6 = torch.eye(6, dtype=Hd.dtype, device=dev)[None]
     Hd_damped = Hd + damping * diag[:, :, None] * eye6 + 1e-8 * eye6
@@ -232,7 +251,8 @@ def _gn_step_cg(R, t, pg: PoseGraph, plan: _Plan, damping, fix_first,
     def h_matvec(v):
         v = v * mask
         y = _mv(ji, v[ei]) + _mv(jj, v[ej])
-        out = plan.ends.sum(torch.cat([_mv(tr(ji), y), _mv(tr(jj), y)]))
+        out = shard.reduce([plan.ends.sum(
+            torch.cat([_mv(tr(ji), y), _mv(tr(jj), y)]))])[0]
         out = (out + damping * diag * v + 1e-8 * v) * mask
         return out + v * (1.0 - mask) if fix_first else out
 
@@ -251,13 +271,20 @@ def optimize_pose_graph(pg: PoseGraph, mesh=None, iterations: int = 10,
     graph's device.
 
     solver="dense" builds H (fine for tens of keyframes); solver="cg" is
-    the matrix-free edge-list path for large graphs.  A mesh raises:
-    multi-device runs are not ported."""
-    _refuse_mesh(mesh)
+    the matrix-free edge-list path for large graphs.  mesh: a DeviceMesh
+    with a "data" axis (parallel/mesh.py); the edges are padded to its
+    size and their sums sharded over it (module docstring); every rank
+    passes the same graph and gets the same result."""
     if solver not in ("dense", "cg"):
         raise ValueError(f"solver must be 'dense' or 'cg', got {solver!r}")
+    if mesh is not None:
+        pg = pg.pad_edges(data_size(mesh))
     n = pg.R.shape[0]
-    plan = _Plan(pg, n, dense=solver == "dense")
+    dense = solver == "dense"
+    plan = _Plan(pg, n, dense)
+    shard = None if mesh is None else Shard(
+        pg.ei.shape[0], mesh, plan,
+        lambda rows: _Plan(_edges(pg, rows), n, dense))
     R, t = pg.R, pg.t
     c_cur = _edge_cost(R, t, pg)
     lam = torch.full((), damping, dtype=torch.float32, device=R.device)
@@ -265,9 +292,9 @@ def optimize_pose_graph(pg: PoseGraph, mesh=None, iterations: int = 10,
     for _ in range(iterations):
         if solver == "cg":
             Rn, tn = _gn_step_cg(R, t, pg, plan, lam, fix_first, cg_iters,
-                                 cg_tol)
+                                 cg_tol, shard)
         else:
-            Rn, tn = _gn_step(R, t, pg, plan, lam, fix_first)
+            Rn, tn = _gn_step(R, t, pg, plan, lam, fix_first, shard)
         c_new = _edge_cost(Rn, tn, pg)
         ok = c_new < c_cur
         R = torch.where(ok, Rn, R)

@@ -12,12 +12,20 @@ same inputs give the same bits on every run, on the CPU and on the card.
 
 `pcg` is klt_tpu's preconditioned CG `while_loop` with its stop rule
 read on the host only once every few iterations.
+
+`Shard` is a rank's part of a solve over a mesh (klt_tpu's shard_map with
+`psum` over "data"): its contiguous block of the observations (edges),
+whose partial normal equations are summed over the ranks by one
+all_reduce; everything else is computed on the whole, replicated problem,
+so every rank takes the same branches.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import all_reduce_sum, axis_size, block
 
 
 class Segments:
@@ -103,3 +111,29 @@ def pcg(matvec, precond, rhs: torch.Tensor, cg_iters: int,
         if k < cg_iters and not bool(torch.sum(rr * rr) > stop):
             break
     return x
+
+
+class Shard:
+    """This rank's block of m observations (edges) over a mesh's "data"
+    axis: `rows` slices them, `plan` is the solver's plan of that block
+    (made by make_plan(rows); the whole problem's `full` when the block
+    is everything), and `reduce(tensors)` sums partial results over the
+    axis with one all_reduce.  Without a mesh: everything, and reduce
+    returns its tensors as they are."""
+
+    def __init__(self, m: int, mesh, full, make_plan):
+        self.mesh = mesh
+        self.rows = slice(0, m) if mesh is None else \
+            block(mesh, "data", m, "observations")
+        self.plan = full if self.rows == slice(0, m) else \
+            make_plan(self.rows)
+
+    def reduce(self, tensors):
+        tensors = list(tensors)
+        return tensors if self.mesh is None else \
+            all_reduce_sum(tensors, self.mesh, "data")
+
+
+def data_size(mesh) -> int:
+    """The size of a mesh's "data" axis (1 without a mesh)."""
+    return 1 if mesh is None else axis_size(mesh, "data")

@@ -323,16 +323,6 @@ def test_pad_features_for_mesh_matches_klt_tpu():
             assert np.asarray(a).dtype == np.asarray(r).dtype
 
 
-def test_mesh_argument_raises():
-    frames, x, y, val = sequences()
-    cfg = kt.TrackingConfig()
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-        make_batch_step(cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-        track_batch(torch.from_numpy(frames),
-                    *features_from_numpy(x, y, val), cfg, mesh=object())
-
-
 def test_batched_cuda_wrapper_refuses_cpu_tensors():
     from klt_tpu_torch.cuda.lk_level import lk_level_batched_cuda
     cfg = kt.TrackingConfig()

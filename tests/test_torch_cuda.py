@@ -1422,3 +1422,94 @@ def test_pair_solve_on_card_equals_cpu_and_repeats(dev):
         assert torch.equal(a, b)
     for a, b in zip(res[0], res[2]):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-5)
+
+
+# ------------------------------------------------------------------ #
+# the tooling and multi-device on the card                             #
+# ------------------------------------------------------------------ #
+
+def test_world_of_one_nccl_mesh_equals_no_mesh(dev):
+    """Every mesh entry point over a world of one on NCCL (make_mesh
+    starts it) bit-equal to mesh=None, on the card."""
+    import torch.distributed as dist
+    from klt_tpu_torch.parallel import make_mesh
+    from klt_tpu_torch.parallel.worker import (bits_equal, solver_runs,
+                                               tracking_runs)
+    assert not dist.is_initialized()
+    try:
+        mesh = make_mesh()
+        assert dist.get_backend() == "nccl"
+        runs = tracking_runs(mesh, None, 16, dev) + \
+            tracking_runs(make_mesh({"data": 1, "feat": 1}), "feat", 16,
+                          dev) + solver_runs(mesh, dev)
+        assert len(runs) == 9
+        for name, got, ref in runs:
+            assert all(bits_equal(g, r) for g, r in zip(got, ref)), name
+    finally:
+        dist.destroy_process_group()
+
+
+def test_checks_launch_nothing_when_off(dev, monkeypatch):
+    """With KLT_TPU_DEBUG unset a check makes no device launch and no host
+    sync; with it set, one sync (the flag's read) and one warning."""
+    import warnings
+    from torch.profiler import ProfilerActivity, profile
+    from klt_tpu_torch.utils import checks
+    x = torch.tensor([3.0, -1.0], device=dev)
+    y = torch.tensor([3.0, 4.0], device=dev)
+    torch.cuda.synchronize()
+
+    def run():
+        checks.check_in_bounds(x, y, 80, 64, "lanes")
+        checks.check_finite(x, "x")
+        checks.check_same_shape(x, y, "pair")
+
+    monkeypatch.delenv("KLT_TPU_DEBUG", raising=False)
+    with warnings.catch_warnings(record=True):   # the mode's first use
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        torch.cuda.set_sync_debug_mode(0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                run()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    msgs = [str(w.message) for w in caught]
+    assert not [m for m in msgs if "synchroniz" in m or "debug check" in m], \
+        msgs
+    assert not [e for e in prof.events() if "CUDA" in str(e.device_type) or
+                "LaunchKernel" in e.name]
+    monkeypatch.setenv("KLT_TPU_DEBUG", "1")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    msgs = [str(w.message) for w in caught]
+    assert sum("debug check failed: lanes" in m for m in msgs) == 1
+    assert sum("synchroniz" in m for m in msgs) >= 1
+
+
+def test_write_internal_images_from_card_tensors(dev, tmp_path):
+    """The PGMs of kernel A's stacks on the card are the plain CPU
+    stacks' bytes."""
+    from klt_tpu_torch.utils.debug import write_internal_images
+    img = scene()
+    cfg = kt.TrackingConfig()
+    out = {}
+    for name, st in (("card", build_pyramid_stacks(
+            torch.from_numpy(img).to(dev), cfg)),
+            ("cpu", build_pyramid_stacks_plain(torch.from_numpy(img), cfg))):
+        paths = write_internal_images([s[0] for s in st], [s[1] for s in st],
+                                      [s[2] for s in st],
+                                      str(tmp_path / name))
+        out[name] = [open(p, "rb").read() for p in paths]
+    assert len(out["card"]) == 3 * cfg.n_pyramid_levels
+    assert out["card"] == out["cpu"]

@@ -3,8 +3,9 @@ klt_tpu/slam on the CPU: geometry and so3_log, Jacobians from torch.func
 against jax.jacfwd, chains and keyframes, one Gauss-Newton step of each
 solver, tests/test_slam.py's cases run on both packages (its assertions
 applied to the port), LM cost curves, the fixed-order segment sums and
-the refused mesh.  Inputs are numpy arrays made from seeds (the problems
-of tests/test_slam.py) and handed to both packages."""
+the padding for a mesh (the mesh runs: tests/test_torch_mesh.py).
+Inputs are numpy arrays made from seeds (the problems of
+tests/test_slam.py) and handed to both packages."""
 
 import dataclasses
 
@@ -533,17 +534,11 @@ def test_interop_round_trips():
         ba_problem_from_numpy({"R": fields["R"]})
 
 
-def test_mesh_raises():
+def test_padding_for_a_mesh_changes_no_cost():
+    """Zero-weight rows that change no cost."""
     prob = port(_synthetic_problem(np.random.RandomState(0), n_pose=2,
                                    n_lm=8)[0])
     pg = port_pg(_synthetic_pose_graph(np.random.RandomState(5))[0])
-    for call in (lambda: ba.bundle_adjust(prob, mesh=object()),
-                 lambda: ba.bundle_adjust_cg(prob, mesh=object()),
-                 lambda: ba.bundle_adjust_gated(prob, mesh=object()),
-                 lambda: pose_graph.optimize_pose_graph(pg, mesh=object())):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            call()
-    # padding for a mesh is ported: zero-weight rows that change no cost
     padded = prob.pad_observations(8)
     assert padded.cam_idx.shape[0] % 8 == 0
     assert float(ba._total_cost(prob.R, prob.t, prob.landmarks, padded)) == \

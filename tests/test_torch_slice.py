@@ -193,6 +193,40 @@ def test_port_runs_without_jax():
     assert int(out.stdout.split()[-1]) > 10
 
 
+# names that klt_tpu's packages export and the port never will, each with
+# its reason; empty: every exported name has its counterpart
+NEVER_PORTED = {}
+
+
+def _packages_with_all():
+    import importlib
+    import pkgutil
+    names = [""] + sorted(m.name for m in pkgutil.iter_modules(
+        klt_tpu.__path__) if m.ispkg)
+    for name in names:
+        ref = importlib.import_module("klt_tpu" + (f".{name}" if name else ""))
+        if hasattr(ref, "__all__"):
+            yield name, ref
+
+
+def test_port_exports_every_name_klt_tpu_does():
+    """For klt_tpu and each of its subpackages with an __all__, the
+    port's package of the same name exports every name, less
+    NEVER_PORTED."""
+    import importlib
+    seen = []
+    for name, ref in _packages_with_all():
+        port = importlib.import_module(
+            "klt_tpu_torch" + (f".{name}" if name else ""))
+        missing = set(ref.__all__) - set(port.__all__) - set(NEVER_PORTED)
+        assert not missing, (name or "klt_tpu_torch", sorted(missing))
+        for n in port.__all__:
+            assert hasattr(port, n), (name, n)
+        seen.append(name)
+    assert {"", "io", "ops", "parallel", "runtime", "slam",
+            "utils"} <= set(seen)
+
+
 def test_port_sources_import_neither_jax_nor_klt_tpu():
     pat = re.compile(r"^\s*(import|from)\s+\.*(jax|klt_tpu)\b", re.M)
     pkg = os.path.join(ROOT, "klt_tpu_torch")
