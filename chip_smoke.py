@@ -68,6 +68,14 @@ paths:
   track_batch over a mesh at the batched flagship's size, the bundle
   adjustments and the CG pose graph at the scale tests' sizes, each
   bit-equal to mesh=None, and dryrun_multichip(1);
+* the whole-sequence programs: every sequence entry runs its frame loop
+  as CUDA graphs of chunks of steps (cuda/graph.py), and every path above
+  goes through them; phase 40 holds each graphed entry bit-equal to the
+  eager step loop it replaced (`_run_eager`, `_replace_exact_eager`) on
+  the six cells of PERF.md section 5 (the exact run over the first 100
+  traffic frames, and the tie flagship, whose repair resumes inside a
+  chunk), with the eager loop's launches, one warning from the debug
+  checks inside the graphs, and a capture that fails raising;
 
 checks the tracks against the known motion of the synthetic frames and
 against the plain versions on the CPU, checks that the replacement loop
@@ -142,6 +150,7 @@ from klt_tpu_torch.runtime.pipeline import (PRECOMP_FRAMES, track_sequence,
                                             track_sequence_replace,
                                             track_sequence_replace_exact)
 from klt_tpu_torch.utils import profiling
+from klt_tpu_torch.cuda import graph
 from klt_tpu_torch.cuda.exact import (exact_response_cuda,
                                       exact_response_global_cuda,
                                       library_exact_tile_rows,
@@ -1571,12 +1580,15 @@ def run_replace_traffic(frames, n_feats, cfg, tag, n_cpu) -> int:
 def phase_no_sync(frames, n_feats, cfg) -> None:
     """track_sequence_replace's frame loop with kernels, frames and
     features on the card, under torch's sync debug mode "error": any
-    host synchronisation inside raises."""
+    host synchronisation inside raises.  Runs before it capture the
+    graphs (a capture synchronises once)."""
     fl = klt.FeatureList.create(n_feats)
     klt.KLTracker(cfg).select_good_features(frames[0], fl)
     dev_frames = torch.from_numpy(frames).cuda()
     feats = [torch.from_numpy(a).cuda() for a in (fl.x, fl.y, fl.val)]
-    track_sequence_replace(dev_frames, *feats, cfg, precomp=True)
+    for pre in (False, True):
+        track_sequence_replace(dev_frames, *feats, cfg, precomp=pre)
+        track_sequence_replace(dev_frames, *feats, cfg, precomp=pre)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1798,12 +1810,13 @@ def phase_profile(frames, n_feats, cfg) -> None:
         # one launch of R and one of D a step; the pre-smoothing and one
         # launch per level for each frame's pyramid; with B and torch's
         # three copies of the table's rows 9.0 launches a step (the first
-        # frame's pyramid adds 3 / steps)
+        # frame's pyramid adds 3 / steps, the graphed loop its copies)
         expect={"kernel R (replace_lost)": len(frames) - 1,
                 "kernel D (response_tiles)": len(frames) - 1,
                 "kernel A (pyramid_tiles)":
                     len(frames) * (1 + cfg.n_pyramid_levels)},
-        per_step=9.0 + (1 + cfg.n_pyramid_levels) / (len(frames) - 1))
+        per_step=9.0 + (1 + cfg.n_pyramid_levels) / (len(frames) - 1) +
+        graph_overhead(len(frames) - 1, cfg.n_pyramid_levels))
 
 
 def phase_profile_tracking(frames, n_feats, cfg) -> None:
@@ -1899,11 +1912,12 @@ def phase_batched_lk(cases, cfgs, errs) -> None:
 def batched_launches_expected(shape, cfg) -> dict:
     """Kernel launches of one track_sequences_batched run and one with
     precomp on [B, T, H, W] frames: kernel E once per frame index (with
-    precomp once per chunk), kernel C's pyramid entry once per step."""
+    precomp once for the first and then per chunk, precomp_launches),
+    kernel C's pyramid entry once per step."""
     b, t_len = shape[:2]
-    per_launch = max(1, PRECOMP_FRAMES // b)
     want = {k.symbol: 0 for k in cuda.KERNELS}
-    want[cuda.PYRAMID_BATCHED.symbol] = t_len + -(-t_len // per_launch)
+    want[cuda.PYRAMID_BATCHED.symbol] = t_len + 1 + precomp_launches(
+        t_len - 1, b)
     want[cuda.LK_PYRAMID_BATCHED.symbol] = 2 * (t_len - 1)
     return want
 
@@ -2445,7 +2459,7 @@ def run_affine(frames, n_feats, cfg, tag, n_cpu) -> dict:
     steps = t_len - 1
     want = {k.symbol: 0 for k in cuda.KERNELS} | {
         cuda.PYRAMID.symbol: 2 * t_len + 1,
-        cuda.PYRAMID_BATCHED.symbol: -(-steps // PRECOMP_FRAMES),
+        cuda.PYRAMID_BATCHED.symbol: precomp_launches(steps),
         cuda.LK_PYRAMID.symbol: 3 * steps,
         cuda.AFFINE_STEP.symbol: 3 * steps}
     print(f"[{tag}] launches {launches} (expected {want})")
@@ -2523,6 +2537,8 @@ def run_affine(frames, n_feats, cfg, tag, n_cpu) -> dict:
     check(worst_med <= 0.5, "a frame's median error is above 0.5 px")
     check(worst_frac >= 0.90, "under 90% of a frame's tracks within 1 px")
 
+    # a first run captures its graphs, which synchronises once
+    track_sequence_affine(dev_frames[:12], *feats, cfg)
     torch.cuda.set_sync_debug_mode("error")
     try:
         track_sequence_affine(dev_frames[:12], *feats, cfg)
@@ -2653,8 +2669,9 @@ def phase_affine_profile(frames, n_feats, cfg) -> None:
 def batched_affine_launches(shape, cfg) -> dict:
     """Kernel launches of one track_sequences_affine_batched run and one
     with precomp on [B, T, H, W] frames: kernel E once per frame index
-    (with precomp once per max(1, PRECOMP_FRAMES // B) of them), kernel
-    C's pyramid entry and kernel F's step entry once per step."""
+    (with precomp once for the first and then per chunk,
+    precomp_launches), kernel C's pyramid entry and kernel F's step entry
+    once per step."""
     want = batched_launches_expected(shape, cfg)
     want[cuda.AFFINE_STEP.symbol] = 2 * (shape[1] - 1)
     return want
@@ -2830,6 +2847,8 @@ def run_batched_affine(frames, feats, cfg, tag, n_cpu) -> dict:
     check(worst["med"] <= 0.5, "a frame's median error is above 0.5 px")
     check(worst["frac"] >= 0.90, "under 90% of a frame's tracks within 1 px")
 
+    # a first run captures its graphs, which synchronises once
+    track_sequences_affine_batched(dev_frames[:, :12], *featd, cfg)
     torch.cuda.set_sync_debug_mode("error")
     try:
         track_sequences_affine_batched(dev_frames[:, :12], *featd, cfg)
@@ -3072,14 +3091,19 @@ def no_plain_versions(plain=EXACT_PLAIN):
 
 
 @contextmanager
-def counting_repairs(repaired: list):
+def counting_repairs(repaired: list, seconds: list | None = None):
     """Appends to `repaired` each frame repaired on the host (its pixels'
-    sum, to tell frames apart) while the block runs."""
+    sum, to tell frames apart) while the block runs, and to `seconds` the
+    host seconds of each repair."""
     orig = pipeline._repair_replacement_host
 
     def spy(frame, *args):
         repaired.append(int(frame.to(torch.int64).sum()))
-        return orig(frame, *args)
+        t0 = time.perf_counter()
+        out = orig(frame, *args)
+        if seconds is not None:
+            seconds.append(time.perf_counter() - t0)
+        return out
 
     pipeline._repair_replacement_host = spy
     try:
@@ -3759,7 +3783,7 @@ def run_slam(frames, n_feats, tag, n_cpu) -> dict:
     launches = launch_counts()
     want = {k.symbol: 0 for k in cuda.KERNELS} | {
         cuda.PYRAMID.symbol: 1,
-        cuda.PYRAMID_BATCHED.symbol: -(-steps // PRECOMP_FRAMES),
+        cuda.PYRAMID_BATCHED.symbol: precomp_launches(steps),
         cuda.LK_PYRAMID.symbol: steps,
         cuda.CORNER_RESPONSE.symbol: steps,
         cuda.REPLACE_LOST.symbol: steps}
@@ -4409,6 +4433,201 @@ def phase_multi_device(flag_b, flag_feats, cfg, tag: str) -> dict:
     return launch_counts()
 
 
+# ------------------------------------------------------------------ #
+# whole-sequence programs: the graphed entries against their eager     #
+# loops                                                                #
+# ------------------------------------------------------------------ #
+
+def graph_overhead(steps: int, nlev: int, longest: int = graph.K) -> float:
+    """Device copies a step that the graphed loop adds to a single-sequence
+    entry's (runtime/pipeline.py::_run): per call the first frame's stacks
+    and the features into the static buffers (nlev + 3), per chunk the
+    frames into the staging buffer, the last stacks and features carried
+    (nlev + 3) and the table's rows out (3)."""
+    chunks = len(graph.chunk_lengths(steps, longest))
+    return (nlev + 3 + chunks * (nlev + 7)) / steps
+
+
+def precomp_launches(steps: int, b: int = 1) -> int:
+    """Kernel E's launches with precomp over `steps` steps of b sequences
+    (the first frame apart): each chunk of the graphed loop builds its
+    frames in launches of max(1, PRECOMP_FRAMES // b) frame indices."""
+    per = max(1, PRECOMP_FRAMES // b)
+    return sum(-(-n // per) for n in graph.chunk_lengths(steps, graph.K))
+
+
+def graph_replays() -> int:
+    return sum(p.replays for _, p in graph.programs())
+
+
+def graph_cell(tag: str, name: str, graphed, eager, steps: int,
+               exact: bool = False) -> dict:
+    """One cell of phase 40: the graphed entry's first call (the key's
+    warm-up chunk and its captures) and a second one (replays only), both
+    bit-equal to its eager loop; each call's kernel launches equal to the
+    eager loop's (the exact tier: every computed step one launch each of
+    A, G, H2 and R's tie entry, as its chunking after a repair may differ);
+    graphs replayed.  Prints the key's capture plus instantiation time.
+    Returns the warm call's launches."""
+    known = {id(p) for _, p in graph.programs()}
+    runs = {}
+    for run, fn in (("cold", graphed), ("warm", graphed), ("eager", eager)):
+        before, replays = launch_counts(), graph_replays()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        after = launch_counts()
+        runs[run] = (out, {k: after[k] - before[k] for k in after},
+                     graph_replays() - replays, secs)
+    new = [p for _, p in graph.programs() if id(p) not in known]
+    ref = runs["eager"][0]
+    same = {run: all(bits_equal(a, b) for a, b in zip(runs[run][0], ref))
+            for run in ("cold", "warm")}
+    nz = lambda c: {k: v for k, v in c.items() if v}
+    print(f"[{tag}] {name}, {steps} steps: bit-equal to the eager loop "
+          f"{same}; graphs {sum(len(p.graphs) for p in new)} of "
+          f"{len(new)} key(s), capture and instantiation "
+          f"{sum(p.capture_seconds() for p in new) * 1e3:.1f} ms; replays "
+          f"cold {runs['cold'][2]}, warm {runs['warm'][2]}; seconds cold "
+          f"{runs['cold'][3]:.3f}, warm {runs['warm'][3]:.3f}, eager "
+          f"{runs['eager'][3]:.3f}; launches warm "
+          f"{nz(runs['warm'][1])}, eager {nz(runs['eager'][1])}")
+    check(all(same.values()), f"{name}: the graphed run differs from the "
+          f"eager loop")
+    check(runs["warm"][2] > 0, f"{name}: no graph replayed")
+    if not exact:
+        check(runs["cold"][1] == runs["warm"][1] == runs["eager"][1],
+              f"{name}: the graphed run's launches differ from the eager "
+              f"loop's")
+    return runs["warm"][1]
+
+
+def graph_capture_error(tag: str) -> None:
+    """A chunk function that reads the host cannot be captured: the
+    program raises at its first capture (after the eager warm-up) and
+    runs nothing in its place."""
+    flag = torch.zeros(1, device="cuda")
+    prog = graph.Program(None, lambda n: float(flag.sum()),
+                         torch.device("cuda"), capture=True)
+    from klt_tpu_torch.utils.checks import Flags
+    prog.run(1, Flags())          # the warm-up runs eagerly
+    try:
+        prog.run(1, Flags())
+    except RuntimeError as e:
+        msg = str(e).splitlines()[0]
+    else:
+        msg = None
+    torch.cuda.synchronize()
+    print(f"[{tag}] a chunk function that reads the host: its capture "
+          f"raised {msg!r}")
+    check(msg is not None, "a failed capture did not raise")
+
+
+def phase_graphs(cells: dict, cfg, acfg, tag: str) -> dict:
+    """Phase 40: each graphed sequence entry (cuda/graph.py) on the six
+    cells against its eager loop (`_run_eager`, `_replace_exact_eager`),
+    launches per step equal, the debug checks' one warning from inside
+    the graphs, a capture that fails raising.  cells: name -> inputs.
+    Returns each cell's launches per step (warm graphed call)."""
+    from klt_tpu_torch.parallel import batched_affine, batched_lk
+    graph._clear()   # every key captured here, so its cost is printed
+    per_step = {}
+
+    def single(name, frames, n_feats, seq, eager_kw, c=cfg):
+        fl = select_on(frames[0], n_feats, c)
+        f = torch.from_numpy(frames).cuda()
+        feats = [torch.from_numpy(a).cuda() for a in (fl.x, fl.y, fl.val)]
+        steps = len(frames) - 1
+        got = graph_cell(tag, name, lambda: seq(f, *feats, c),
+                         lambda: pipeline._run_eager(f, *feats, c, False,
+                                                     False, **eager_kw),
+                         steps)
+        per_step[name] = {k: round(v / steps, 3) for k, v in got.items()}
+        return f, feats
+
+    f, feats = single("track_sequence 640x480", cells["vga"], 2000,
+                      track_sequence, {})
+    single("replace run 640x480 x 500", cells["traffic"], 500,
+           track_sequence_replace, {"replace": True})
+    single("affine run 640x480", cells["aff"], 2000, track_sequence_affine,
+           {"affine": True}, acfg)
+    for name, frames, feats_b, c, seq, eager in (
+            ("batched 32 x 320x240 x 150", cells["flag_b"],
+             cells["flag_feats"], cfg, track_sequences_batched,
+             batched_lk._run_eager),
+            ("batched affine 8 x 640x480", cells["aff_b"],
+             cells["aff_b_feats"], acfg, track_sequences_affine_batched,
+             batched_affine._run_eager)):
+        fb = torch.from_numpy(frames).cuda()
+        fd = [torch.from_numpy(a).cuda() for a in feats_b]
+        steps = frames.shape[1] - 1
+        got = graph_cell(tag, name, lambda: seq(fb, *fd, c),
+                         lambda: eager(fb, *fd, c), steps)
+        per_step[name] = {k: round(v / steps, 3) for k, v in got.items()}
+        del fb, fd
+
+    # the exact run: the traffic frames, then the tie-forcing flagship,
+    # whose repair resumes in the middle of a chunk
+    for name, frames, n_feats in (
+            ("exact run 640x480 x 500", cells["exact"], 500),
+            ("exact flagship with a tie 320x240 x 150", cells["tie"], 150)):
+        fl = select_on(frames[0], n_feats, cfg)
+        fe = torch.from_numpy(frames).cuda()
+        fd = [torch.from_numpy(a).cuda() for a in (fl.x, fl.y, fl.val)]
+        reps = {"graph": [], "eager": []}
+        secs = {"graph": [], "eager": []}
+
+        def run(kind, fn):
+            reps[kind].clear()
+            secs[kind].clear()
+            with no_plain_versions(), counting_repairs(reps[kind],
+                                                       secs[kind]):
+                return fn(fe, *fd, cfg)
+        got = graph_cell(
+            tag, name, lambda: run("graph", track_sequence_replace_exact),
+            lambda: run("eager", pipeline._replace_exact_eager),
+            len(frames) - 1, exact=True)
+        check_exact_launches(tag, got, reps["graph"], len(frames), "exact")
+        print(f"[{tag}] {name}: frames repaired, graphed {reps['graph']}, "
+              f"eager {reps['eager']}; host seconds of the repairs "
+              f"{[round(v, 4) for v in secs['graph']]} (graphed), "
+              f"{[round(v, 4) for v in secs['eager']]} (eager)")
+        check(reps["graph"] == reps["eager"], f"{name}: the graphed run "
+              f"repaired other frames than the eager loop")
+        if "tie" in name:
+            check(len(reps["graph"]) >= 1, "the tie flagship repaired no "
+                  "frame")
+        steps = max(1, got[cuda.REPLACE_LOST_TIE.symbol])
+        per_step[name] = {k: round(v / steps, 3) for k, v in got.items()}
+
+    # the debug checks from inside the graphs: one warning, the same table
+    fl = select_on(cells["vga"][0], 2000, cfg)
+    x = fl.x.copy()
+    x[0] = -5.0
+    val = fl.val.copy()
+    val[0] = 0
+    planted = [torch.from_numpy(a).cuda() for a in (x, fl.y, val)]
+    off = track_sequence(f, *planted, cfg)
+    os.environ["KLT_TPU_DEBUG"] = "1"
+    try:
+        track_sequence(f, *planted, cfg)     # the debug key's captures
+        replays = graph_replays()
+        on, msgs = debug_warnings(lambda: track_sequence(f, *planted, cfg))
+        replays = graph_replays() - replays
+    finally:
+        del os.environ["KLT_TPU_DEBUG"]
+    same = all(bits_equal(a, b) for a, b in zip(on, off))
+    print(f"[{tag}] KLT_TPU_DEBUG=1, feature 0 planted at x = -5, {replays} "
+          f"replays: {len(msgs)} warning(s) {msgs}; table the same as with "
+          f"debug off: {same}")
+    check(len(msgs) == 1 and same and replays > 0,
+          "the graphed debug checks did not warn once, or changed the table")
+    graph_capture_error(tag)
+    return per_step
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -4556,7 +4775,7 @@ def main() -> int:
         cuda.PYRAMID.symbol: 2 * len(qvga) + 2 * n_traffic + 1,
         cuda.LK_PYRAMID.symbol: 2 * steps_q + 3 * steps_t,
         cuda.CORNER_RESPONSE.symbol: steps_q + lost_q + 2 * steps_t + lost_t,
-        cuda.PYRAMID_BATCHED.symbol: -(-steps_t // PRECOMP_FRAMES),
+        cuda.PYRAMID_BATCHED.symbol: precomp_launches(steps_t),
         cuda.REPLACE_LOST.symbol: steps_q + 2 * steps_t,
     }
     print(f"[10-11 launches] {replace_launches} (expected {want})")
@@ -4659,6 +4878,16 @@ def main() -> int:
     for tag, counts in (("38", tooling_launches), ("39", mesh_launches)):
         print(f"[{tag} launches] "
               f"{ {k: n for k, n in counts.items() if n} }")
+
+    # path 15: every graphed sequence entry against its eager loop on the
+    # six cells of PERF.md section 5
+    with phase("40 graphs"):
+        graph_steps = phase_graphs(
+            {"vga": vga, "traffic": traffic, "aff": aff, "flag_b": flag_b,
+             "flag_feats": flag_feats, "aff_b": aff_b,
+             "aff_b_feats": aff_b_feats, "exact": traffic[:EXACT_CPU_FRAMES],
+             "tie": tie_frames(qvga, 5)}, cfg, acfg, "40 graphs")
+        per_step.update({f"40 {k}": v for k, v in graph_steps.items()})
 
     with phase("12 no sync"):
         phase_no_sync(traffic[:PRECOMP_FRAMES + 2], 500, cfg)

@@ -2,6 +2,7 @@
 
     python3 -m klt_tpu_torch.bench_lk [--tag NAME] [--reps N]
                                       [--wrapper-only] [--kernels-only]
+                                      [--graphs [--graph-k K,K,..]]
 
 run from the root of a checkout (it takes its synthetic frames from
 chip_smoke.py).  For each cell it prints one JSON line: frames/s and wall
@@ -42,6 +43,20 @@ call of A, of E and of D, in order.  --kernels-only prints that line
 and the exact kernels' line alone (the exact run then runs once, untimed,
 to give their states).
 
+--graphs times the whole-sequence programs (cuda/graph.py) against the
+eager step loops they replaced (`_run_eager`, `_replace_exact_eager`) on
+the six cells of PERF.md section 5: `track_sequence` 640x480 x 2000
+requested over 101 frames, the replace run 640x480 x 500 over 551, the
+batched flagship 32 x 320x240 x 150, the affine run 640x480 x 2000
+requested over 100 affine frames, the batched affine run 8 x 640x480 over
+101, the exact run 640x480 x 500 over 101.  In one process, in turns
+eager, graphs, graphs, eager, --reps runs each: one JSON line per cell
+with the wall per step and frames/s of every run (host clock around
+synchronised runs), device time per step and busy share from one profiled
+run of each, and the capture and instantiation time of the cell's key
+(its first call, cache emptied).  --graph-k 8,16,32 repeats the cells with
+each chunk length K (cuda/graph.py's constant, set for the measurement).
+
 A last JSON line gives the host's cost of enqueueing one frame pair at
 640x480 (clock around a tight loop of calls, nothing awaited): the LK
 pyramid wrapper and its parts, kernel A's wrapper and a table-row copy;
@@ -64,6 +79,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import re
 import subprocess
@@ -468,12 +484,127 @@ def exact_runs(args, tag: str, card: str, timed: bool = True) -> None:
     exact_kernel_costs(f, run(), cfg, tag, card)
 
 
+def graph_cells(cfg):
+    """The six cells of PERF.md section 5: (name, graphed run, eager run,
+    steps, frames a step), inputs on the card."""
+    from chip_smoke import (affine_config, batched_affine_frames,
+                            batched_features, affine_frames)
+    from klt_tpu_torch.parallel import (batched_affine, batched_lk,
+                                        track_sequences_affine_batched)
+    from klt_tpu_torch.runtime import pipeline
+    acfg = affine_config()
+    cells = []
+    for name, frames, n, c, kw in (
+            ("track_sequence 640x480 x 2000 requested",
+             synthetic_frames(101, scale=2), 2000, cfg, {}),
+            ("track_sequence_replace 640x480 x 500",
+             synthetic_frames(551, scale=2), 500, cfg, {"replace": True}),
+            ("track_sequence_affine 640x480 x 2000 requested",
+             affine_frames(100, scale=2), 2000, acfg, {"affine": True})):
+        f = torch.from_numpy(frames).cuda()
+        feats = [torch.from_numpy(a).cuda() for a in select(frames[0], n, c)]
+        seq = (pipeline.track_sequence_replace if kw.get("replace") else
+               pipeline.track_sequence_affine if kw.get("affine") else
+               track_sequence)
+        cells.append((f"{name}, {int((feats[2] >= 0).sum())} live",
+                      functools.partial(seq, f, *feats, c),
+                      functools.partial(pipeline._run_eager, f, *feats, c,
+                                        False, False, **kw),
+                      len(frames) - 1, 1))
+    for name, frames, n, c, seq, eager in (
+            ("track_sequences_batched 32 x 320x240 x 150",
+             batched_frames(32, 10), 150, cfg, track_sequences_batched,
+             batched_lk._run_eager),
+            ("track_sequences_affine_batched 8 x 640x480 x 2000 requested",
+             batched_affine_frames(8, 101, scale=2), 2000, acfg,
+             track_sequences_affine_batched, batched_affine._run_eager)):
+        feats = batched_features(frames, n, c)
+        f = torch.from_numpy(frames).cuda()
+        featd = [torch.from_numpy(a).cuda() for a in feats]
+        cells.append((f"{name}, {int((feats[2] >= 0).sum())} live",
+                      functools.partial(seq, f, *featd, c),
+                      functools.partial(eager, f, *featd, c),
+                      frames.shape[1] - 1, frames.shape[0]))
+    frames = synthetic_frames(101, scale=2)
+    f = torch.from_numpy(frames).cuda()
+    feats = [torch.from_numpy(a).cuda() for a in select(frames[0], 500, cfg)]
+    cells.append(("track_sequence_replace_exact 640x480 x 500",
+                  functools.partial(pipeline.track_sequence_replace_exact, f,
+                                    *feats, cfg),
+                  functools.partial(pipeline._replace_exact_eager, f,
+                                    *feats, cfg), len(frames) - 1, 1))
+    return cells
+
+
+def graph_runs(args, tag: str, card: str) -> None:
+    """The graphed entries against their eager loops, in turns."""
+    from klt_tpu_torch.cuda import graph
+    cells = graph_cells(klt.TrackingConfig(sequential_mode=True))
+    k0 = graph.K
+    try:
+        _graph_sweep(args, cells, tag, card)
+    finally:
+        graph.K = k0
+        graph._clear()
+
+
+def _graph_sweep(args, cells, tag: str, card: str) -> None:
+    from klt_tpu_torch.cuda import graph
+    for k in args.graph_k:
+        graph.K = k
+        for name, graphed, eager, steps, per in cells:
+            graph._clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            graphed()
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            progs = [p for _, p in graph.programs()]
+            walls = {"eager": [], "graphs": []}
+            for mode in ("eager", "graphs", "graphs", "eager"):
+                run = graphed if mode == "graphs" else eager
+                run()
+                torch.cuda.synchronize()
+                for _ in range(args.reps):
+                    t0 = time.perf_counter()
+                    run()
+                    torch.cuda.synchronize()
+                    walls[mode].append(time.perf_counter() - t0)
+            out = {"tag": tag, "card": card, "K": k, "cell": name,
+                   "steps": steps,
+                   "capture_ms": 1e3 * sum(p.capture_seconds()
+                                           for p in progs),
+                   "n_graphs": sum(len(p.graphs) for p in progs),
+                   "first_call_ms": first * 1e3}
+            for mode, run in (("eager", eager), ("graphs", graphed)):
+                w = sorted(walls[mode])
+                prof = profile(run, steps)
+                dev_us = prof["lk_device_us_per_step"] + \
+                    prof["other_device_us_per_step"]
+                out[mode] = {
+                    "wall_us_per_step": [round(v * 1e6 / steps, 1)
+                                         for v in w],
+                    "frames_per_s": [round(steps * per / v, 1)
+                                     for v in w[::-1]],
+                    "device_us_per_step": dev_us,
+                    "busy_share_profiled":
+                        prof["device_busy_share_profiled"],
+                    "busy_share": dev_us / (float(np.median(w)) * 1e6 /
+                                            steps),
+                    "launches_per_step": prof["lk_launches_per_step"] +
+                        prof["other_launches_per_step"]}
+            print(json.dumps(out), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tag", default="this")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--wrapper-only", action="store_true")
     ap.add_argument("--kernels-only", action="store_true")
+    ap.add_argument("--graphs", action="store_true")
+    ap.add_argument("--graph-k", default="",
+                    type=lambda v: [int(k) for k in v.split(",") if k])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("bench_lk: no CUDA device", file=sys.stderr)
@@ -491,6 +622,11 @@ def main() -> int:
     if args.kernels_only:
         kernel_costs(cfg, args.tag, card)
         exact_runs(args, args.tag, card, timed=False)
+        return 0
+    if args.graphs:
+        from klt_tpu_torch.cuda import graph
+        args.graph_k = args.graph_k or [graph.K]
+        graph_runs(args, args.tag, card)
         return 0
 
     qvga = synthetic_frames(10)

@@ -7,7 +7,9 @@ nvcc process per source, all started together, then one link.
 Each C entry enqueues its kernels on the stream it is given and returns
 `cudaGetLastError()`; a `Kernel` raises when that is not cudaSuccess and
 otherwise counts one launch, so a run can show which kernels its main
-path went through.
+path went through.  Under a CUDA graph (cuda/graph.py) the C entries run
+once, at capture, which launches nothing: the capture's counts are taken
+back and credited on every replay.
 
 No flag relaxes IEEE arithmetic: `/` and `sqrtf` stay correctly rounded,
 and `-fmad=false` keeps every multiply and add separately rounded, in
@@ -346,6 +348,27 @@ LK_MAX_LEVELS = 8
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+
+
+def launch_counts() -> tuple[int, ...]:
+    """Every kernel's count, in the order of KERNELS."""
+    return tuple(k.launches for k in KERNELS)
+
+
+def take_launches(before: tuple[int, ...]) -> tuple[int, ...]:
+    """The launches each kernel counted since `before` (launch_counts()),
+    taken off its count again: a stream capture calls the C entries but
+    runs nothing on the card (cuda/graph.py credits them per replay)."""
+    taken = tuple(k.launches - b for k, b in zip(KERNELS, before))
+    for k, b in zip(KERNELS, before):
+        k.launches = b
+    return taken
+
+
+def credit_launches(launches: tuple[int, ...]) -> None:
+    """Add a replayed graph's launches (take_launches) to the counts."""
+    for k, n in zip(KERNELS, launches):
+        k.launches += n
 
 
 def check_cuda_tensor(t, name: str, dtype, ndim: int) -> None:

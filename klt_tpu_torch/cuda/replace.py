@@ -8,6 +8,9 @@ The plain torch version of both is `ops.replace.replace_lost_plain_`
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
 
 from ..config import TrackingConfig
@@ -19,6 +22,24 @@ from . import (REPLACE_LOST, REPLACE_LOST_TIE, REPLACE_MAX_TILES,
 # knows itself): one zeroed int per stream, which every call leaves 0.
 # Calls on one stream run in order, so they can share it.
 _tickets: dict[tuple[int, int], torch.Tensor] = {}
+
+# Under a CUDA graph's capture, the ticket of the graph's program
+# (cuda/graph.py), made and zeroed before the capture: one made inside it
+# would be zeroed only by a node of the graph and would live in the
+# graph's pool, and graphs replayed on other streams would share it.
+_graph_ticket: contextvars.ContextVar = contextvars.ContextVar(
+    "klt_replace_graph_ticket", default=None)
+
+
+@contextlib.contextmanager
+def graph_ticket(ticket: torch.Tensor):
+    """Kernel R (both entries) takes `ticket`, a zeroed one-element int32
+    tensor, while this context captures a graph."""
+    token = _graph_ticket.set(ticket)
+    try:
+        yield
+    finally:
+        _graph_ticket.reset(token)
 
 
 def _launch(kernel, resp, x, y, val, cfg: TrackingConfig, tie=None) -> None:
@@ -49,10 +70,15 @@ def _launch(kernel, resp, x, y, val, cfg: TrackingConfig, tie=None) -> None:
                           device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        ticket = _tickets.get((dev.index, stream))
+        ticket = _graph_ticket.get()
         if ticket is None:
-            ticket = _tickets[dev.index, stream] = torch.zeros(
-                1, dtype=torch.int32, device=dev)
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("kernel R captured without its graph's "
+                                   "ticket (cuda.replace.graph_ticket)")
+            ticket = _tickets.get((dev.index, stream))
+            if ticket is None:
+                ticket = _tickets[dev.index, stream] = torch.zeros(
+                    1, dtype=torch.int32, device=dev)
         args = [resp.data_ptr(), h, w, x.data_ptr(), y.data_ptr(),
                 val.data_ptr(), n, borderx, bordery, step,
                 max(1, int(cfg.min_eigenvalue)),

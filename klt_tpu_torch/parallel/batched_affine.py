@@ -7,7 +7,9 @@ one launch of kernel C's pyramid entry for all B * N features; then one
 launch of kernel F's step entry over the same B * N lanes, flattened
 sequence-major ([B * N], lane l of sequence l // N), each lane reading the
 level-0 planes of its own sequence in the [B, 3, H, W] stacks.  One
-`AffineState` of B * N lanes carries the reference patches and maps.
+`AffineState` of B * N lanes carries the reference patches and maps.  On
+the card the step loop runs as CUDA graphs of chunks of steps
+(runtime/pipeline.py, cuda/graph.py).
 
 This is the throughput point of the affine check: a step costs three
 launches whatever B is, so B sequences share the host's cost of one.
@@ -22,7 +24,9 @@ import torch
 
 from ..config import TrackingConfig
 from ..ops.affine import AffineState, affine_consistency_step
-from .batched_lk import _step_stacks, track_features_pyramid_batched
+from ..runtime.pipeline import _run
+from .batched_lk import (_check_batched, _step_stacks,
+                         track_features_pyramid_batched)
 
 
 def track_sequences_affine_batched(frames: torch.Tensor, x: torch.Tensor,
@@ -39,17 +43,28 @@ def track_sequences_affine_batched(frames: torch.Tensor, x: torch.Tensor,
     precomp=True builds the stacks of several steps in one launch, with
     results bit-equal to the default's.
     """
+    _check_affine(cfg)
+    _check_batched(frames, x)
+    return _run(frames, x, y, val, cfg, plain, precomp, affine=True,
+                batched=True)
+
+
+def _check_affine(cfg: TrackingConfig) -> None:
     if cfg.affine_consistency_check not in (0, 1, 2):
         raise ValueError("track_sequences_affine_batched needs "
                          "affine_consistency_check 0, 1 or 2, got "
                          f"{cfg.affine_consistency_check}")
-    if frames.dim() != 4:
-        raise ValueError(f"frames must be [B, T, H, W], got "
-                         f"{tuple(frames.shape)}")
+
+
+def _run_eager(frames: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+               val: torch.Tensor, cfg: TrackingConfig, plain: bool = False,
+               precomp: bool = False):
+    """`track_sequences_affine_batched`'s step loop with the kernels
+    called one step at a time, without graphs: what the graphs are held
+    against on the card."""
+    _check_affine(cfg)
+    _check_batched(frames, x)
     b, t_len = frames.shape[:2]
-    if x.dim() != 2 or x.shape[0] != b:
-        raise ValueError(f"features must be [B={b}, N], got "
-                         f"{tuple(x.shape)}")
     n = x.shape[1]
     shape = (max(t_len - 1, 0), b, n)
     xs = torch.empty(shape, dtype=torch.float32, device=frames.device)

@@ -24,7 +24,7 @@ from ..config import TrackingConfig
 from ..ops.lk import track_features_pyramid_stacks
 from ..ops.pyramid import (build_pyramid_stacks_batched,
                            build_pyramid_stacks_batched_plain)
-from ..runtime.pipeline import PRECOMP_FRAMES
+from ..runtime.pipeline import PRECOMP_FRAMES, _run
 
 
 def _build(plain: bool):
@@ -101,20 +101,34 @@ def track_sequences_batched(frames: torch.Tensor, x: torch.Tensor,
     after tracking into each frame t (t = 1..T-1).  Lane (b, n) equals
     `runtime.pipeline.track_sequence` on sequence b alone.
 
-    A Python step loop: per step one batched-pyramid launch for the B new
-    frames and one LK launch per level for all B * N features, with the
-    stacks kept on the device as the next step's first stacks.
-    precomp=True builds the stacks of several steps in one launch (about
-    PRECOMP_FRAMES images, klt_tpu's KLT_TPU_PRECOMP_PYR=1), with results
-    bit-equal to the default's.
+    Per step one batched-pyramid launch for the B new frames and one LK
+    launch for all B * N features, with the stacks kept on the device as
+    the next step's first stacks; on the card as replays of CUDA graphs of
+    chunks of steps.  precomp=True builds the stacks of several steps in
+    one launch (about PRECOMP_FRAMES images, klt_tpu's
+    KLT_TPU_PRECOMP_PYR=1), with results bit-equal to the default's.
     """
+    _check_batched(frames, x)
+    return _run(frames, x, y, val, cfg, plain, precomp, batched=True)
+
+
+def _check_batched(frames: torch.Tensor, x: torch.Tensor) -> None:
     if frames.dim() != 4:
         raise ValueError(f"frames must be [B, T, H, W], got "
                          f"{tuple(frames.shape)}")
-    b, t_len = frames.shape[:2]
-    if x.dim() != 2 or x.shape[0] != b:
-        raise ValueError(f"features must be [B={b}, N], got "
+    if x.dim() != 2 or x.shape[0] != frames.shape[0]:
+        raise ValueError(f"features must be [B={frames.shape[0]}, N], got "
                          f"{tuple(x.shape)}")
+
+
+def _run_eager(frames: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+               val: torch.Tensor, cfg: TrackingConfig, plain: bool = False,
+               precomp: bool = False):
+    """`track_sequences_batched`'s step loop with the kernels called one
+    step at a time, without graphs: what the graphs are held against on
+    the card."""
+    _check_batched(frames, x)
+    b, t_len = frames.shape[:2]
     shape = (max(t_len - 1, 0), b, x.shape[1])
     xs = torch.empty(shape, dtype=torch.float32, device=frames.device)
     ys = torch.empty_like(xs)

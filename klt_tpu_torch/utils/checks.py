@@ -6,7 +6,11 @@ klt_tpu reads, so the production path pays nothing: with debug off each
 check returns before it touches a tensor (no launch, no host sync).  With
 debug on, a check reduces its tensors on their device to one flag and
 reads that flag once; a failed check warns through `errors.klt_warning`.
-Covered asserts:
+Inside `collecting(flags)` (the sequence entries' chunks, which a CUDA
+graph may capture, where no host read is allowed) a check reads nothing:
+it ORs its flag into `flags` on the device, and `flags.report()` reads
+them all once, after the call, one warning per failed check (as
+klt_tpu's checks fire from inside its scans).  Covered asserts:
 
 * in-bounds interpolation coordinates (src/V1/trackFeatures.c:51)
 * image-size compatibility between convolution operands
@@ -16,6 +20,8 @@ Covered asserts:
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import os
 
 import torch
@@ -56,7 +62,59 @@ def check_finite(arr, what: str = "values"):
     _warn_if(torch.any(~torch.isfinite(torch.as_tensor(arr))), what)
 
 
-def _warn_if(bad: torch.Tensor, what: str) -> None:
+class Flags:
+    """The failed-check flags of a call, bool tensors on the device by
+    check (`what`), ORed over the steps."""
+
+    def __init__(self):
+        self.bad: dict[str, torch.Tensor] = {}
+
+    def add(self, what: str, bad: torch.Tensor) -> None:
+        prev = self.bad.get(what)
+        self.bad[what] = bad if prev is None else prev | bad
+
+    def merge(self, other: "Flags") -> None:
+        """OR in another set's flags (a replayed graph's, which its next
+        replay overwrites: the first is copied)."""
+        for what, bad in other.bad.items():
+            prev = self.bad.get(what)
+            self.bad[what] = bad.clone() if prev is None else prev | bad
+
+    def report(self) -> None:
+        """One host read for all the flags, then klt_tpu's warning for
+        each failed check."""
+        if not self.bad:
+            return
+        failed = torch.stack([b.reshape(()) for b in self.bad.values()])
+        for what, bad in zip(self.bad, failed.tolist()):
+            if bad:
+                _warn(what)
+        self.bad.clear()
+
+
+_collector: contextvars.ContextVar = contextvars.ContextVar(
+    "klt_check_flags", default=None)
+
+
+@contextlib.contextmanager
+def collecting(flags: Flags):
+    """The checks inside OR their flags into `flags` instead of reading
+    them."""
+    token = _collector.set(flags)
+    try:
+        yield flags
+    finally:
+        _collector.reset(token)
+
+
+def _warn(what: str) -> None:
     """klt_tpu's message, " out of bounds" for every check of a flag."""
-    if bool(bad):   # the check's one host read
-        klt_warning(f"debug check failed: {what} out of bounds")
+    klt_warning(f"debug check failed: {what} out of bounds")
+
+
+def _warn_if(bad: torch.Tensor, what: str) -> None:
+    flags = _collector.get()
+    if flags is not None:
+        flags.add(what, bad)
+    elif bool(bad):   # the check's one host read
+        _warn(what)

@@ -34,7 +34,8 @@ from klt_tpu_torch.interop import (config_from_fields, features_from_numpy,
 from klt_tpu_torch.ops.lk import (lk_level_batched_plain, lk_level_plain,
                                   track_features_pyramid_stacks, track_level)
 from klt_tpu_torch.ops.pyramid import build_pyramid_stacks_plain
-from klt_tpu_torch.parallel import batched_lk
+from klt_tpu_torch.cuda import graph
+from klt_tpu_torch.runtime import pipeline
 from klt_tpu_torch.parallel import (make_batch_step, make_fused_pair_step,
                                     pad_features_for_mesh, track_batch,
                                     track_features_pyramid_batched,
@@ -248,28 +249,32 @@ def test_track_sequence_matches_klt_tpu_kernel_c(monkeypatch, pallas_caches):
 @pytest.mark.parametrize("cfg_name", sorted(CFGS))
 def test_batched_lanes_equal_track_sequence(cfg_name, monkeypatch):
     """Every lane equals track_sequence on its sequence bit for bit;
-    precomp (two chunks of two frame indices here) equals the default bit
-    for bit; padded lanes pass through."""
+    precomp (frame 0 alone, then each chunk of the graphed step loop in
+    builds of two frame indices here) equals the default bit for bit;
+    padded lanes pass through."""
     frames, x, y, val = sequences(cfg_name)
     _, cfg = configs(cfg_name)
     f = torch.from_numpy(frames)
     feats = features_from_numpy(x, y, val)
     builds = []
-    plain_build = batched_lk.build_pyramid_stacks_batched_plain
+    plain_build = pipeline.build_pyramid_stacks_batched_plain
 
     def counted(imgs, c):
         builds.append(imgs.shape[0])
         return plain_build(imgs, c)
 
+    # the step loop of the batched tier is runtime/pipeline.py's
     for name in ("build_pyramid_stacks_batched",
                  "build_pyramid_stacks_batched_plain"):
-        monkeypatch.setattr(batched_lk, name, counted)
-    monkeypatch.setattr(batched_lk, "PRECOMP_FRAMES", 2 * B)
+        monkeypatch.setattr(pipeline, name, counted)
+    monkeypatch.setattr(pipeline, "PRECOMP_FRAMES", 2 * B)
     got = track_sequences_batched(f, *feats, cfg)
     assert builds == [B] * T  # one batched build per frame index
     builds.clear()
     pre = track_sequences_batched(f, *feats, cfg, precomp=True)
-    assert builds == [2 * B, 2 * B]
+    assert builds == [B] + [B * min(n - k, 2) for n in
+                            graph.chunk_lengths(T - 1, graph.K)
+                            for k in range(0, n, 2)]
     assert_equal_all(pre, got)
     assert_equal_all(track_sequences_batched(f, *feats, cfg, plain=True),
                      got)

@@ -758,9 +758,10 @@ def replace_inputs(dev, n_frames=8, scale=1, n=150):
 def test_track_sequence_replace_kernels_equal_plain(dev):
     """Kernels on the card, plain on the card and plain on the CPU, with
     and without precomp: bit-equal tables; one launch of A, of D and of R
-    per frame and of B's pyramid entry per frame pair (E once with
-    precomp)."""
+    per frame and of B's pyramid entry per frame pair (with precomp E once
+    a chunk of the graphed loop)."""
     from klt_tpu_torch import cuda
+    from klt_tpu_torch.cuda import graph
     cfg, f, feats = replace_inputs(dev)
     fd, featd = f.to(dev), [a.to(dev) for a in feats]
     cuda.reset_launch_counts()
@@ -770,7 +771,8 @@ def test_track_sequence_replace_kernels_equal_plain(dev):
             cuda.LK_LEVEL.launches) == (8, 7, 7, 7, 0)
     cuda.reset_launch_counts()
     pre = track_sequence_replace(fd, *featd, cfg, precomp=True)
-    assert (cuda.PYRAMID.launches, cuda.PYRAMID_BATCHED.launches) == (1, 1)
+    assert (cuda.PYRAMID.launches, cuda.PYRAMID_BATCHED.launches) == \
+        (1, len(graph.chunk_lengths(len(f) - 1, graph.K)))
     assert_equal_all(pre, got)
     assert_equal_all(got, track_sequence_replace(fd, *featd, cfg,
                                                  plain=True))
@@ -782,7 +784,10 @@ def test_track_sequence_replace_kernels_equal_plain(dev):
 def test_replace_loop_never_syncs(dev):
     cfg, f, feats = replace_inputs(dev)
     fd, featd = f.to(dev), [a.to(dev) for a in feats]
-    track_sequence_replace(fd, *featd, cfg, precomp=True)  # build, warm up
+    # build, warm up and capture every graph (a capture synchronises once)
+    for pre in (False, True):
+        for _ in range(2):
+            track_sequence_replace(fd, *featd, cfg, precomp=pre)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -904,10 +909,12 @@ def test_batched_lk_kernel_rejects_bad_inputs(dev):
 def test_track_sequences_batched_kernels_equal_plain(kw, dev):
     """B = 5 different sequences: kernels on the card equal the plain
     versions on the card and on the CPU and, lane by lane,
-    track_sequence; one kernel E launch per frame (one in all with
-    precomp) and one launch of kernel C's pyramid entry per step, no
-    kernel A or B launch and no level entry."""
+    track_sequence; one kernel E launch per frame (with precomp one for
+    the first frame, then one a chunk of the graphed loop) and one launch
+    of kernel C's pyramid entry per step, no kernel A or B launch and no
+    level entry."""
     from klt_tpu_torch import cuda
+    from klt_tpu_torch.cuda import graph
     cfg = kt.TrackingConfig(sequential_mode=True, **kw)
     frames = batched_frames(5, 5)
     b, t = frames.shape[:2]
@@ -929,7 +936,8 @@ def test_track_sequences_batched_kernels_equal_plain(kw, dev):
         cuda.LK_PYRAMID_BATCHED.symbol: t - 1}
     cuda.reset_launch_counts()
     pre = track_sequences_batched(fd, *featd, cfg, precomp=True)
-    assert cuda.PYRAMID_BATCHED.launches == 1
+    assert cuda.PYRAMID_BATCHED.launches == \
+        1 + len(graph.chunk_lengths(t - 1, graph.K))
     assert_equal_all(pre, got)
     assert_equal_all(got, track_sequences_batched(fd, *featd, cfg,
                                                   plain=True))
@@ -1513,3 +1521,134 @@ def test_write_internal_images_from_card_tensors(dev, tmp_path):
         out[name] = [open(p, "rb").read() for p in paths]
     assert len(out["card"]) == 3 * cfg.n_pyramid_levels
     assert out["card"] == out["cpu"]
+
+
+# ------------------------------------------------------------------ #
+# whole-sequence programs: the entries' CUDA graphs (cuda/graph.py)    #
+# ------------------------------------------------------------------ #
+
+GRAPH_ENTRIES = ["track", "replace", "affine", "precomp", "batched",
+                 "batched_affine", "stream", "exact", "fast"]
+
+
+def graph_cell(entry, dev):
+    """(graphed run, eager run) of a small cell of `entry`, each returning
+    its table: 2K + 2 frames (full chunks and a tail of one), the stream
+    in chunks of 8, the exact tier in chunks of 4 over tie_frames, whose
+    repair resumes inside a chunk."""
+    from klt_tpu_torch.cuda import graph
+    from klt_tpu_torch.parallel import batched_affine, batched_lk
+    from klt_tpu_torch.runtime import pipeline
+    n_frames = 2 * graph.K + 2
+    if entry in ("exact", "fast"):
+        cfg, frames, feats = exact_sequence_inputs(12)
+        f = torch.from_numpy(frames).to(dev)
+        featd = [torch.from_numpy(a).to(dev) for a in feats]
+        return (lambda: kt.track_sequence_replace_exact(
+                    f, *featd, cfg, tier=entry, chunk=4),
+                lambda: pipeline._replace_exact_eager(
+                    f, *featd, cfg, tier=entry, chunk=4))
+    if entry.startswith("batched"):
+        mode = 2 if entry == "batched_affine" else -1
+        cfg = kt.TrackingConfig(sequential_mode=True,
+                                affine_consistency_check=mode)
+        frames = (batched_affine_frames(3, n_frames, rate=0.1) if mode == 2
+                  else batched_frames(3, n_frames))
+        lists = [kt.FeatureList.create(100) for _ in range(3)]
+        for i, fl in enumerate(lists):
+            kt.KLTracker(cfg).select_good_features(frames[i, 0], fl)
+        featd = [torch.from_numpy(np.stack([getattr(fl, k) for fl in lists]))
+                 .to(dev) for k in ("x", "y", "val")]
+        fd = torch.from_numpy(frames).to(dev)
+        seq, eager = (
+            (track_sequences_affine_batched, batched_affine._run_eager)
+            if mode == 2 else (track_sequences_batched, batched_lk._run_eager))
+        return (lambda: seq(fd, *featd, cfg), lambda: eager(fd, *featd, cfg))
+    mode = 2 if entry == "affine" else -1
+    cfg = kt.TrackingConfig(sequential_mode=True,
+                            affine_consistency_check=mode)
+    frames = (affine_frames(n_frames, rate=0.1) if mode == 2
+              else replace_frames(n_frames, 1))
+    fl = kt.FeatureList.create(150)
+    kt.KLTracker(cfg).select_good_features(frames[0], fl)
+    featd = [torch.from_numpy(a).to(dev) for a in (fl.x, fl.y, fl.val)]
+    fd = torch.from_numpy(frames).to(dev)
+    precomp, replace, affine = (entry == e for e in
+                                ("precomp", "replace", "affine"))
+    seq = {"replace": track_sequence_replace,
+           "affine": track_sequence_affine}.get(entry, track_sequence)
+    eager = lambda: pipeline._run_eager(fd, *featd, cfg, False, precomp,
+                                        replace=replace, affine=affine)
+    if entry == "stream":
+        def stream():
+            snaps = list(track_sequence_stream(iter(fd), *featd, cfg,
+                                               chunk=8))
+            return [torch.from_numpy(np.stack([s[i] for s in snaps]))
+                    for i in (1, 2, 3)]
+
+        def ends():
+            table = pipeline._run_eager(fd, *featd, cfg, False, False)
+            rows = list(range(7, n_frames - 1, 8)) + [n_frames - 2]
+            return [a[rows].cpu() for a in table]
+        return stream, ends
+    return lambda: seq(fd, *featd, cfg, precomp=precomp), eager
+
+
+@pytest.mark.parametrize("entry", GRAPH_ENTRIES)
+def test_graphed_entry_equals_eager(entry, dev):
+    """A graphed entry's first call (the warm-up chunk, then captures) and
+    its second (replays) are bit-equal to the eager loop; each call counts
+    the eager loop's kernel launches, credited per replay (the exact tier:
+    one launch each of A, G or B, H2 and R's tie entry a computed step;
+    with precomp E once a chunk, where the eager loop builds up to
+    PRECOMP_FRAMES frames a launch)."""
+    from klt_tpu_torch import cuda
+    from klt_tpu_torch.cuda import graph
+    graphed, eager = graph_cell(entry, dev)
+    graph._clear()
+    counts, outs, replays = [], [], []
+    for fn in (graphed, graphed, eager):
+        cuda.reset_launch_counts()
+        before = sum(p.replays for _, p in graph.programs())
+        outs.append(fn())
+        torch.cuda.synchronize()
+        replays.append(sum(p.replays for _, p in graph.programs()) - before)
+        counts.append({k.symbol: k.launches for k in cuda.KERNELS})
+    assert_equal_all(outs[0], outs[2])
+    assert_equal_all(outs[1], outs[2])
+    assert replays[1] > 0 and replays[2] == 0
+    if entry in ("exact", "fast"):
+        for c in counts:
+            steps = c["klt_replace_lost_tie"]
+            assert c["klt_build_pyramid"] == 1 + steps
+    else:
+        if entry == "precomp":
+            e = "klt_build_pyramid_batched"
+            assert counts[1][e] == len(graph.chunk_lengths(
+                len(outs[2][0]), graph.K))
+            counts[2][e] = counts[1][e]
+        assert counts[0] == counts[1] == counts[2]
+
+
+def test_graph_capture_error_raises(dev):
+    """A chunk function that reads the host runs as the warm-up and then
+    cannot be captured: the program raises, and the card goes on."""
+    from klt_tpu_torch.cuda import graph
+    from klt_tpu_torch.utils.checks import Flags
+    flag = torch.zeros(1, device=dev)
+    prog = graph.Program(None, lambda n: float(flag.sum()), dev,
+                         capture=True)
+    assert prog.run(1, Flags()) == 0.0
+    with pytest.raises(RuntimeError):
+        prog.run(1, Flags())
+    assert float((flag + 1).sum()) == 1.0
+
+
+def test_graph_cache_keeps_its_bound(dev):
+    from klt_tpu_torch.cuda import graph
+    cfg, f, feats = replace_inputs(dev, n_frames=3, n=20)
+    fd, featd = f.to(dev), [a.to(dev) for a in feats]
+    graph._clear()
+    for n in range(graph.CACHE_KEYS + 3):
+        track_sequence(fd, *[a[:n + 1] for a in featd], cfg)
+    assert len(graph.programs()) == graph.CACHE_KEYS
