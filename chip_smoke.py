@@ -76,6 +76,14 @@ paths:
   traffic frames, and the tie flagship, whose repair resumes inside a
   chunk), with the eager loop's launches, one warning from the debug
   checks inside the graphs, and a capture that fails raising;
+* KLTracker's per-frame calls and track_pair_carry as CUDA graphs of one
+  step (runtime/tracker.py, runtime/pipeline.py), which every KLTracker
+  flow above goes through: phase 41 holds them bit-equal to their eager
+  bodies (`_track_features_eager`, `_track_pair_carry_eager`) on the
+  translation run (640x480 x 2000 requested, 100 frames), the replace loop
+  (640x480 x 500, 100 traffic frames) and the affine run with replacement
+  (20 frames), with the eager bodies' launches, two trackers interleaved
+  call by call, and a capture that fails raising;
 
 checks the tracks against the known motion of the synthetic frames and
 against the plain versions on the CPU, checks that the replacement loop
@@ -4628,6 +4636,242 @@ def phase_graphs(cells: dict, cfg, acfg, tag: str) -> dict:
     return per_step
 
 
+# ------------------------------------------------------------------ #
+# KLTracker's step programs and track_pair_carry's against their eager #
+# bodies                                                               #
+# ------------------------------------------------------------------ #
+
+TRACKER_AFFINE_FRAMES = 20
+TRACKER_PROFILE_CALLS = 20
+
+
+def tracker_programs(tr) -> list:
+    return [p for _, progs in tr._steps.values() for p in progs.values()]
+
+
+def tracker_flow(frames, fl, cfg, method: str = "track_features",
+                 replace: bool = False, tracker=None, calls=None) -> dict:
+    """KLTracker on the card through `method` (`track_features` or the
+    eager body) over the frames, with replace_lost_features after every
+    call when asked; fl moves in place.  Returns the feature list after
+    every call, the kernel launches of the run, the host seconds of each
+    tracking call (it ends in the features' copy to the host), the
+    tracker's graph replays and its programs' capture seconds."""
+    tr = tracker or klt.KLTracker(cfg, device="cuda")
+    before = launch_counts()
+    rows, secs = [], []
+    for i in range(1, len(frames) if calls is None else calls + 1):
+        t0 = time.perf_counter()
+        getattr(tr, method)(frames[i - 1], frames[i], fl)
+        secs.append(time.perf_counter() - t0)
+        rows.append(fl.copy())
+        if replace:
+            tr.replace_lost_features(frames[i], fl)
+            rows.append(fl.copy())
+    after = launch_counts()
+    progs = tracker_programs(tr)
+    return {"rows": rows, "tracker": tr, "secs": secs,
+            "launches": {k: after[k] - before[k] for k in after},
+            "replays": sum(p.replays for p in progs),
+            "capture_s": [p.capture_seconds() for p in progs if p.graphs]}
+
+
+def same_rows(a, b) -> bool:
+    return len(a) == len(b) and all(
+        np.array_equal(getattr(r, k).view(np.int32),
+                       getattr(q, k).view(np.int32))
+        for r, q in zip(a, b) for k in ("x", "y", "val"))
+
+
+def tracker_device_us(frames, n_feats, cfg, method, replace, tag, label):
+    """Device time and device launches per call of a tracker's steady
+    calls (profile_device over TRACKER_PROFILE_CALLS calls, after the
+    calls that warm up and capture the programs)."""
+    fl = select_on(frames[0], n_feats, cfg)
+    tr = klt.KLTracker(cfg, device="cuda")
+    tracker_flow(frames, fl, cfg, method, replace, tr, calls=5)
+    state = {"i": 5}
+
+    def run():
+        for _ in range(TRACKER_PROFILE_CALLS):
+            i = state["i"] % (len(frames) - 1) + 1
+            getattr(tr, method)(frames[i - 1], frames[i], fl)
+            if replace:
+                tr.replace_lost_features(frames[i], fl)
+            state["i"] += 1
+    return profile_device(run, TRACKER_PROFILE_CALLS, tag, label, {})
+
+
+def tracker_cell(tag: str, name: str, frames, n_feats: int, cfg,
+                 replace: bool) -> dict:
+    """One cell of phase 41: the graphed KLTracker flow bit-equal to the
+    eager body's, with the eager body's launches, the calls after the
+    first ones replays; per-call wall and device time of both.  Returns
+    the graphed flow."""
+    start = select_on(frames[0], n_feats, cfg)
+    graphed = tracker_flow(frames, start.copy(), cfg, replace=replace)
+    eager = tracker_flow(frames, start.copy(), cfg, "_track_features_eager",
+                         replace)
+    same = same_rows(graphed["rows"], eager["rows"])
+    dev = {m: tracker_device_us(frames, n_feats, cfg, m, replace, tag,
+                                f"{name}, {m}")
+           for m in ("track_features", "_track_features_eager")}
+    calls = len(graphed["secs"])
+    med = {k: 1e6 * float(np.median(r["secs"][5:]))
+           for k, r in (("graphed", graphed), ("eager", eager))}
+    nz = lambda c: {k: v for k, v in c.items() if v}
+    print(f"[{tag}] {name}, {calls} calls: bit-equal to the eager body "
+          f"{same}; replays {graphed['replays']}; capture and "
+          f"instantiation ms a key "
+          f"{[round(v * 1e3, 1) for v in graphed['capture_s']]}; wall per "
+          f"call (median of calls 6-{calls}) graphed {med['graphed']:.1f} "
+          f"us, eager {med['eager']:.1f} us; device us per call (with the "
+          f"replacement's, where it replaces) graphed "
+          f"{dev['track_features']['device_us']:.1f}, eager "
+          f"{dev['_track_features_eager']['device_us']:.1f}; launches "
+          f"graphed {nz(graphed['launches'])}, eager "
+          f"{nz(eager['launches'])}")
+    check(same, f"{name}: the graphed KLTracker differs from its eager "
+          f"body")
+    check(graphed["launches"] == eager["launches"],
+          f"{name}: the graphed KLTracker's launches differ from the eager "
+          f"body's")
+    check(graphed["replays"] == calls - 3,
+          f"{name}: {graphed['replays']} replays in {calls} calls")
+    return graphed
+
+
+def tracker_capture_error(tag: str, cfg, frames, fl) -> None:
+    """A step that reads the host: the tracker's second call (the
+    capture) raises and runs nothing in its place; the card goes on."""
+    from klt_tpu_torch.runtime import tracker as tracker_mod
+    orig = tracker_mod._track_step
+
+    def reads_host(b, *args):
+        orig(b, *args)
+        float(b.out.sum())
+    tracker_mod._track_step = reads_host
+    try:
+        tr = klt.KLTracker(cfg, device="cuda")
+        tr.track_features(frames[0], frames[1], fl.copy())
+        try:
+            tr.track_features(frames[1], frames[2], fl.copy())
+        except RuntimeError as e:
+            msg = str(e).splitlines()[0]
+        else:
+            msg = None
+    finally:
+        tracker_mod._track_step = orig
+    torch.cuda.synchronize()
+    after = fl.copy()
+    klt.KLTracker(cfg, device="cuda").track_features(frames[0], frames[1],
+                                                     after)
+    print(f"[{tag}] a step that reads the host: the tracker's capture "
+          f"raised {msg!r}; a new tracker then tracked "
+          f"{int((after.val == 0).sum())} features")
+    check(msg is not None, "a failed capture of the tracker did not raise")
+
+
+def pair_carry_cell(tag: str, frames, n_feats: int, cfg) -> dict:
+    """track_pair_carry's graph against `_track_pair_carry_eager` over the
+    frames: bit-equal, the same launches, every returned tensor unchanged
+    after the later calls.  Returns the graphed chain's launches."""
+    graph._clear()
+    fl = select_on(frames[0], n_feats, cfg)
+    feats0 = [torch.from_numpy(a).cuda() for a in (fl.x, fl.y, fl.val)]
+    imgs = torch.from_numpy(frames).cuda()
+    runs = {}
+    for name, fn in (("graphed", pipeline.track_pair_carry),
+                     ("eager", pipeline._track_pair_carry_eager)):
+        feats, state = feats0, pipeline.prepare_pyramids(imgs[0], cfg)
+        before = launch_counts()
+        outs, secs = [], []
+        for i in range(1, len(frames)):
+            t0 = time.perf_counter()
+            feats, state = fn(state, imgs[i], feats, cfg)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            outs.append((*feats, *state))
+        after = launch_counts()
+        runs[name] = (outs, {k: after[k] - before[k] for k in after}, secs,
+                      [[a.clone() for a in o] for o in outs])
+    same = all(bits_equal(a, b) for o, q in zip(runs["graphed"][0],
+                                                runs["eager"][0])
+               for a, b in zip(o, q))
+    kept = all(bits_equal(a, b) for o, q in zip(runs["graphed"][0],
+                                                runs["graphed"][3])
+               for a, b in zip(o, q))
+    progs = [p for k, p in graph.programs() if k[0] == "pair_carry"]
+    med = {k: 1e6 * float(np.median(r[2][2:])) for k, r in runs.items()}
+    print(f"[{tag}] track_pair_carry {frames.shape[2]}x{frames.shape[1]} x "
+          f"{int((fl.val >= 0).sum())}, {len(frames) - 1} calls: bit-equal "
+          f"to the eager body {same}; returned tensors unchanged after the "
+          f"later calls {kept}; replays {sum(p.replays for p in progs)}; "
+          f"capture ms {[round(p.capture_seconds() * 1e3, 1) for p in progs]}"
+          f"; wall per call with a sync (median of calls 3-) graphed "
+          f"{med['graphed']:.1f} us, eager {med['eager']:.1f} us")
+    check(same and kept, "track_pair_carry's graph differs from its eager "
+          "body, or a returned tensor changed")
+    check(runs["graphed"][1] == runs["eager"][1],
+          "track_pair_carry's launches differ from the eager body's")
+    check(sum(p.replays for p in progs) == len(frames) - 2,
+          "track_pair_carry did not replay its graph")
+    return runs["graphed"][1]
+
+
+def phase_tracker_graphs(vga, traffic, aff, cfg, acfg, tag: str) -> dict:
+    """Phase 41: KLTracker's step programs against its eager body on the
+    translation run (640x480 x 2000 requested, 100 frames), the replace
+    loop (640x480 x 500, the first 100 traffic frames) and the affine run
+    with replacement (640x480 x 2000 requested, mode 2, 4 levels,
+    TRACKER_AFFINE_FRAMES frames); two trackers interleaved; a capture
+    that fails; track_pair_carry's graph against its eager body.  Returns
+    the graphed runs' kernel launches (counted from 0)."""
+    cuda.reset_launch_counts()
+    launches = dict.fromkeys(launch_counts(), 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+    aff20 = aff[:TRACKER_AFFINE_FRAMES]
+    cells = {}
+    for name, frames, n, c, replace in (
+            ("track 640x480 x 2000 requested", vga, 2000, cfg, False),
+            ("replace loop 640x480 x 500", traffic[:100], 500, cfg, True),
+            ("affine 640x480 x 2000 requested, mode 2, with replacement",
+             aff20, 2000, acfg, True)):
+        cells[name] = tracker_cell(tag, name, frames, n, c, replace)
+        add(cells[name]["launches"])
+
+    # two trackers interleaved call by call: each equals its run alone
+    first, third = (cells[k] for k in list(cells)[::2])
+    fa, fb = select_on(vga[0], 2000, cfg), select_on(aff20[0], 2000, acfg)
+    ta = klt.KLTracker(cfg, device="cuda")
+    tb = klt.KLTracker(acfg, device="cuda")
+    rows_a, rows_b = [], []
+    before = launch_counts()
+    for i in range(1, len(aff20)):
+        ta.track_features(vga[i - 1], vga[i], fa)
+        rows_a.append(fa.copy())
+        tb.track_features(aff20[i - 1], aff20[i], fb)
+        rows_b.append(fb.copy())
+        tb.replace_lost_features(aff20[i], fb)
+        rows_b.append(fb.copy())
+    after = launch_counts()
+    add({k: after[k] - before[k] for k in after})
+    same = (same_rows(rows_a, first["rows"][:len(rows_a)]) and
+            same_rows(rows_b, third["rows"]))
+    print(f"[{tag}] two trackers interleaved call by call (translation "
+          f"and affine with replacement, {len(aff20) - 1} calls each): each "
+          f"equal to its run alone: {same}")
+    check(same, "interleaved trackers differ from their runs alone")
+
+    tracker_capture_error(tag, klt.TrackingConfig(), vga,
+                          select_on(vga[0], 2000, cfg))
+    add(pair_carry_cell(tag, vga, 2000, cfg))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -4889,6 +5133,14 @@ def main() -> int:
              "tie": tie_frames(qvga, 5)}, cfg, acfg, "40 graphs")
         per_step.update({f"40 {k}": v for k, v in graph_steps.items()})
 
+    # path 16: KLTracker's step programs and track_pair_carry's graph
+    # against their eager bodies
+    with phase("41 tracker graphs"):
+        tracker_launches = phase_tracker_graphs(vga, traffic, aff, cfg, acfg,
+                                                "41 tracker graphs")
+        print(f"[41 launches] "
+              f"{ {k: n for k, n in tracker_launches.items() if n} }")
+
     with phase("12 no sync"):
         phase_no_sync(traffic[:PRECOMP_FRAMES + 2], 500, cfg)
 
@@ -4960,7 +5212,7 @@ def main() -> int:
             + b_affine_launches[k.symbol] + exact_launches[k.symbol]
             + wide_launches[k.symbol] + prefilter_launches[k.symbol]
             + slam_launches[k.symbol] + tooling_launches[k.symbol]
-            + mesh_launches[k.symbol],
+            + mesh_launches[k.symbol] + tracker_launches[k.symbol],
             "max_abs_err": max(errs[k.symbol]), **times[name],
             "library_ms": None,
             "launches_per_step": {path: counts[k.symbol]

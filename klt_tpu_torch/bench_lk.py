@@ -3,6 +3,7 @@
     python3 -m klt_tpu_torch.bench_lk [--tag NAME] [--reps N]
                                       [--wrapper-only] [--kernels-only]
                                       [--graphs [--graph-k K,K,..]]
+                                      [--tracker]
 
 run from the root of a checkout (it takes its synthetic frames from
 chip_smoke.py).  For each cell it prints one JSON line: frames/s and wall
@@ -56,6 +57,26 @@ synchronised runs), device time per step and busy share from one profiled
 run of each, and the capture and instantiation time of the cell's key
 (its first call, cache emptied).  --graph-k 8,16,32 repeats the cells with
 each chunk length K (cuda/graph.py's constant, set for the measurement).
+
+--tracker times KLTracker's step programs (runtime/tracker.py) and
+track_pair_carry's graph against their eager bodies
+(`KLTracker._track_features_eager`, `pipeline._track_pair_carry_eager`)
+on the cells of PERF.md section 5: `track_features` 640x480 x 2000
+requested in sequential mode over 101 frames; the reference loop with
+replacement (`track_features` + `replace_lost_features`) at 640x480 x 500;
+the affine check (mode 2, 640x480 x 2000 requested, 4 levels of
+subsampling 2, 101 `affine_frames`); the flagship 320x240 x 150 in
+non-sequential mode over 10 frames; `track_pair_carry` 640x480 x 2000
+requested (a sync after every call).  In one process, in turns eager,
+graphs, copy, copy, graphs, eager (copy: the carried pyramid in one slot,
+image 2's copied into it, `copy_carry_step`; only where a pyramid is
+carried), --reps runs each with a new tracker: one JSON line per cell
+with the wall of each steady call (host clock; the call ends in the
+features' copy to the host), median, min, p90, max; the frame's wall with
+replacement; kernel launches per call; from one profiled run of each
+mode the device time and device launches per call, the host time of the
+CUDA runtime calls and the busy share (device time / median wall); and
+the capture and instantiation ms of each program (key) made.
 
 A last JSON line gives the host's cost of enqueueing one frame pair at
 640x480 (clock around a tight loop of calls, nothing awaited): the LK
@@ -596,6 +617,237 @@ def _graph_sweep(args, cells, tag: str, card: str) -> None:
             print(json.dumps(out), flush=True)
 
 
+# ------------------------------------------------------------------ #
+# --tracker: KLTracker's step programs and track_pair_carry's against   #
+# their eager bodies                                                    #
+# ------------------------------------------------------------------ #
+
+def tracker_cells():
+    """PERF.md section 5's KLTracker cells: (name, frames, features
+    requested, cfg, replace every frame)."""
+    from chip_smoke import affine_config, affine_frames
+    cfg = klt.TrackingConfig(sequential_mode=True)
+    vga = synthetic_frames(101, scale=2)
+    return [
+        ("track_features 640x480 x 2000 requested, sequential", vga, 2000,
+         cfg, False),
+        ("track_features + replace_lost_features 640x480 x 500", vga, 500,
+         cfg, True),
+        ("track_features, affine mode 2, 640x480 x 2000 requested, 4 "
+         "levels of subsampling 2", affine_frames(101, scale=2), 2000,
+         affine_config(), False),
+        ("track_features 320x240 x 150, non-sequential",
+         synthetic_frames(10), 150, klt.TrackingConfig(), False)]
+
+
+def copy_carry_step(b, cfg, state, src):
+    """The carry PERF.md section 5 measured against the two parity slots:
+    one slot, image 2's pyramid built anew and copied into it (one copy a
+    level) after the step."""
+    from klt_tpu_torch.ops.affine import affine_consistency_step
+    from klt_tpu_torch.ops.lk import track_features_pyramid_stacks
+    from klt_tpu_torch.ops.pyramid import build_pyramid_stacks
+    x, y = (b.feats[i].view(torch.float32) for i in (0, 1))
+    val = b.feats[2]
+    pyr1 = build_pyramid_stacks(b.frames[0], cfg) if src is None \
+        else b.slots[0]
+    pyr2 = build_pyramid_stacks(b.frames[1], cfg)
+    xn, yn, vn = track_features_pyramid_stacks(pyr1, pyr2, x, y, val, cfg)
+    if state is not None:
+        xn, yn, vn = affine_consistency_step(state, pyr1[0], pyr2[0], x, y,
+                                             val, xn, yn, vn, cfg)
+    torch.stack([xn.view(torch.int32), yn.view(torch.int32), vn],
+                out=b.out)
+    for dst, st in zip(b.slots[0], pyr2):
+        dst.copy_(st)
+
+
+class _CopyCarry(klt.KLTracker):
+    """KLTracker with copy_carry_step for its step programs."""
+
+    def track_features(self, img1, img2, fl):
+        from klt_tpu_torch.runtime import tracker
+        saved = tracker._track_step, tracker._carry_slot
+        tracker._track_step = copy_carry_step
+        tracker._carry_slot = lambda src: 0
+        try:
+            super().track_features(img1, img2, fl)
+        finally:
+            tracker._track_step, tracker._carry_slot = saved
+
+
+def tracker_profile(run, calls: int) -> dict:
+    """From one torch.profiler run of run() (`calls` calls): device us and
+    device launches per call, and the host us per call of each CUDA
+    runtime call."""
+    from torch.profiler import ProfilerActivity, profile as prof_ctx
+    with prof_ctx(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us = dev_n = 0.0
+    host = {}
+    for ev in prof.key_averages():
+        if "CUDA" in str(ev.device_type):
+            us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+            if us > 0:
+                dev_us += us
+                dev_n += ev.count
+        elif ev.key.startswith("cuda"):
+            host[ev.key] = round(ev.self_cpu_time_total / calls, 1)
+    return {"device_us_per_call": dev_us / calls,
+            "device_launches_per_call": dev_n / calls,
+            "wall_us_per_call_profiled": wall * 1e6 / calls,
+            "host_us_per_call_cuda_api": dict(sorted(
+                host.items(), key=lambda kv: -kv[1])[:6])}
+
+
+def tracker_flow(frames, start, cfg, replace: bool, mode: str,
+                 warm: int, profiled: bool = False) -> dict:
+    """One flow over the frames with a new tracker (mode: "eager" the
+    eager body, "graphs" track_features, "copy" _CopyCarry's): the host
+    seconds of each steady tracking call (after the first `warm`) and of
+    its frame with replacement, the kernel launches per steady call, the
+    capture seconds of each program; with profiled, tracker_profile over
+    the steady calls instead of times."""
+    from klt_tpu_torch import cuda
+    tr = (_CopyCarry if mode == "copy" else klt.KLTracker)(cfg)
+    track = tr._track_features_eager if mode == "eager" \
+        else tr.track_features
+    fl = start.copy()
+    secs, frame_secs = [], []
+
+    def step(i):
+        t0 = time.perf_counter()
+        track(frames[i - 1], frames[i], fl)
+        t1 = time.perf_counter()
+        if replace:
+            tr.replace_lost_features(frames[i], fl)
+        secs.append(t1 - t0)
+        frame_secs.append(time.perf_counter() - t0)
+    for i in range(1, warm + 1):
+        step(i)
+    calls = len(frames) - 1 - warm
+    steady = lambda: [step(i) for i in range(warm + 1, len(frames))]
+    if profiled:
+        return tracker_profile(steady, calls)
+    secs.clear()
+    frame_secs.clear()
+    before = {k.symbol: k.launches for k in cuda.KERNELS}
+    steady()
+    torch.cuda.synchronize()
+    launches = {k.symbol: round((k.launches - before[k.symbol]) / calls, 3)
+                for k in cuda.KERNELS if k.launches != before[k.symbol]}
+    progs = [p for _, ps in tr._steps.values() for p in ps.values()]
+    return {"secs": secs, "frame_secs": frame_secs, "launches": launches,
+            "capture_ms": [round(p.capture_seconds() * 1e3, 2)
+                           for p in progs if p.graphs],
+            "final": [a.tobytes() for a in (fl.x, fl.y, fl.val)]}
+
+
+def pair_carry_flow(frames, feats, cfg, mode: str, warm: int,
+                    profiled: bool = False) -> dict:
+    """track_pair_carry (mode "graphs", its cache emptied first) or the
+    eager body over the frames on the card, a sync after every call: the
+    host seconds of the steady calls, their launches per call, the key's
+    capture seconds."""
+    from klt_tpu_torch import cuda
+    from klt_tpu_torch.cuda import graph
+    from klt_tpu_torch.runtime import pipeline
+    graph._clear()
+    fn = pipeline.track_pair_carry if mode == "graphs" \
+        else pipeline._track_pair_carry_eager
+    state = pipeline.prepare_pyramids(frames[0], cfg)
+    secs = []
+    carry = [feats, state]
+
+    def step(i):
+        t0 = time.perf_counter()
+        carry[:] = fn(carry[1], frames[i], carry[0], cfg)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    for i in range(1, warm + 1):
+        step(i)
+    calls = len(frames) - 1 - warm
+    steady = lambda: [step(i) for i in range(warm + 1, len(frames))]
+    if profiled:
+        return tracker_profile(steady, calls)
+    secs.clear()
+    before = {k.symbol: k.launches for k in cuda.KERNELS}
+    steady()
+    launches = {k.symbol: round((k.launches - before[k.symbol]) / calls, 3)
+                for k in cuda.KERNELS if k.launches != before[k.symbol]}
+    progs = [p for k, p in graph.programs() if k[0] == "pair_carry"]
+    return {"secs": secs, "frame_secs": secs, "launches": launches,
+            "capture_ms": [round(p.capture_seconds() * 1e3, 2)
+                           for p in progs if p.graphs],
+            "final": [a.cpu().numpy().tobytes() for a in carry[0]]}
+
+
+def tracker_runs(args, tag: str, card: str) -> None:
+    """KLTracker's cells and track_pair_carry's, eager body against graphs
+    (and, where a pyramid is carried, the copy carry), in turns eager,
+    graphs, copy, copy, graphs, eager: one JSON line a cell."""
+    # the calls before the steady ones: a pair, each parity's first call
+    # (the warm-ups) and its second (the captures); without a carried
+    # pyramid the pair's first and second
+    cells = [(name, frames, select(frames[0], n, cfg), cfg, replace,
+              5 if cfg.sequential_mode else 2, "tracker")
+             for name, frames, n, cfg, replace in tracker_cells()]
+    vga = synthetic_frames(101, scale=2)
+    cfg = klt.TrackingConfig(sequential_mode=True)
+    feats = [torch.from_numpy(a).cuda() for a in select(vga[0], 2000, cfg)]
+    cells.append(("track_pair_carry 640x480 x 2000 requested",
+                  torch.from_numpy(vga).cuda(), feats, cfg, False, 2,
+                  "pair"))
+    for name, frames, start, cfg, replace, warm, kind in cells:
+        if kind == "pair":
+            flow = functools.partial(pair_carry_flow, frames, start, cfg)
+            modes = ("eager", "graphs", "graphs", "eager")
+        else:
+            fl = klt.FeatureList(*start)
+            flow = lambda mode, warm, **kw: tracker_flow(
+                frames, fl, cfg, replace, mode, warm, **kw)
+            modes = ("eager", "graphs", "copy", "copy", "graphs", "eager") \
+                if cfg.sequential_mode else ("eager", "graphs", "graphs",
+                                             "eager")
+        flow("graphs", warm)    # the kernels loaded, the allocator warm
+        runs, finals = {}, []
+        for mode in modes:
+            for _ in range(args.reps):
+                r = flow(mode, warm)
+                finals.append(r["final"])
+                prev = runs.setdefault(mode, {"secs": [], "frame_secs": [],
+                                              "launches": r["launches"],
+                                              "capture_ms": r["capture_ms"]})
+                prev["secs"] += r["secs"]
+                prev["frame_secs"] += r["frame_secs"]
+        out = {"tag": tag, "card": card, "cell": name,
+               "live": int((np.asarray(start[2].cpu() if kind == "pair"
+                                       else start[2]) >= 0).sum()),
+               "steady_calls_a_run": len(frames) - 1 - warm,
+               "runs": 2 * args.reps,
+               "last_features_equal_in_every_run": all(
+                   f == finals[0] for f in finals)}
+        for mode, r in runs.items():
+            w = np.asarray(r["secs"]) * 1e6
+            fw = np.asarray(r["frame_secs"]) * 1e6
+            prof = flow(mode, warm, profiled=True)
+            med = float(np.median(w))
+            out[mode] = {
+                "wall_us_per_call": {"median": med, "min": float(w.min()),
+                                     "p90": float(np.percentile(w, 90)),
+                                     "max": float(w.max())},
+                "frame_wall_us_median": float(np.median(fw)),
+                "kernel_launches_per_call": r["launches"],
+                "busy_share": prof["device_us_per_call"] / med,
+                "capture_ms": r["capture_ms"], **prof}
+        print(json.dumps(out), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tag", default="this")
@@ -603,6 +855,7 @@ def main() -> int:
     ap.add_argument("--wrapper-only", action="store_true")
     ap.add_argument("--kernels-only", action="store_true")
     ap.add_argument("--graphs", action="store_true")
+    ap.add_argument("--tracker", action="store_true")
     ap.add_argument("--graph-k", default="",
                     type=lambda v: [int(k) for k in v.split(",") if k])
     args = ap.parse_args()
@@ -622,6 +875,9 @@ def main() -> int:
     if args.kernels_only:
         kernel_costs(cfg, args.tag, card)
         exact_runs(args, args.tag, card, timed=False)
+        return 0
+    if args.tracker:
+        tracker_runs(args, args.tag, card)
         return 0
     if args.graphs:
         from klt_tpu_torch.cuda import graph

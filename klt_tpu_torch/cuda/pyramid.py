@@ -60,17 +60,31 @@ def _scratch(shape, n_levels: int, subsampling: int, n_pyr: int, dev):
 
 def build_pyramid_stacks_cuda(img: torch.Tensor, cfg: TrackingConfig,
                               n_levels: int | None = None,
-                              smooth: bool = True) -> list[torch.Tensor]:
+                              smooth: bool = True,
+                              out: list | None = None) -> list[torch.Tensor]:
     """uint8/f32 [H, W] CUDA frame -> finest-first list of f32
     [3, H_l, W_l] stacks (intensity, gradx, grady), `n_levels` of them
     (default: the configuration's), one kernel call; level 0 is the frame
-    itself when not `smooth`."""
+    itself when not `smooth`.  out: the stacks to write (returned), else
+    new ones."""
     check_cuda_tensor(img, "img", (torch.uint8, torch.float32), 2)
     h, w = img.shape
     shapes, taps, tap_args = _shapes_and_taps(h, w, cfg, n_levels, smooth)
     dev = img.device
-    outs = [torch.empty((3, r, c), dtype=torch.float32, device=dev)
-            for c, r in shapes]
+    if out is None:
+        outs = [torch.empty((3, r, c), dtype=torch.float32, device=dev)
+                for c, r in shapes]
+    else:
+        outs = list(out)
+        if len(outs) != len(shapes):
+            raise ValueError(f"out holds {len(outs)} stacks, the pyramid "
+                             f"{len(shapes)}")
+        for lvl, (o, (c, r)) in enumerate(zip(outs, shapes)):
+            check_cuda_tensor(o, f"out[{lvl}]", torch.float32, 3)
+            if tuple(o.shape) != (3, r, c) or o.device != dev:
+                raise ValueError(f"out[{lvl}] must be [3, {r}, {c}] on "
+                                 f"{dev}, got {tuple(o.shape)} on "
+                                 f"{o.device}")
     scratch = _scratch((h, w), len(shapes), cfg.subsampling, len(taps[3]),
                        dev)
     out_ptrs = (ctypes.c_void_p * len(outs))(*[o.data_ptr() for o in outs])

@@ -76,17 +76,27 @@ def build_pyramid_stacks_plain(img: torch.Tensor, cfg: TrackingConfig,
 
 
 def build_pyramid_stacks(img: torch.Tensor, cfg: TrackingConfig,
-                         n_levels: int | None = None, smooth: bool = True
-                         ) -> list[torch.Tensor]:
+                         n_levels: int | None = None, smooth: bool = True,
+                         out: list | None = None) -> list[torch.Tensor]:
     """Finest-first [3, H_l, W_l] stacks of a uint8/f32 [H, W] frame
-    (contract of `build_pyramid_stacks_plain`).  CUDA: one call of the
+    (contract of `build_pyramid_stacks_plain`), written into `out`'s
+    stacks when given (which are returned).  CUDA: one call of the
     pyramid kernel.  CPU: the plain version."""
     if img.device.type == "cuda":
         from ..cuda.pyramid import build_pyramid_stacks_cuda
-        return build_pyramid_stacks_cuda(img, cfg, n_levels, smooth)
+        return build_pyramid_stacks_cuda(img, cfg, n_levels, smooth, out)
     if img.device.type != "cpu":
         raise ValueError(f"no pyramid path for device {img.device}")
-    return build_pyramid_stacks_plain(img, cfg, n_levels, smooth)
+    stacks = build_pyramid_stacks_plain(img, cfg, n_levels, smooth)
+    if out is None:
+        return stacks
+    if [tuple(o.shape) for o in out] != [tuple(s.shape) for s in stacks]:
+        raise ValueError(f"out's stacks {[tuple(o.shape) for o in out]} "
+                         f"differ from the pyramid's "
+                         f"{[tuple(s.shape) for s in stacks]}")
+    for o, s in zip(out, stacks):
+        o.copy_(s)
+    return list(out)
 
 
 def build_pyramid_stacks_batched_plain(imgs: torch.Tensor,

@@ -675,14 +675,62 @@ def track_sequence_stream(frames_iter, x, y, val, cfg: TrackingConfig,
             yield t, *(a.to("cpu", copy=True).numpy() for a in b.feats)
 
 
+@dataclasses.dataclass
+class _PairBuffers:
+    """The static buffers of `track_pair_carry`'s step program."""
+
+    st1: list              # image 1's stacks
+    img2: torch.Tensor
+    feats: tuple           # x, y, val
+
+
+def _pair_step(b: _PairBuffers, cfg: TrackingConfig):
+    """A call of `track_pair_carry` on its static buffers; returns the
+    features and image 2's stacks (of the graph's pool on the card)."""
+    x, y, val = b.feats
+    st2 = build_pyramid_stacks(b.img2, cfg)
+    return (*track_features_pyramid_stacks(b.st1, st2, x, y, val, cfg),
+            *st2)
+
+
 def track_pair_carry(pyr1_state, img2: torch.Tensor, feat,
                      cfg: TrackingConfig):
     """One frame-pair step with explicit device-resident pyramid carry
     (stacked-level state, as produced by prepare_pyramids).
 
     Returns ((x, y, val), pyr2_state): the building block for host-driven
-    streaming (e.g. with lost-feature replacement between frames).
+    streaming (e.g. with lost-feature replacement between frames).  On the
+    card a replay of the step's CUDA graph (cached by shapes, dtypes,
+    devices, cfg and KLT_TPU_DEBUG, as klt_tpu's jit): the arguments are
+    copied into its static buffers, and what it returns is copied out, so
+    the caller owns every tensor it gets.  `_track_pair_carry_eager` is
+    the same step without graphs.
     """
+    inputs = (*pyr1_state, img2, *feat)
+    dev = img2.device
+    key = ("pair_carry", cfg, checks.debug_enabled(),
+           tuple((tuple(a.shape), a.dtype, a.device) for a in inputs))
+
+    def make():
+        b = _PairBuffers(st1=[torch.empty_like(s) for s in pyr1_state],
+                         img2=torch.empty_like(img2),
+                         feats=tuple(torch.empty_like(a) for a in feat))
+        return graph.Program(b, lambda n: _pair_step(b, cfg), dev,
+                             dev.type == "cuda")
+
+    with graph.program(key, make) as prog:
+        b = prog.static
+        _copy((*b.st1, b.img2, *b.feats), inputs)
+        flags = checks.Flags()
+        out = [a.clone() for a in prog.run(1, flags)]
+        flags.report()
+    return tuple(out[:3]), tuple(out[3:])
+
+
+def _track_pair_carry_eager(pyr1_state, img2: torch.Tensor, feat,
+                            cfg: TrackingConfig):
+    """`track_pair_carry` as the kernels' calls one at a time: what its
+    graph is held against."""
     x, y, val = feat
     st2 = tuple(build_pyramid_stacks(img2, cfg))
     xn, yn, vn = track_features_pyramid_stacks(list(pyr1_state), list(st2),
@@ -691,5 +739,6 @@ def track_pair_carry(pyr1_state, img2: torch.Tensor, feat,
 
 
 def prepare_pyramids(img: torch.Tensor, cfg: TrackingConfig):
-    """Pyramid stacks of the first frame of a stream."""
+    """Pyramid stacks of the first frame of a stream: one call of kernel
+    A a stream, left eager."""
     return tuple(build_pyramid_stacks(img, cfg))

@@ -22,7 +22,17 @@ KLTReplaceLostFeatures, src/V1/klt.h:150-169), bound to one torch device:
 * tracking builds pyramids and runs the coarse-to-fine LK on the device;
   sequential mode keeps the previous frame's pyramids there between
   calls — the V3 lesson (src/V3/trackFeaturesGPU.cu:481-484): never
-  round-trip frames through the host.
+  round-trip frames through the host.  A call is one step program
+  (cuda/graph.py's Program, one step), as klt_tpu compiles each call into
+  one XLA program: on the card, after the key's first call (the warm-up,
+  run eagerly), a replay of the CUDA graph of the step.  The step reads
+  and writes static buffers of the tracker: the frames and the features
+  come in by one copy each from a staging buffer (pinned on the card),
+  image 1's pyramid is the carried one (or is built from image 1 on a
+  first or non-sequential call), image 2's is built into the other of
+  two slots, so that nothing is copied to carry it (a graph for each
+  parity), and the features go out by one copy.  `_track_features_eager`
+  is the step's calls one at a time, which the graphs are held against.
 
 * with affine_consistency_check >= 0 every tracked feature is then
   verified against the reference patch saved at its first successful
@@ -38,11 +48,12 @@ from __future__ import annotations
 import dataclasses
 import os
 import sys
+from collections import OrderedDict
 
 import numpy as np
 import torch
 
-from ..config import TrackingConfig
+from ..config import TrackingConfig, pyramid_shapes
 from ..device import default_device
 from ..features import FeatureList
 from ..ops.convolve import compute_gradients
@@ -52,9 +63,15 @@ from ..ops.selection import (candidate_points, candidate_points_topk,
 from ..ops.pyramid import build_pyramid_stacks
 from ..ops.lk import track_features_pyramid_stacks
 from ..ops.affine import AffineState, affine_consistency_step
+from ..cuda import graph
+from ..utils import checks
 from .. import native
 
 _verbosity = 1
+# Geometries (frame shape and dtype, feature count, configuration) whose
+# step buffers and programs a tracker keeps, the least recently used
+# dropped first.
+STEP_KEYS = 4
 
 
 def _exact_select_enabled() -> bool:
@@ -92,6 +109,10 @@ class KLTracker:
         self.sequential = self.cfg.sequential_mode
         self._pyr_last = None  # finest-first [3, H_l, W_l] stacks
         self._affine = None    # AffineState, made at the first track
+        # geometry -> (_Step, its programs); the programs hold the step,
+        # never the other way round, so a dropped tracker frees its
+        # buffers and graphs at once, not at the next garbage collection
+        self._steps: OrderedDict = OrderedDict()
 
     def select_good_features(self, img: np.ndarray, fl: FeatureList) -> None:
         """reference: KLTSelectGoodFeatures, src/V1/selectGoodFeatures.c:472.
@@ -199,7 +220,93 @@ class KLTracker:
                        fl: FeatureList) -> None:
         """reference: KLTTrackFeatures, src/V1/trackFeatures.c:1234-1529.
 
-        img1, img2: uint8 [H, W] numpy frames; fl is updated in place."""
+        img1, img2: uint8 [H, W] numpy frames; fl is updated in place.
+        One replay of the step's CUDA graph on the card (module
+        docstring)."""
+        cfg = self.cfg
+        img2 = np.asarray(img2)
+        if _verbosity >= 1:    # the counts cost host time: skip them
+            _log(f"(KLT) Tracking {fl.count_remaining()} features in a "
+                 f"{img2.shape[1]} by {img2.shape[0]} image...")
+
+        pyr1 = self._pyr_last if self.sequential else None
+        if pyr1 is not None and tuple(pyr1[0].shape[-2:]) != img2.shape:
+            raise ValueError(
+                f"incoming image {tuple(img2.shape)} differs from "
+                f"previous image {tuple(pyr1[0].shape[-2:])}")
+        if pyr1 is None:
+            img1 = np.asarray(img1)
+            if img1.shape != img2.shape or img1.dtype != img2.dtype:
+                raise ValueError(
+                    f"img1 ({img1.shape}, {img1.dtype}) and img2 "
+                    f"({img2.shape}, {img2.dtype}) differ in shape or dtype")
+        if cfg.affine_consistency_check >= 0 and self._affine is None:
+            self._affine = AffineState.create(fl.n_features, cfg,
+                                              self.device)
+        b, programs = self._step_buffers(img2, fl.n_features)
+        if pyr1 is None:
+            src = None
+            b.stage_np[0] = img1
+        else:
+            src = next((i for i, s in enumerate(b.slots) if s is pyr1),
+                       None)
+            if src is None:
+                # carried by another geometry's buffers (or the eager
+                # body): into slot 0, outside the graph
+                src = 0
+                for dst, st in zip(b.slots[0], pyr1):
+                    dst.copy_(st)
+        b.stage_np[1] = img2
+        feats = b.stage_feats.numpy()
+        feats[0], feats[1] = fl.x.view(np.int32), fl.y.view(np.int32)
+        feats[2] = fl.val
+        if src is None:
+            b.frames.copy_(b.stage, non_blocking=True)
+        else:
+            b.frames[1].copy_(b.stage[1], non_blocking=True)
+        b.feats.copy_(b.stage_feats, non_blocking=True)
+
+        key = (src, checks.debug_enabled())
+        prog = programs.get(key)
+        if prog is None:
+            state = self._affine if cfg.affine_consistency_check >= 0 \
+                else None
+            prog = programs[key] = graph.Program(
+                b, lambda n: _track_step(b, cfg, state, src), self.device,
+                self.device.type == "cuda")
+        flags = checks.Flags()
+        prog.run(1, flags)
+        flags.report()
+        b.stage_out.copy_(b.out)
+        out = b.stage_out.numpy()
+        fl.x[:] = out[0].view(np.float32)
+        fl.y[:] = out[1].view(np.float32)
+        fl.val[:] = out[2]
+
+        if self.sequential:
+            self._pyr_last = b.slots[_carry_slot(src)]
+        if _verbosity >= 1:
+            _log(f"\t{fl.count_remaining()} features successfully tracked.")
+
+    def _step_buffers(self, img2: np.ndarray, n: int) -> tuple:
+        """The static buffers of this call's geometry and their programs,
+        keyed by (the source of image 1's pyramid, KLT_TPU_DEBUG)."""
+        key = (img2.shape, img2.dtype.str, n, self.cfg)
+        entry = self._steps.pop(key, None)
+        if entry is None:
+            dtype = torch.from_numpy(np.empty(0, img2.dtype)).dtype
+            entry = (_Step.create(img2.shape, dtype, n, self.cfg,
+                                  self.device), {})
+        self._steps[key] = entry
+        while len(self._steps) > STEP_KEYS:
+            self._steps.popitem(last=False)
+        return entry
+
+    def _track_features_eager(self, img1: np.ndarray, img2: np.ndarray,
+                              fl: FeatureList) -> None:
+        """`track_features` as the kernels' calls one at a time, without
+        graphs or static buffers: what the step programs are held
+        against."""
         cfg = self.cfg
         _log(f"(KLT) Tracking {fl.count_remaining()} features in a "
              f"{img2.shape[1]} by {img2.shape[0]} image...")
@@ -235,3 +342,64 @@ class KLTracker:
         """reference: KLTStopSequentialMode, src/V1/klt.c:490-500."""
         self._pyr_last = None
         self.sequential = False
+
+
+@dataclasses.dataclass
+class _Step:
+    """The static buffers of a tracker's step programs for one geometry
+    (frame shape and dtype, N, cfg)."""
+
+    stage: torch.Tensor        # host [2, H, W]: image 1, image 2
+    stage_feats: torch.Tensor  # host i32 [3, N]: x, y (f32 bits), val
+    stage_out: torch.Tensor    # host i32 [3, N]: the step's x, y, val
+    frames: torch.Tensor       # device [2, H, W]
+    feats: torch.Tensor        # device i32 [3, N]
+    out: torch.Tensor          # device i32 [3, N]
+    slots: tuple               # two pyramids: finest-first [3, H_l, W_l]
+
+    @classmethod
+    def create(cls, shape, dtype, n: int, cfg: TrackingConfig,
+               device: torch.device) -> "_Step":
+        pin = device.type == "cuda"
+        host = lambda size, dt: torch.empty(size, dtype=dt,
+                                            pin_memory=pin)
+        dev = lambda t: torch.empty_like(t, device=device)
+        stage = host((2, *shape), dtype)
+        feats = host((3, n), torch.int32)
+        shapes = pyramid_shapes(shape[1], shape[0], cfg)
+        return cls(stage=stage, stage_feats=feats,
+                   stage_out=host((3, n), torch.int32), frames=dev(stage),
+                   feats=dev(feats), out=dev(feats),
+                   slots=tuple([torch.empty((3, r, c), dtype=torch.float32,
+                                            device=device)
+                                for c, r in shapes] for _ in range(2)))
+
+    @property
+    def stage_np(self) -> np.ndarray:
+        return self.stage.numpy()
+
+
+def _carry_slot(src: int | None) -> int:
+    """The slot image 2's pyramid is built into: the other one, or slot 0
+    after a pair built from both frames."""
+    return 0 if src is None else 1 - src
+
+
+def _track_step(b: _Step, cfg: TrackingConfig, state,
+                src: int | None) -> None:
+    """A call of `track_features` on b's static buffers: image 1's
+    pyramid from slot `src` (None: built from b.frames[0]), image 2's
+    into slot _carry_slot(src), the coarse-to-fine LK and, with `state`,
+    the affine check, the features into b.out."""
+    x, y = (b.feats[i].view(torch.float32) for i in (0, 1))
+    val = b.feats[2]
+    pyr1 = build_pyramid_stacks(b.frames[0], cfg) if src is None \
+        else b.slots[src]
+    pyr2 = build_pyramid_stacks(b.frames[1], cfg,
+                                out=b.slots[_carry_slot(src)])
+    xn, yn, vn = track_features_pyramid_stacks(pyr1, pyr2, x, y, val, cfg)
+    if state is not None:
+        xn, yn, vn = affine_consistency_step(state, pyr1[0], pyr2[0], x, y,
+                                             val, xn, yn, vn, cfg)
+    torch.stack([xn.view(torch.int32), yn.view(torch.int32), vn],
+                out=b.out)

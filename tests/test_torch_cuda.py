@@ -1652,3 +1652,145 @@ def test_graph_cache_keeps_its_bound(dev):
     for n in range(graph.CACHE_KEYS + 3):
         track_sequence(fd, *[a[:n + 1] for a in featd], cfg)
     assert len(graph.programs()) == graph.CACHE_KEYS
+
+
+TRACKER_CASES = {
+    # name: (config fields, frames, replace every frame, calls at which
+    # the flow reselects all or stops sequential mode)
+    "sequential": ({"sequential_mode": True}, "scene", False, {}),
+    "replace": ({"sequential_mode": True}, "scene", True, {}),
+    "affine": ({"sequential_mode": True, "affine_consistency_check": 2},
+               "affine", True, {4: "select"}),
+    "non-sequential": ({}, "scene", True, {}),
+    "stop sequential mode": ({"sequential_mode": True}, "scene", True,
+                             {3: "stop"}),
+}
+
+
+def tracker_flow(case, method, n_frames=8):
+    """The example3 flow of a TRACKER_CASES case at 320x240 x 150 through
+    KLTracker.`method` on the card: (the feature lists after every call,
+    each kernel's launches, the tracker's graph replays)."""
+    from klt_tpu_torch import cuda
+    kw, frames, replace, events = TRACKER_CASES[case]
+    frames = replace_frames(n_frames) if frames == "scene" else \
+        affine_frames(n_frames, rate=0.1)
+    tr = kt.KLTracker(kt.TrackingConfig(**kw))
+    fl = kt.FeatureList.create(150)
+    tr.select_good_features(frames[0], fl)
+    rows = [fl.copy()]
+    cuda.reset_launch_counts()
+    for i in range(1, n_frames):
+        if events.get(i) == "stop":
+            tr.stop_sequential_mode()
+        getattr(tr, method)(frames[i - 1], frames[i], fl)
+        rows.append(fl.copy())
+        if events.get(i) == "select":
+            tr.select_good_features(frames[i], fl)
+            rows.append(fl.copy())
+        elif replace:
+            tr.replace_lost_features(frames[i], fl)
+            rows.append(fl.copy())
+    launches = {k.symbol: k.launches for k in cuda.KERNELS}
+    replays = sum(p.replays for _, progs in tr._steps.values()
+                  for p in progs.values())
+    return rows, launches, replays
+
+
+def assert_same_lists(got, ref):
+    assert len(got) == len(ref)
+    for a, b in zip(got, ref):
+        for k in ("x", "y", "val"):
+            np.testing.assert_array_equal(getattr(a, k).view(np.int32),
+                                          getattr(b, k).view(np.int32))
+
+
+@pytest.mark.parametrize("case", list(TRACKER_CASES))
+def test_tracker_graphs_equal_the_eager_body(case, dev):
+    """KLTracker's step programs on the card: every call after a key's
+    first two (warm-up, capture) a replay, the feature lists bit-equal to
+    the eager body's, the same kernel launches (credited per replay)."""
+    got, launches, replays = tracker_flow(case, "track_features")
+    ref, ref_launches, ref_replays = tracker_flow(case,
+                                                  "_track_features_eager")
+    assert_same_lists(got, ref)
+    assert launches == ref_launches and ref_replays == 0
+    assert replays >= {"non-sequential": 6, "stop sequential mode": 3}.get(
+        case, 4)
+
+
+def test_tracker_graphs_of_two_trackers_interleaved(dev):
+    """Two trackers stepped call by call in turns equal their runs alone:
+    no static buffer, carried slot or affine state is shared."""
+    alone = [tracker_flow(c, "track_features")[0]
+             for c in ("replace", "affine")]
+    frames = [replace_frames(8), affine_frames(8, rate=0.1)]
+    cfgs = [kt.TrackingConfig(**TRACKER_CASES[c][0])
+            for c in ("replace", "affine")]
+    trs = [kt.KLTracker(c) for c in cfgs]
+    fls = [kt.FeatureList.create(150) for _ in trs]
+    rows = [[], []]
+    for k in range(2):
+        trs[k].select_good_features(frames[k][0], fls[k])
+        rows[k].append(fls[k].copy())
+    for i in range(1, 8):
+        for k in range(2):
+            trs[k].track_features(frames[k][i - 1], frames[k][i], fls[k])
+            rows[k].append(fls[k].copy())
+            if k == 1 and i == 4:
+                trs[k].select_good_features(frames[k][i], fls[k])
+            else:
+                trs[k].replace_lost_features(frames[k][i], fls[k])
+            rows[k].append(fls[k].copy())
+    for got, ref in zip(rows, alone):
+        assert_same_lists(got, ref)
+
+
+def test_tracker_capture_error_raises(dev, monkeypatch):
+    """A step that reads the host is captured at the tracker's second
+    call, which raises: nothing falls back to the eager body."""
+    from klt_tpu_torch.runtime import tracker as tracker_mod
+    orig = tracker_mod._track_step
+
+    def reads_host(b, *args):
+        orig(b, *args)
+        float(b.out.sum())
+    monkeypatch.setattr(tracker_mod, "_track_step", reads_host)
+    frames = replace_frames(3)
+    fl = kt.FeatureList.create(150)
+    tr = kt.KLTracker(kt.TrackingConfig())
+    tr.select_good_features(frames[0], fl)
+    tr.track_features(frames[0], frames[1], fl)
+    with pytest.raises(RuntimeError):
+        tr.track_features(frames[1], frames[2], fl)
+
+
+def test_track_pair_carry_graph_equals_eager(dev):
+    """track_pair_carry's replays bit-equal to the eager body, with its
+    launches; every tensor returned is the caller's: unchanged by later
+    calls."""
+    from klt_tpu_torch import cuda
+    from klt_tpu_torch.cuda import graph
+    from klt_tpu_torch.runtime import pipeline
+    cfg, f, feats = replace_inputs(dev)
+    f, feats = f.to(dev), [a.to(dev) for a in feats]
+    graph._clear()
+    outs, counts, snaps = {}, {}, {}
+    for name, fn in (("graphed", pipeline.track_pair_carry),
+                     ("eager", pipeline._track_pair_carry_eager)):
+        cuda.reset_launch_counts()
+        fd, state = feats, pipeline.prepare_pyramids(f[0], cfg)
+        outs[name] = []
+        for i in range(1, len(f)):
+            fd, state = fn(state, f[i], fd, cfg)
+            outs[name].append((*fd, *state))
+        torch.cuda.synchronize()
+        counts[name] = {k.symbol: k.launches for k in cuda.KERNELS}
+        snaps[name] = [[a.clone() for a in o] for o in outs[name]]
+    for o, s in zip(outs["graphed"], snaps["graphed"]):
+        assert_equal_all(o, s)
+    for o, e in zip(outs["graphed"], outs["eager"]):
+        assert_equal_all(o, e)
+    assert counts["graphed"] == counts["eager"]
+    (prog,) = [p for k, p in graph.programs() if k[0] == "pair_carry"]
+    assert prog.replays == len(f) - 2
