@@ -84,6 +84,15 @@ paths:
   (640x480 x 500, 100 traffic frames) and the affine run with replacement
   (20 frames), with the eager bodies' launches, two trackers interleaved
   call by call, and a capture that fails raising;
+* the SLAM solvers as programs of CUDA graphs (slam/solvers.py::LMSolve:
+  each LM iteration after a solve's first replays its steps' graphs),
+  which phases 36 and 37 go through: phase 42 holds phase 37's three
+  solves and phase 36's back end bit-equal to their eager bodies
+  (`_lm_drive_eager`, `_refit_landmarks_eager`,
+  `_optimize_pose_graph_eager`, `_pair_solve_eager`), counts their
+  replays, host syncs and device launches per LM iteration against the
+  eager bodies', runs every step under the sync debug mode's "error",
+  and has a capture that fails raise;
 
 checks the tracks against the known motion of the synthetic frames and
 against the plain versions on the CPU, checks that the replacement loop
@@ -112,6 +121,7 @@ larger of the bytes moved over 3.35 TB/s and the operations over
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -182,6 +192,9 @@ from klt_tpu_torch.examples.slam_pipeline import (keyframe_observations,
 from klt_tpu_torch.slam import (BAProblem, bundle_adjust_cg,
                                 bundle_adjust_gated, optimize_pose_graph,
                                 pose_graph, select_keyframes)
+from klt_tpu_torch.slam import ba as slam_ba
+from klt_tpu_torch.slam import frontend as slam_frontend
+from klt_tpu_torch.slam import solvers as slam_solvers
 from klt_tpu_torch.slam.ba import _residual_norms
 from klt_tpu_torch.slam.frontend import build_keyframe_pose_graph
 from klt_tpu_torch.slam.geometry import project as slam_project
@@ -3710,10 +3723,24 @@ def run_prefilter(frames, tag) -> dict:
     return launches
 
 
-def slam_back_end(obs, shape, device, gated=SLAM_GATED) -> dict:
+@contextmanager
+def eager_pair_solves():
+    """build_keyframe_pose_graph's pair solves through their eager body
+    (slam/frontend.py::_pair_solve_eager) inside."""
+    graphed = slam_frontend._pair_solve
+    slam_frontend._pair_solve = slam_frontend._pair_solve_eager
+    try:
+        yield
+    finally:
+        slam_frontend._pair_solve = graphed
+
+
+def slam_back_end(obs, shape, device, gated=SLAM_GATED,
+                  eager: bool = False) -> dict:
     """The keyframe pose graph (built and optimized 10 iterations) and the
     gated BA on `device`, as bench_slam_e2e runs them; seconds of each
-    stage (host clock, the card synchronised)."""
+    stage (host clock, the card synchronised).  eager: every solve through
+    its eager body instead of its programs."""
     kfs, lm_idx, cam, u, v = obs
     h, w = shape
     fx = fy = 0.9 * w
@@ -3723,13 +3750,18 @@ def slam_back_end(obs, shape, device, gated=SLAM_GATED) -> dict:
     sync = torch.cuda.synchronize if torch.device(device).type == "cuda" \
         else (lambda: None)
     secs = []
+    optimize = pose_graph._optimize_pose_graph_eager if eager \
+        else optimize_pose_graph
+    gated_ba = slam_ba._bundle_adjust_gated_eager if eager \
+        else bundle_adjust_gated
     t0 = time.perf_counter()
-    pg = build_keyframe_pose_graph(lm_idx, cam, u, v, n_pose, fx, fy, cx, cy,
-                                   device=device)
+    with eager_pair_solves() if eager else contextlib.nullcontext():
+        pg = build_keyframe_pose_graph(lm_idx, cam, u, v, n_pose, fx, fy,
+                                       cx, cy, device=device)
     sync()
     secs.append(time.perf_counter() - t0)
     t0 = time.perf_counter()
-    R0, t0_, pg_costs = optimize_pose_graph(pg, iterations=10)
+    R0, t0_, pg_costs = optimize(pg, iterations=10)
     sync()
     secs.append(time.perf_counter() - t0)
     on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -3740,7 +3772,7 @@ def slam_back_end(obs, shape, device, gated=SLAM_GATED) -> dict:
                                        device=device),
                      fx=fx, fy=fy, cx=cx, cy=cy)
     t0 = time.perf_counter()
-    R, t, lm, costs, active = bundle_adjust_gated(prob, **gated)
+    R, t, lm, costs, active = gated_ba(prob, **gated)
     sync()
     secs.append(time.perf_counter() - t0)
     return {"pg": [pg.R, pg.t, pg.Rz, pg.tz], "R0": R0, "t0": t0_,
@@ -3768,7 +3800,8 @@ def run_slam(frames, n_feats, tag, n_cpu) -> dict:
     its launch counts, without a plain version, and to the plain CPU run
     over its first n_cpu frames; the back end to a second card run (bit
     for bit) and to the CPU's back end on the same observations.  Returns
-    the front end's launch counts."""
+    the front end's launch counts, and the back end's observations, frame
+    shape and second card run (phase 42's)."""
     check(not torch.backends.cuda.matmul.allow_tf32 and
           torch.get_float32_matmul_precision() == "highest",
           "f32 matrix products on the card are not full f32")
@@ -3875,12 +3908,12 @@ def run_slam(frames, n_feats, tag, n_cpu) -> dict:
                                               iterations=4)), 1, tag,
                    "the SLAM back end (pose graph build, 10 iterations of "
                    "its optimization, 4 of gated BA)", {})
-    return launches
+    return launches, {"obs": obs, "shape": shape, "card": card}
 
 
 def count_syncs(run) -> int:
     """Host synchronisations in run(), as torch's sync debug mode flags
-    them."""
+    them (not its one-time notice that the mode is a prototype)."""
     import warnings
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
@@ -3891,7 +3924,8 @@ def count_syncs(run) -> int:
         finally:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    return sum("synchroniz" in str(w.message) for w in caught)
+    return sum("synchroniz" in str(w.message) and
+               "prototype" not in str(w.message) for w in caught)
 
 
 def scale_ba_fields():
@@ -4872,6 +4906,313 @@ def phase_tracker_graphs(vga, traffic, aff, cfg, acfg, tag: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ #
+# the SLAM solvers' programs against their eager bodies (phase 42)     #
+# ------------------------------------------------------------------ #
+
+@contextmanager
+def made_solves():
+    """Every solve's programs made inside (slam/solvers.py::LMSolve), in
+    order."""
+    made = []
+    init = slam_solvers.LMSolve.__init__
+
+    def spy(self, *a, **kw):
+        init(self, *a, **kw)
+        made.append(self)
+    slam_solvers.LMSolve.__init__ = spy
+    try:
+        yield made
+    finally:
+        slam_solvers.LMSolve.__init__ = init
+
+
+@contextmanager
+def strict_programs():
+    """Every program made inside runs its step (warm-up and capture)
+    under torch.cuda.set_sync_debug_mode("error"): a step that reads the
+    host raises."""
+    base = graph.Program
+
+    class Strict(base):
+        def __init__(self, static, chunk_fn, device, capture):
+            def strict(n):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return chunk_fn(n)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            super().__init__(static, strict, device, capture)
+    graph.Program = Strict
+    try:
+        yield
+    finally:
+        graph.Program = base
+
+
+# copies a solve's programs make into their static buffers and out of
+# them, per solve (slam/ba.py::_Solve: R, t, landmarks, uv, weight in and
+# R, t, landmarks out; slam/pose_graph.py::_Solve: the 7 fields of the
+# graph in, R and t out; slam/frontend.py::_PairSolve: R, t, landmarks,
+# uv, weight in, R and t out)
+SOLVE_COPIES = {"ba": (5, 3), "pose_graph": (7, 2), "pair": (5, 2)}
+# what CG's start copies into its static buffers an LM iteration (r, p,
+# rz: slam/solvers.py::_cg_start)
+CG_START_COPIES = 3
+
+
+def program_overhead(solve, kind: str, iterations: int,
+                     rounds: int = 1) -> int:
+    """Device launches a solve's programs add to its eager body's: the
+    copies in and out (SOLVE_COPIES), an LM iteration CG's start copies
+    and the cost slot's copy out, less the eager body's stack of each
+    round's cost curve; kernel R's ticket, made at each program's first
+    capture (cuda/graph.py); and two fills a captured graph (the random
+    generator's seed and offset, which torch's capture sets)."""
+    into, out = SOLVE_COPIES[kind]
+    curve = solve.cost is not None
+    per_it = CG_START_COPIES * (solve.cg is not None) + curve
+    tickets = sum(1 for p in solve.programs() if p.graphs)
+    graphs = sum(len(p.graphs) for p in solve.programs())
+    return into + out + per_it * iterations * rounds - curve * rounds + \
+        tickets + 2 * graphs
+
+
+SCALE_KW = {"ba_cg": dict(damping=1e-4, cg_iters=120),
+            "pg_cg": dict(solver="cg", damping=1e-4, cg_iters=400),
+            "gated": dict(damping=1e-2, robust_delta=2.0, gate_px=3.0)}
+
+
+def scale_cells() -> dict:
+    """Phase 37's three solves on the card: kind -> (name, problem,
+    iterations of the full solve's rounds, rounds)."""
+    f, _ = scale_ba_fields()
+    ba_prob = ba_problem_from_numpy(f, "cuda")
+    f, _ = scale_pose_graph_fields()
+    graph_prob = pose_graph_from_numpy(f, "cuda")
+    f, _ = spiked_ba_fields()
+    spiked = ba_problem_from_numpy(f, "cuda")
+    return {
+        "ba_cg": ("bundle_adjust_cg, 200 poses x 20,000 landmarks x 4 "
+                  "observations, cg_iters 120", ba_prob, 8, 1),
+        "pg_cg": ("optimize_pose_graph(solver=\"cg\"), 800 keyframes, "
+                  "cg_iters 400", graph_prob, 8, 1),
+        "gated": ("bundle_adjust_gated, 30 poses x 2,000 landmarks, 40% "
+                  "spiked, cg_iters 250", spiked, 10, 3)}
+
+
+def scale_solve(kind: str, x, eager: bool, iterations: int,
+                rounds: int = 1):
+    """One of phase 37's solves on x: the entry point (its programs) or
+    its eager body; iterations LM iterations a round (rounds: the gated
+    BA's)."""
+    kw = SCALE_KW[kind]
+    if kind == "ba_cg":
+        if eager:
+            return slam_ba._bundle_adjust_eager(
+                x, iterations, kw["damping"], cg=(kw["cg_iters"], 1e-5))
+        return bundle_adjust_cg(x, iterations=iterations, **kw)
+    if kind == "pg_cg":
+        solve = pose_graph._optimize_pose_graph_eager if eager \
+            else optimize_pose_graph
+        return solve(x, iterations=iterations, **kw)
+    solve = slam_ba._bundle_adjust_gated_eager if eager \
+        else bundle_adjust_gated
+    return solve(x, rounds=rounds, iterations=iterations, **kw)
+
+
+def solve_bits(out) -> list:
+    """A solve's outputs as tensors (the gated BA's active mask too)."""
+    return [o if isinstance(o, torch.Tensor) else torch.from_numpy(o)
+            for o in out]
+
+
+def check_replays(name: str, solve, lm_iterations: int,
+                  refits: int = 0) -> None:
+    """After its first LM iteration a solve runs only replays: each step
+    program lm_iterations - 1 of them, CG's every chunk but the first
+    iteration's (at most ceil(cg_iters / 8) run eagerly), the refit
+    program every step but its first."""
+    steps = [p.replays for p in solve.steps]
+    cg_first = -(-solve.cg.cg_iters // slam_solvers.CG_CHECK_EVERY) \
+        if solve.cg is not None else 0
+    ok = all(r == lm_iterations - 1 for r in steps)
+    cg = (solve.cg.chunks, solve.cg.program.replays) if solve.cg else None
+    if cg:
+        ok &= cg[1] > 0 and cg[0] - cg[1] <= cg_first
+    if refits:
+        ok &= solve.refit.replays == refits - 1
+    check(ok, f"{name}: LM iterations after the first did not all replay "
+          f"(step replays {steps}, CG chunks and replays {cg})")
+
+
+def graph_captures(solve) -> list:
+    """Capture plus instantiation ms of each graph of a solve."""
+    return [round(g.seconds * 1e3, 1) for p in solve.programs()
+            for g in p.graphs.values()]
+
+
+# LM iterations (a round's) of phase 42's solves: the first eager, the
+# second capturing, the others replays (phase 37 runs the full solves)
+SOLVER_CELL_ITERATIONS = 4
+
+
+def paired_device(head, runs: dict, steps: int, tag: str,
+                  label: str) -> dict | None:
+    """Device us and device launches per step of each run in runs (name
+    -> callable), read as profile_device reads one run: in one
+    torch.profiler window opened by head() (not read) and each run
+    between two marker kernels, the window closed by
+    utils/profiling.py::close_window.  None when the profiler recorded
+    no device event or lost a marker."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        head()
+        for run in runs.values():
+            profiling.marker()
+            run()
+        torch.cuda.synchronize()
+        profiling.close_window()
+    events = sorted((ev for ev in prof.events()
+                     if "CUDA" in str(ev.device_type)),
+                    key=lambda ev: ev.time_range.start)
+    marks = [i for i, ev in enumerate(events) if "spin_kernel" in ev.name]
+    print(f"[{tag}] {label}: {len(events)} device events in the window, "
+          f"{len(marks)} of the {len(runs) + 1} markers")
+    if len(marks) != len(runs) + 1:
+        return None
+    return {name: {"device_us": sum(ev.time_range.elapsed_us()
+                                    for ev in events[a + 1:b]) / steps,
+                   "launches": (b - a - 1) / steps}
+            for name, a, b in zip(runs, marks, marks[1:])}
+
+
+def solver_cell(tag: str, kind: str, name: str, x, iterations: int,
+                rounds: int) -> None:
+    """One of phase 37's solves in phase 42: the graphed solve bit-equal
+    to its eager body, every LM iteration after the first a replay, host
+    syncs per LM iteration (the eager body's: a capture reads nothing),
+    and, from one profile of two LM iterations of each (one round;
+    paired_device), device time and device launches per LM iteration
+    (the graphed solve's: the eager body's plus program_overhead; a
+    profile that differs is taken once more)."""
+    its = iterations * rounds
+    walls, outs, syncs = {}, {}, {}
+    for mode in ("graphs", "eager"):
+        with made_solves() as made:
+            t0 = time.perf_counter()
+            syncs[mode] = count_syncs(lambda: outs.setdefault(
+                mode, solve_bits(scale_solve(kind, x, mode == "eager",
+                                             iterations, rounds))))
+            walls[mode] = time.perf_counter() - t0
+        if mode == "graphs":
+            solve = made[-1]
+    same = all(bits_equal(a, b) for a, b in zip(outs["graphs"],
+                                                outs["eager"]))
+    check_replays(name, solve, its, 3 * (rounds - 1))
+    captures = graph_captures(solve)
+    for attempt in (1, 2):
+        with made_solves() as made:
+            dev = paired_device(
+                lambda: scale_solve(kind, x, False, 1, 1),
+                {m: (lambda m=m: scale_solve(kind, x, m == "eager", 2, 1))
+                 for m in ("graphs", "eager")}, 2, tag,
+                f"{name}: two LM iterations")
+        overhead = program_overhead(
+            made[1], "pose_graph" if kind == "pg_cg" else "ba", 2)
+        n = dev and {m: round(dev[m]["launches"] * 2) for m in dev}
+        if not n or n["graphs"] == n["eager"] + overhead:
+            break
+        print(f"[{tag}] {name}: device launches {n}, expected graphed = "
+              f"eager + {overhead}" + (": profiling once more"
+                                       if attempt == 1 else ""))
+    print(f"[{tag}] {name}, {rounds} x {iterations} LM iterations: "
+          f"bit-equal to the eager body {same}; wall per LM iteration "
+          f"graphed {walls['graphs'] / its * 1e3:.2f} ms, eager "
+          f"{walls['eager'] / its * 1e3:.2f} ms (first iteration and "
+          f"captures included, sync debug mode on); graphs "
+          f"{len(captures)}, capture and "
+          f"instantiation ms {captures}; host syncs per LM iteration "
+          f"graphed {syncs['graphs'] / its:.2f}, eager "
+          f"{syncs['eager'] / its:.2f}")
+    check(same, f"{name}: the graphed solve differs from its eager body")
+    check(syncs["graphs"] == syncs["eager"],
+          f"{name}: host syncs {syncs['graphs']} graphed, {syncs['eager']} "
+          f"eager")
+    if n:
+        print(f"[{tag}] {name}: device us per LM iteration graphed "
+              f"{dev['graphs']['device_us']:.1f}, eager "
+              f"{dev['eager']['device_us']:.1f}; device launches of two LM "
+              f"iterations graphed {n['graphs']}, eager {n['eager']} (+ "
+              f"{overhead}: the programs' copies, tickets and capture "
+              f"fills)")
+        check(n["graphs"] == n["eager"] + overhead,
+              f"{name}: device launches {n['graphs']} graphed, expected "
+              f"{n['eager']} + {overhead}")
+
+
+def solver_capture_error(tag: str) -> None:
+    """A step that reads the host: the solve's second LM iteration (the
+    captures) raises and nothing runs in its place; the card goes on."""
+    f, _ = scale_pose_graph_fields()
+    g = pose_graph_from_numpy(f, "cuda")
+    orig = pose_graph._edge_cost
+
+    def reads_host(R, t, pg):
+        c = orig(R, t, pg)
+        float(c)
+        return c
+    pose_graph._edge_cost = reads_host
+    try:
+        optimize_pose_graph(g, iterations=3, solver="cg", cg_iters=16)
+    except RuntimeError as e:
+        msg = str(e).splitlines()[0]
+    else:
+        msg = None
+    finally:
+        pose_graph._edge_cost = orig
+    torch.cuda.synchronize()
+    after = optimize_pose_graph(g, iterations=3, solver="cg", cg_iters=16)
+    print(f"[{tag}] a step that reads the host: the solve's capture raised "
+          f"{msg!r}; the next solve's costs "
+          f"{[float(c) for c in after[2]]}")
+    check(msg is not None, "a failed capture of a solve did not raise")
+    check(bool(torch.isfinite(after[2]).all()),
+          "the card did not go on after a failed capture")
+
+
+def phase_solver_graphs(back_end: dict, tag: str) -> None:
+    """Phase 42: the SLAM solvers' programs (slam/solvers.py::LMSolve)
+    against their eager bodies: phase 37's three solves (bit-equal,
+    replays, host syncs, device launches per LM iteration), each step run
+    under the sync debug mode's "error" (warm-up and capture), phase 36's
+    back end graphed and eager bit-equal to phase 36's run, and a capture
+    that fails raising."""
+    cells = scale_cells()
+    for kind, (name, x, _, rounds) in cells.items():
+        solver_cell(tag, kind, name, x, SOLVER_CELL_ITERATIONS, rounds)
+    with strict_programs():
+        for kind, (name, x, _, _) in cells.items():
+            scale_solve(kind, x, False, 2, 2)
+    torch.cuda.synchronize()
+    print(f"[{tag}] every step of the three solves (2 LM iterations, the "
+          f"gated BA 2 rounds) warmed up and captured under "
+          f"set_sync_debug_mode(\"error\"): no host read")
+
+    runs = {mode: slam_back_end(back_end["obs"], back_end["shape"], "cuda",
+                                eager=mode == "eager")
+            for mode in ("graphs", "eager")}
+    same = all(back_ends_bit_equal(r, back_end["card"])
+               for r in runs.values())
+    secs = {m: [round(v, 4) for v in r["secs"]] for m, r in runs.items()}
+    print(f"[{tag}] the SLAM back end (phase 36's observations): graphed "
+          f"and eager bit-equal to phase 36's card run: {same}; seconds of "
+          f"build, optimization, gated BA: graphs {secs['graphs']}, eager "
+          f"{secs['eager']}")
+    check(same, "the graphed SLAM back end differs from its eager body")
+    solver_capture_error(tag)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -5102,8 +5443,8 @@ def main() -> int:
         laptops = np.concatenate([traffic, synthetic_frames(
             SLAM_FRAMES, scale=2, start=len(traffic))])
     with phase("36 slam pipeline"):
-        slam_launches = run_slam(laptops, 1000, "36 slam pipeline",
-                                 n_cpu=SLAM_CPU_FRAMES)
+        slam_launches, back_end = run_slam(laptops, 1000, "36 slam pipeline",
+                                           n_cpu=SLAM_CPU_FRAMES)
         per_step["36 slam front end"] = {
             k: round(n / (len(laptops) - 1), 3)
             for k, n in slam_launches.items()}
@@ -5140,6 +5481,17 @@ def main() -> int:
                                                 "41 tracker graphs")
         print(f"[41 launches] "
               f"{ {k: n for k, n in tracker_launches.items() if n} }")
+
+    # path 17: the SLAM solvers' programs against their eager bodies (no
+    # kernel of the port runs in a solve)
+    cuda.reset_launch_counts()
+    with phase("42 solver graphs"):
+        phase_solver_graphs(back_end, "42 solver graphs")
+    solver_launches = launch_counts()
+    print(f"[42 launches] {solver_launches} (the solvers launch no kernel "
+          f"of the port)")
+    check(not any(solver_launches.values()),
+          "a kernel of the port was launched in the solvers")
 
     with phase("12 no sync"):
         phase_no_sync(traffic[:PRECOMP_FRAMES + 2], 500, cfg)

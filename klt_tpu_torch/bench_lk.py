@@ -3,7 +3,7 @@
     python3 -m klt_tpu_torch.bench_lk [--tag NAME] [--reps N]
                                       [--wrapper-only] [--kernels-only]
                                       [--graphs [--graph-k K,K,..]]
-                                      [--tracker]
+                                      [--tracker] [--slam]
 
 run from the root of a checkout (it takes its synthetic frames from
 chip_smoke.py).  For each cell it prints one JSON line: frames/s and wall
@@ -78,6 +78,31 @@ mode the device time and device launches per call, the host time of the
 CUDA runtime calls and the busy share (device time / median wall); and
 the capture and instantiation ms of each program (key) made.
 
+--slam times the SLAM solvers' programs (slam/solvers.py::LMSolve: CUDA
+graphs of each LM iteration's steps, CG's stop flag read after every
+chunk of CG_CHECK_EVERY masked iterations; design (a)) against their
+eager bodies and against design (b) (`fused_cg`: the whole LM iteration
+one graph, CG run to cg_iters masked, no host read) on chip_smoke.py
+phase 37's three solves: bundle_adjust_cg at 200 x 20,000 x 4
+(cg_iters 120), optimize_pose_graph(solver="cg") at 800 keyframes
+(cg_iters 400), bundle_adjust_gated at 30 x 2,000 with 40% spikes (3
+rounds of 10).  In one process, in turns eager, (a), (b), (b), (a),
+eager (the gated BA too), --reps runs each: one JSON line per solve with
+the wall of the whole solve per LM iteration (host clock around a
+synchronised solve: its first iteration, eager, and the captures
+included) and of each steady LM iteration (replays only: the
+iterations after the second, which captures; each timed with the card
+synchronised before and after), median and range; from one profiled solve of two LM iterations the device time
+and device launches per LM iteration; from a profile of two replayed LM
+iterations (`device_idle`) the device's idle time between its events,
+in gaps under 10 us and longer ones; host syncs per LM iteration over a
+whole solve; busy share (device time / median steady iteration); the
+capture and instantiation ms of every graph; and whether the outputs
+equal the eager body's bit for bit.  Then phase 36's back end (the front
+end run on the 1003 laptops-width frames, 1000 features, keyframes
+evenly spaced) in turns eager, graphs, graphs, eager: the seconds of the
+pose graph's build, its optimization and the gated BA.
+
 A last JSON line gives the host's cost of enqueueing one frame pair at
 640x480 (clock around a tight loop of calls, nothing awaited): the LK
 pyramid wrapper and its parts, kernel A's wrapper and a table-row copy;
@@ -99,6 +124,7 @@ klt_tpu_torch/, and run the two in turns (other, this, this, other), e.g.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -848,6 +874,228 @@ def tracker_runs(args, tag: str, card: str) -> None:
         print(json.dumps(out), flush=True)
 
 
+@contextlib.contextmanager
+def fused_cg(made: list):
+    """Design (b) of CG's stop rule for the CG solves inside: each LM
+    iteration one program (the linearization, all cg_iters CG iterations
+    masked, no host read, the update) in place of the solvers' own
+    design (a).  An iteration past CG's stop changes nothing, so the
+    results are the same bits.  `made` collects the fused programs."""
+    from klt_tpu_torch.slam import solvers
+    own = solvers.LMSolve.iteration
+
+    def iteration(self, eager):
+        if self.cg is None:
+            return own(self, eager)
+        prog = self.__dict__.get("fused")
+        if prog is None:
+            prog = self.fused = self.program(lambda: (
+                self._linearize(), self.cg.chunk(self.cg.cg_iters),
+                self._update()))
+            made.append(prog)
+        prog.run(1, warm_up=eager)
+    solvers.LMSolve.iteration = iteration
+    try:
+        yield
+    finally:
+        solvers.LMSolve.iteration = own
+
+
+@contextlib.contextmanager
+def timed_iterations(walls: list):
+    """Each LM iteration of the solves inside timed on the host clock,
+    the card synchronised before and after (seconds into walls)."""
+    from klt_tpu_torch.slam import solvers
+    inner = solvers.LMSolve.iteration
+
+    def iteration(self, eager):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inner(self, eager)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    solvers.LMSolve.iteration = iteration
+    try:
+        yield
+    finally:
+        solvers.LMSolve.iteration = inner
+
+
+@contextlib.contextmanager
+def marked_iteration(first: int):
+    """A marker kernel (utils/profiling.py) before the LM iteration of
+    index `first` of the solves inside."""
+    from klt_tpu_torch.slam import solvers
+    from klt_tpu_torch.utils import profiling
+    inner = solvers.LMSolve.iteration
+    count = [0]
+
+    def iteration(self, eager):
+        if count[0] == first:
+            profiling.marker()
+        count[0] += 1
+        inner(self, eager)
+    solvers.LMSolve.iteration = iteration
+    try:
+        yield
+    finally:
+        solvers.LMSolve.iteration = inner
+
+
+def slam_solve(kind: str, x, mode: str, iterations: int, rounds: int,
+               made: list, *hooks):
+    """One of phase 37's solves in a mode ("eager", "graphs", "fused"),
+    the fused programs into made, inside the context managers hooks."""
+    from chip_smoke import scale_solve
+    with contextlib.ExitStack() as stack:
+        if mode == "fused":
+            stack.enter_context(fused_cg(made))
+        for hook in hooks:
+            stack.enter_context(hook)
+        return scale_solve(kind, x, mode == "eager", iterations, rounds)
+
+
+def device_idle(kind: str, x, mode: str, iterations: int = 4,
+                read_from: int = 2) -> dict:
+    """From a profile of a graphed solve of `iterations` LM iterations
+    (one round), over its iterations from index read_from on (replays
+    only): the device's busy time and its idle time between consecutive
+    device events, per LM iteration, split into gaps under 10 us (between
+    a graph's nodes) and longer ones (round trips through the host), with
+    their count."""
+    from torch.profiler import ProfilerActivity, profile as prof_ctx
+    from klt_tpu_torch.utils import profiling
+    with prof_ctx(activities=[ProfilerActivity.CUDA]) as prof:
+        slam_solve(kind, x, mode, 1, 1, [])   # not read
+        slam_solve(kind, x, mode, iterations, 1, [],
+                   marked_iteration(read_from))
+        torch.cuda.synchronize()
+        profiling.close_window()
+    ev = sorted((e for e in prof.events() if "CUDA" in str(e.device_type)),
+                key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(ev) if "spin_kernel" in e.name]
+    if len(marks) != 2:
+        return {"markers": len(marks)}
+    window = ev[marks[0] + 1:marks[1]]
+    gaps = [max(0.0, b.time_range.start - a.time_range.end)
+            for a, b in zip(window, window[1:])]
+    n = iterations - read_from
+    large = [g for g in gaps if g >= 10.0]
+    return {"busy_ms": sum(e.time_range.elapsed_us() for e in window)
+            / 1e3 / n,
+            "gaps_under_10us_ms": sum(g for g in gaps if g < 10.0) / 1e3 / n,
+            "gaps_from_10us_ms": sum(large) / 1e3 / n,
+            "gaps_from_10us": len(large) / n}
+
+
+def slam_front_end():
+    """Phase 36's back end inputs: the front end over the 1003 laptops
+    frames (track_sequence_replace with precomp, 1000 features), its
+    table's chains and 5 evenly spaced keyframes."""
+    from chip_smoke import SLAM_FRAMES, TRAFFIC_FRAMES
+    from klt_tpu_torch.examples.slam_pipeline import keyframe_observations
+    traffic = synthetic_frames(TRAFFIC_FRAMES, scale=2)
+    frames = np.concatenate([traffic, synthetic_frames(
+        SLAM_FRAMES, scale=2, start=len(traffic))])
+    cfg = klt.TrackingConfig(sequential_mode=True)
+    fl = klt.FeatureList.create(1000)
+    klt.KLTracker(cfg).select_good_features(frames[0], fl)
+    out = track_sequence_replace(
+        torch.from_numpy(frames).cuda(),
+        *[torch.from_numpy(a).cuda() for a in (fl.x, fl.y, fl.val)], cfg,
+        precomp=True)
+    xs, ys, vs = (a.cpu().numpy() for a in out)
+    table = klt.FeatureTable.create(len(frames), 1000)
+    table.store_list(fl, 0)
+    table.x[:, 1:], table.y[:, 1:], table.val[:, 1:] = xs.T, ys.T, vs.T
+    return keyframe_observations(table), frames.shape[1:]
+
+
+def slam_runs(args, tag: str, card: str) -> None:
+    """The solvers' programs against their eager bodies and design (b),
+    then phase 36's back end, eager against graphs: one JSON line a
+    cell."""
+    from chip_smoke import (back_ends_bit_equal, bits_equal, count_syncs,
+                            graph_captures, made_solves, profile_device,
+                            scale_cells, slam_back_end, solve_bits)
+    for kind, (name, x, iterations, rounds) in scale_cells().items():
+        its = iterations * rounds
+        modes = ("eager", "graphs", "fused", "fused", "graphs", "eager")
+        runs = {m: {"solve": [], "steady": [], "captures": []}
+                for m in modes}
+        ref = None
+        slam_solve(kind, x, "graphs", iterations, rounds, [])   # warm
+        for mode in modes:
+            for _ in range(args.reps):
+                fused = []
+                with made_solves() as made:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = solve_bits(slam_solve(kind, x, mode, iterations,
+                                                rounds, fused))
+                    torch.cuda.synchronize()
+                runs[mode]["solve"].append(time.perf_counter() - t0)
+                if mode == "graphs":
+                    runs[mode]["captures"] = graph_captures(made[-1])
+                elif mode == "fused":
+                    runs[mode]["captures"] = [
+                        round(g.seconds * 1e3, 1) for p in fused
+                        for g in p.graphs.values()]
+                if ref is None:
+                    ref = out
+                runs[mode].setdefault("same", True)
+                runs[mode]["same"] &= all(bits_equal(a, b)
+                                          for a, b in zip(out, ref))
+                if mode != "eager":
+                    walls = []
+                    slam_solve(kind, x, mode, iterations, rounds, [],
+                               timed_iterations(walls))
+                    runs[mode]["steady"] += walls[2:]
+        cell = {"tag": tag, "card": card, "cell": name,
+                "lm_iterations": its, "runs": 2 * args.reps}
+        for mode, r in runs.items():
+            w = np.asarray(r["solve"]) * 1e3 / its
+            steady = np.asarray(r["steady"] or r["solve"]) * 1e3 / \
+                (1 if r["steady"] else its)
+            dev = profile_device(
+                lambda: slam_solve(kind, x, mode, 2, 1, []), 2, tag,
+                f"{name}, {mode}", {}, host=False) or {}
+            syncs = count_syncs(lambda: slam_solve(kind, x, mode,
+                                                   iterations, rounds, []))
+            med = float(np.median(steady))
+            cell[mode] = {
+                "solve_ms_per_lm_iteration": {
+                    "median": float(np.median(w)), "min": float(w.min()),
+                    "max": float(w.max())},
+                "steady_lm_iteration_ms": {
+                    "median": med, "min": float(steady.min()),
+                    "max": float(steady.max()), "n": len(steady)},
+                "device_ms_per_lm_iteration": dev.get("device_us", 0) / 1e3,
+                "device_launches_per_lm_iteration": dev.get("launches"),
+                "host_syncs_per_lm_iteration": syncs / its,
+                "busy_share": dev.get("device_us", 0) / 1e3 / med,
+                "capture_ms": r["captures"],
+                "bit_equal_to_first_eager_run": r["same"]}
+            if mode != "eager":
+                cell[mode]["device_idle_per_lm_iteration"] = device_idle(
+                    kind, x, mode)
+        print(json.dumps(cell), flush=True)
+
+    obs, shape = slam_front_end()
+    secs = {"eager": [], "graphs": []}
+    first = None
+    for mode in ("eager", "graphs", "graphs", "eager"):
+        for _ in range(args.reps):
+            r = slam_back_end(obs, shape, "cuda", eager=mode == "eager")
+            first = first or r
+            secs[mode].append(r["secs"] + [back_ends_bit_equal(r, first)])
+    print(json.dumps({
+        "tag": tag, "card": card,
+        "cell": "SLAM back end (phase 36: 5 keyframes, 1000 features, "
+                "1003 frames of 640x480)",
+        "seconds_build_optimize_gated_equal": secs}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tag", default="this")
@@ -856,6 +1104,7 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true")
     ap.add_argument("--graphs", action="store_true")
     ap.add_argument("--tracker", action="store_true")
+    ap.add_argument("--slam", action="store_true")
     ap.add_argument("--graph-k", default="",
                     type=lambda v: [int(k) for k in v.split(",") if k])
     args = ap.parse_args()
@@ -878,6 +1127,9 @@ def main() -> int:
         return 0
     if args.tracker:
         tracker_runs(args, args.tag, card)
+        return 0
+    if args.slam:
+        slam_runs(args, args.tag, card)
         return 0
     if args.graphs:
         from klt_tpu_torch.cuda import graph

@@ -25,6 +25,14 @@ steps are left, then powers of two, so a key holds at most
 log2(longest) + 1 graphs.  A capture or replay that fails raises: nothing
 falls back to an eager loop.
 
+The SLAM solvers (slam/solvers.py::LMSolve) make their programs for one
+solve and never cache them: a plan's gather tables hold one problem's
+indices, not only its shapes.  A solve runs several programs in turn (a
+linearization, CG's chunks, an update), some reading what another's
+graph computed, so its first LM iteration runs every program eagerly
+(`run(..., warm_up=True)`) and no graph is captured before the
+linearization's.
+
 What a graph must not do, and how the entries keep it so: read the host
 (the debug checks OR their flags on the device, utils/checks.py); make
 kernel R's ticket inside the capture (cuda/replace.py::graph_ticket takes
@@ -38,6 +46,7 @@ is still checked.
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 import time
 from collections import OrderedDict
@@ -91,7 +100,7 @@ class Program:
     chunk_fn(n) runs n steps on the static buffers and returns what the
     entry needs of the chunk besides them (the exact tier: each step's
     pyramid).  capture: replay graphs (CUDA, not plain) or run the chunk
-    function as it is."""
+    function as it is.  Graphs are kept by n."""
 
     def __init__(self, static, chunk_fn, device: torch.device,
                  capture: bool):
@@ -105,18 +114,22 @@ class Program:
         self.warm = not capture
         self.replays = 0
         # kernel R's ticket in every graph of this program, which replays
-        # one graph at a time on its caller's stream
-        self.ticket = torch.zeros(1, dtype=torch.int32, device=device) \
-            if capture else None
+        # one graph at a time on its caller's stream (made at the first
+        # capture)
+        self.ticket = None
 
-    def run(self, n: int, flags: checks.Flags):
-        """Run a chunk of n steps; the debug checks' flags go to
-        `flags`.  Returns the chunk function's outputs."""
+    def run(self, n: int, flags: checks.Flags | None = None,
+            warm_up: bool = False):
+        """Run a chunk of n steps; the debug checks' flags go to `flags`
+        (None: the chunk function has no checks).  warm_up: run the chunk
+        eagerly, as the first one is, even when the program is warm.
+        Returns the chunk function's outputs."""
+        flags = checks.Flags() if flags is None else flags
         if not self.capture:
             with checks.collecting(flags):
                 return self.chunk_fn(n)
         with torch.cuda.device(self.device):
-            if not self.warm:
+            if warm_up or not self.warm:
                 out = self._warm_up(n, flags)
                 self.warm = True
                 return out
@@ -143,16 +156,25 @@ class Program:
 
     def _capture(self, n: int) -> _Graph:
         from .replace import graph_ticket
+        if self.ticket is None:
+            self.ticket = torch.zeros(1, dtype=torch.int32,
+                                      device=self.device)
         graph = torch.cuda.CUDAGraph()
         flags = checks.Flags()
         before = launch_counts()
         t0 = time.perf_counter()
+        # no garbage collection inside the capture: one that frees another
+        # program's graph there invalidates the capture
+        collect = gc.isenabled()
+        gc.disable()
         try:
             with graph_ticket(self.ticket), checks.collecting(flags), \
                     torch.cuda.graph(graph):
                 outputs = self.chunk_fn(n)
         finally:
             launches = take_launches(before)
+            if collect:
+                gc.enable()
         return _Graph(graph, outputs, flags, launches,
                       time.perf_counter() - t0)
 

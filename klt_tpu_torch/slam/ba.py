@@ -14,7 +14,14 @@ are summed per segment in a fixed order (slam/solvers.py), so two runs on
 the card give the same bits.  The LM loops keep their accept flags,
 damping and cost curves on the device: an LM iteration asks the host
 nothing on the dense path, and on the CG path only for CG's stop rule
-(slam/solvers.py::pcg).
+(slam/solvers.py::pcg).  As klt_tpu compiles each solve into one XLA
+program, a solve without a mesh runs as programs of cuda/graph.py
+(`_Solve`, a slam/solvers.py::LMSolve): on the card each LM iteration
+after the first, and each landmark refit step after a solve's first,
+replays CUDA graphs.  `_lm_drive_eager` and `_refit_landmarks_eager` are
+the same loops launch by launch: the reference the programs are held
+against, and what a solve over a mesh runs (its all-reduces are not
+captured).
 
 The dense step takes a batch of B independent problems of one shape
 (the keyframe pair solves of slam/frontend.py); the public entry points
@@ -37,7 +44,7 @@ from torch.func import jacfwd, vmap
 
 from ..utils.linalg import gj_solve_spd, inv3
 from .geometry import project, se3_apply, se3_exp
-from .solvers import Segments, Shard, data_size, pcg
+from .solvers import LMSolve, Segments, Shard, data_size, pcg
 
 
 @dataclasses.dataclass
@@ -255,61 +262,74 @@ def _gn_step(R, t, lm, plan: _Plan, uv, weight, consts, lam, fix_first,
     return R_new, t_new, lm + dx_lm, cost
 
 
+class _SchurCG:
+    """The matrix-free Schur system of one CG step for one large problem
+    (B = 1), never building W (the [P, L, 6, 3] pose-landmark coupling)
+    or the dense Schur matrix: S·x products stream through the
+    per-observation Jacobians with two segment sums, so memory is
+    O(M + P + L).  Block-Jacobi preconditioner on the damped U blocks.
+    With a shard, every observation sum (U, V, b and each product with W
+    or W^T) runs over its observations and is all-reduced, so CG's stop
+    rule reads the same values on every rank."""
+
+    def __init__(self, R, t, lm, plan: _Plan, uv, weight, consts, lam,
+                 fix_first, shard: Shard | None = None):
+        if plan.B != 1:
+            raise ValueError("the CG step solves one problem")
+        P = plan.P
+        shard = shard or Shard(uv.shape[0], None, plan, None)
+        self.sp, self.shard, self.fix_first = shard.plan, shard, fix_first
+        r, jp, jl = _obs_blocks(R, t, lm, self.sp, uv[shard.rows],
+                                weight[shard.rows], consts)
+        U, bp = _pose_sums(self.sp, r, jp)
+        V, bl = _landmark_sums(self.sp, r, jl)
+        cost = torch.sum(r * r)[None]
+        U, bp, V, bl, self.cost = shard.reduce([U, bp, V, bl, cost])
+        self.jp, self.jl, self.bl = jp, jl, bl
+        self.U, V = _damp(U, lam), _damp(V, lam)
+        self.Vinv = inv3(V)
+        self.mask = torch.ones((P, 6), dtype=torch.float32, device=R.device)
+        if fix_first:
+            self.mask[0] = 0.0
+        self.rhs = (bp - self.w_times(_mv(self.Vinv, bl))) * self.mask
+        eye6 = torch.eye(6, dtype=U.dtype, device=U.device).expand(U.shape)
+        self.Uinv, _ = gj_solve_spd(self.U, eye6)
+
+    def w_times(self, wl):       # W w for w [L, 3]
+        return self.shard.reduce([self.sp.seg_cam.sum(
+            _mv(_tr(self.jp), _mv(self.jl, wl[self.sp.lm])))])[0]
+
+    def wt_times(self, v):       # W^T v for v [P, 6]
+        return self.shard.reduce([self.sp.seg_lm.sum(
+            _mv(_tr(self.jl), _mv(self.jp, v[self.sp.cam])))])[0]
+
+    def precond(self, v):
+        return _mv(self.Uinv, v) * self.mask
+
+    def matvec(self, v):
+        mask = self.mask
+        v = v * mask
+        out = (_mv(self.U, v) - self.w_times(
+            _mv(self.Vinv, self.wt_times(v)))) * mask
+        # identity on the gauge-fixed block keeps S definite
+        return out + v * (1.0 - mask) if self.fix_first else out
+
+    def update(self, dx_pose, R, t, lm):
+        """The new state from the pose update: landmark
+        back-substitution dl = V^-1 (bl - W^T dx)."""
+        dx_lm = _mv(self.Vinv, self.bl - self.wt_times(dx_pose))
+        R_new, t_new = _apply(dx_pose[None], R, t)
+        return R_new, t_new, lm + dx_lm[None]
+
+
 def _gn_step_cg(R, t, lm, plan: _Plan, uv, weight, consts, lam, fix_first,
                 cg_iters: int, cg_tol: float, shard: Shard | None = None):
-    """Matrix-free Schur Gauss-Newton step for one large problem (B = 1).
-
-    Never builds W (the [P, L, 6, 3] pose-landmark coupling) or the dense
-    Schur matrix: S·x products stream through the per-observation
-    Jacobians with two segment sums, so memory is O(M + P + L).  The pose
-    system solves with preconditioned CG (block-Jacobi on the damped U
-    blocks); landmarks back-substitute per landmark.  With a shard, every
-    observation sum (U, V, b and each product with W or W^T) runs over its
-    observations and is all-reduced, so CG's stop rule reads the same
-    values on every rank."""
-    if plan.B != 1:
-        raise ValueError("the CG step solves one problem")
-    P = plan.P
-    shard = shard or Shard(uv.shape[0], None, plan, None)
-    sp, rows = shard.plan, shard.rows
-    cam, lmi = sp.cam, sp.lm
-    r, jp, jl = _obs_blocks(R, t, lm, sp, uv[rows], weight[rows], consts)
-    U, bp = _pose_sums(sp, r, jp)
-    V, bl = _landmark_sums(sp, r, jl)
-    cost = torch.sum(r * r)[None]
-    U, bp, V, bl, cost = shard.reduce([U, bp, V, bl, cost])
-    U, V = _damp(U, lam), _damp(V, lam)
-    Vinv = inv3(V)
-    mask = torch.ones((P, 6), dtype=torch.float32, device=R.device)
-    if fix_first:
-        mask[0] = 0.0
-
-    def w_times(wl):       # W w for w [L, 3]
-        return shard.reduce(
-            [sp.seg_cam.sum(_mv(_tr(jp), _mv(jl, wl[lmi])))])[0]
-
-    def wt_times(v):       # W^T v for v [P, 6]
-        return shard.reduce(
-            [sp.seg_lm.sum(_mv(_tr(jl), _mv(jp, v[cam])))])[0]
-
-    rhs = (bp - w_times(_mv(Vinv, bl))) * mask
-    eye6 = torch.eye(6, dtype=U.dtype, device=U.device).expand(U.shape)
-    Uinv, _ = gj_solve_spd(U, eye6)  # block-Jacobi preconditioner
-
-    def precond(v):
-        return _mv(Uinv, v) * mask
-
-    def s_matvec(v):
-        v = v * mask
-        out = (_mv(U, v) - w_times(_mv(Vinv, wt_times(v)))) * mask
-        # identity on the gauge-fixed block keeps S definite
-        return out + v * (1.0 - mask) if fix_first else out
-
-    dx_pose = pcg(s_matvec, precond, rhs, cg_iters, cg_tol)
-    # landmark back-substitution: dl = V^-1 (bl - W^T dx)
-    dx_lm = _mv(Vinv, bl - wt_times(dx_pose))
-    R_new, t_new = _apply(dx_pose[None], R, t)
-    return R_new, t_new, lm + dx_lm[None], cost
+    """Matrix-free Schur Gauss-Newton step for one large problem (B = 1):
+    the pose system (_SchurCG) solved with preconditioned CG, landmarks
+    back-substituted per landmark.  Returns (R, t, lm, cost [1])."""
+    s = _SchurCG(R, t, lm, plan, uv, weight, consts, lam, fix_first, shard)
+    dx_pose = pcg(s.matvec, s.precond, s.rhs, cg_iters, cg_tol)
+    return (*s.update(dx_pose, R, t, lm), s.cost)
 
 
 def _total_cost(R, t, landmarks, prob: BAProblem) -> torch.Tensor:
@@ -329,10 +349,11 @@ def _residual_norms(R, t, landmarks, prob: BAProblem) -> torch.Tensor:
                                 prob.uv, prob.consts)
 
 
-def _lm_drive(prob: BAProblem, plan: _Plan, iterations: int,
-              damping: float, gn_step, robust_delta=None):
-    """Levenberg-Marquardt with masked accept: ok, lam and the cost
-    curve stay on the device."""
+def _lm_drive_eager(prob: BAProblem, plan: _Plan, iterations: int,
+                    damping: float, gn_step, robust_delta=None):
+    """Levenberg-Marquardt with masked accept, launch by launch: ok, lam
+    and the cost curve stay on the device.  What `_Solve.lm_drive` is
+    held against, and what a solve over a mesh runs."""
     consts = prob.consts
     R, t, lm = prob.R[None], prob.t[None], prob.landmarks[None]
     lam = torch.full((), damping, dtype=torch.float32, device=R.device)
@@ -356,6 +377,184 @@ def _lm_drive(prob: BAProblem, plan: _Plan, iterations: int,
     return R[0], t[0], lm[0], costs
 
 
+def _refit_step(R, t, lm, plan: _Plan, uv, weight, consts, robust_delta,
+                out=None):
+    """One step of the landmark refit (below): per-landmark damped
+    Gauss-Newton on its own Huber-weighted observations, the poses
+    fixed.  Returns lm + dlm (written into out when given)."""
+    eye3 = torch.eye(3, dtype=torch.float32, device=R.device)
+    hub = _huber(_residual_norms_flat(R, t, lm, plan, uv, consts),
+                 robust_delta)
+    r, _, jl = _obs_blocks(R, t, lm, plan, uv, weight * hub, consts)
+    V, bl = _landmark_sums(plan, r, jl)
+    dlm = _mv(inv3(V + 1e-4 * eye3), bl)
+    return torch.add(lm, dlm[None], out=out)
+
+
+def _refit_landmarks_eager(R, t, lm, prob: BAProblem, iters: int = 3,
+                           robust_delta: float = 2.0,
+                           plan: _Plan | None = None):
+    """Robust landmark-only refinement with poses FIXED: per-landmark
+    damped GN on its own observations, parallel over landmarks, launch
+    by launch (`_Solve.refit_landmarks` is held against it).
+
+    Rescues landmarks the gating loop would otherwise freeze dead: a
+    landmark whose support fell below the gate keeps a stale 3D position,
+    so its clean observations never pass the gate again.  With poses
+    near-correct, a Huber refit pulls each landmark to the consistent
+    majority of its observations."""
+    plan = plan or _plan_of(prob, joint=False)
+    R, t, lm = R[None], t[None], lm[None]
+    for _ in range(iters):
+        lm = _refit_step(R, t, lm, plan, prob.uv, prob.weight, prob.consts,
+                         robust_delta)
+    return lm[0]
+
+
+def _gn_step_of(fix_first: bool, cg=None, shard: Shard | None = None):
+    """The step `_lm_drive_eager` takes: the dense Schur step, or the CG
+    step with cg = (cg_iters, cg_tol); with a shard, sharded."""
+    if cg is None:
+        return lambda R, t, lm, plan, uv, w, consts, lam: _gn_step(
+            R, t, lm, plan, uv, w, consts, lam, fix_first, shard)
+    return lambda R, t, lm, plan, uv, w, consts, lam: _gn_step_cg(
+        R, t, lm, plan, uv, w, consts, lam, fix_first, *cg, shard)
+
+
+class _Solve(LMSolve):
+    """One bundle adjustment as programs (slam/solvers.py::LMSolve), as
+    klt_tpu compiles it (its `_lm_drive` and `_refit_landmarks`): the
+    caller's poses, landmarks, observations and weights copied into
+    static buffers; the dense Schur step as one program, or the CG
+    step's linearization (`_SchurCG` and CG's start), CG's chunks and the
+    update; and the landmark refit's step, which bundle_adjust_gated runs
+    between its rounds on the same buffers."""
+
+    def __init__(self, prob: BAProblem, plan: _Plan, damping: float,
+                 fix_first: bool, robust_delta, cg=None):
+        super().__init__(prob.R.device, cg, (plan.P, 6))
+        self.plan, self.consts = plan, prob.consts
+        self.damping, self.fix_first = damping, fix_first
+        self.robust_delta = robust_delta
+        self.R, self.t, self.lm = (a[None].clone() for a in (
+            prob.R, prob.t, prob.landmarks))
+        self.uv, self.weight = prob.uv.clone(), prob.weight.clone()
+        self.w = self.weight   # a round's weights (set_active)
+        self.lam = torch.empty((), dtype=torch.float32, device=self.device)
+        self.cost = torch.empty(1, dtype=torch.float32, device=self.device)
+        self.refit = self.program(self._refit_step)
+
+    def extra_programs(self) -> list:
+        return [self.refit]
+
+    def lm_drive(self, iterations: int) -> torch.Tensor:
+        """`_lm_drive_eager` from the static state (lam starts at the
+        damping, as every round of bundle_adjust_gated does)."""
+        self.lam.fill_(self.damping)
+        return super().lm_drive(iterations)
+
+    def _weights(self):
+        """The iteration's weights (Huber IRLS on the current estimate)
+        and the current cost."""
+        w = self.w
+        if self.robust_delta is not None:
+            w = w * _huber(_residual_norms_flat(
+                self.R, self.t, self.lm, self.plan, self.uv, self.consts),
+                self.robust_delta)
+        return w, _costs(self.R, self.t, self.lm, self.plan, self.uv, w,
+                         self.consts)
+
+    def _iteration(self):
+        w, c_cur = self._weights()
+        new = _gn_step(self.R, self.t, self.lm, self.plan, self.uv, w,
+                       self.consts, self.lam, self.fix_first)
+        self._accept(new[:3], w, c_cur)
+
+    def _linearize(self):
+        self.w_it, self.c_cur = self._weights()
+        self.sys = _SchurCG(self.R, self.t, self.lm, self.plan, self.uv,
+                            self.w_it, self.consts, self.lam,
+                            self.fix_first)
+        self.cg.start(self.sys.matvec, self.sys.precond, self.sys.rhs)
+
+    def _update(self):
+        self._accept(self.sys.update(self.cg.x, self.R, self.t, self.lm),
+                     self.w_it, self.c_cur)
+
+    def _accept(self, new, w, c_cur):
+        """The accept test into the static state, the cost into its
+        slot."""
+        c_new = _costs(*new, self.plan, self.uv, w, self.consts)
+        ok = (c_new < c_cur)[0]
+        for a, b in zip(new, (self.R, self.t, self.lm)):
+            torch.where(ok, a, b, out=b)
+        torch.where(ok, torch.clamp(self.lam * 0.5, min=1e-6),
+                    self.lam * 4.0, out=self.lam)
+        torch.where(ok, c_new, c_cur, out=self.cost)
+
+    def _refit_step(self):
+        _refit_step(self.R, self.t, self.lm, self.plan, self.uv, self.weight,
+                    self.consts, self.robust_delta, out=self.lm)
+
+    def refit_landmarks(self, iters: int) -> None:
+        """`_refit_landmarks_eager` on the static state (the caller's
+        weights, Huber delta robust_delta)."""
+        for _ in range(iters):
+            self.refit.run(1)
+
+    def set_active(self, act: torch.Tensor) -> None:
+        """A round's weights: the caller's where act, else 0."""
+        if self.w is self.weight:   # the first round: a buffer of its own
+            self.w = torch.empty_like(self.weight)
+        torch.where(act, self.weight, torch.zeros_like(self.weight),
+                    out=self.w)
+
+    def state(self):
+        return self.R[0], self.t[0], self.lm[0]
+
+    def result(self):
+        """The state as the caller's own tensors."""
+        return tuple(a.clone() for a in self.state())
+
+
+class _EagerSolve:
+    """`_Solve`'s interface over the eager bodies (`_lm_drive_eager`,
+    `_refit_landmarks_eager`): what a solve over a mesh runs (its
+    shard's all-reduces stay out of graphs), and the reference the
+    programs are held against."""
+
+    def __init__(self, prob: BAProblem, plan: _Plan, damping: float,
+                 fix_first: bool, robust_delta, cg=None,
+                 shard: Shard | None = None):
+        self.prob, self.plan, self.damping = prob, plan, damping
+        self.robust_delta = robust_delta
+        self.gn_step = _gn_step_of(fix_first, cg, shard)
+        self.R, self.t, self.lm = prob.R, prob.t, prob.landmarks
+        self.w = prob.weight
+
+    def lm_drive(self, iterations: int) -> torch.Tensor:
+        pw = dataclasses.replace(self.prob, R=self.R, t=self.t,
+                                 landmarks=self.lm, weight=self.w)
+        self.R, self.t, self.lm, costs = _lm_drive_eager(
+            pw, self.plan, iterations, self.damping, self.gn_step,
+            self.robust_delta)
+        return costs
+
+    def refit_landmarks(self, iters: int) -> None:
+        self.lm = _refit_landmarks_eager(self.R, self.t, self.lm, self.prob,
+                                         iters, self.robust_delta,
+                                         self.plan)
+
+    def set_active(self, act: torch.Tensor) -> None:
+        w = self.prob.weight
+        self.w = torch.where(act, w, torch.zeros_like(w))
+
+    def state(self):
+        return self.R, self.t, self.lm
+
+    result = state
+
+
 def _plan_of(prob: BAProblem, joint: bool) -> _Plan:
     return _Plan(prob.cam_idx, prob.lm_idx, prob.R.shape[0],
                  prob.landmarks.shape[0], joint)
@@ -374,6 +573,16 @@ def _shard_of(prob: BAProblem, plan: _Plan, mesh) -> Shard | None:
 
 def _padded(prob: BAProblem, mesh) -> BAProblem:
     return prob if mesh is None else prob.pad_observations(data_size(mesh))
+
+
+def _solve(prob: BAProblem, plan: _Plan, mesh, damping: float,
+           fix_first: bool, robust_delta, cg=None):
+    """The solve of one call: its programs, or over a mesh the eager
+    bodies on this rank's shard."""
+    if mesh is None:
+        return _Solve(prob, plan, damping, fix_first, robust_delta, cg)
+    return _EagerSolve(prob, plan, damping, fix_first, robust_delta, cg,
+                       _shard_of(prob, plan, mesh))
 
 
 def bundle_adjust(prob: BAProblem, mesh=None, iterations: int = 10,
@@ -399,23 +608,10 @@ def bundle_adjust(prob: BAProblem, mesh=None, iterations: int = 10,
     Returns (R, t, landmarks, costs [iterations]) on the problem's device
     — costs are the accepted (weighted) cost after each iteration."""
     prob = _padded(prob, mesh)
-    plan = _plan_of(prob, joint=True)
-    shard = _shard_of(prob, plan, mesh)
-    return _lm_drive(prob, plan, iterations, damping,
-                     lambda R, t, lm, plan, uv, w, consts, lam: _gn_step(
-                         R, t, lm, plan, uv, w, consts, lam, fix_first,
-                         shard),
-                     robust_delta)
-
-
-def _bundle_adjust_cg(prob: BAProblem, plan: _Plan, iterations, damping,
-                      fix_first, cg_iters, cg_tol, robust_delta,
-                      shard: Shard | None = None):
-    return _lm_drive(prob, plan, iterations, damping,
-                     lambda R, t, lm, plan, uv, w, consts, lam: _gn_step_cg(
-                         R, t, lm, plan, uv, w, consts, lam, fix_first,
-                         cg_iters, cg_tol, shard),
-                     robust_delta)
+    solve = _solve(prob, _plan_of(prob, joint=True), mesh, damping,
+                   fix_first, robust_delta)
+    costs = solve.lm_drive(iterations)
+    return (*solve.result(), costs)
 
 
 def bundle_adjust_cg(prob: BAProblem, mesh=None, iterations: int = 10,
@@ -430,34 +626,10 @@ def bundle_adjust_cg(prob: BAProblem, mesh=None, iterations: int = 10,
     observations as in `bundle_adjust`, with one all_reduce per CG
     matvec."""
     prob = _padded(prob, mesh)
-    plan = _plan_of(prob, joint=False)
-    return _bundle_adjust_cg(prob, plan, iterations, damping, fix_first,
-                             cg_iters, cg_tol, robust_delta,
-                             _shard_of(prob, plan, mesh))
-
-
-def _refit_landmarks(R, t, lm, prob: BAProblem, iters: int = 3,
-                     robust_delta: float = 2.0, plan: _Plan | None = None):
-    """Robust landmark-only refinement with poses FIXED: per-landmark
-    damped GN on its own observations, parallel over landmarks.
-
-    Rescues landmarks the gating loop would otherwise freeze dead: a
-    landmark whose support fell below the gate keeps a stale 3D position,
-    so its clean observations never pass the gate again.  With poses
-    near-correct, a Huber refit pulls each landmark to the consistent
-    majority of its observations."""
-    plan = plan or _plan_of(prob, joint=False)
-    R, t, lm = R[None], t[None], lm[None]
-    eye3 = torch.eye(3, dtype=torch.float32, device=R.device)
-    for _ in range(iters):
-        hub = _huber(_residual_norms_flat(R, t, lm, plan, prob.uv,
-                                          prob.consts), robust_delta)
-        r, _, jl = _obs_blocks(R, t, lm, plan, prob.uv, prob.weight * hub,
-                               prob.consts)
-        V, bl = _landmark_sums(plan, r, jl)
-        dlm = _mv(inv3(V + 1e-4 * eye3), bl)
-        lm = lm + dlm[None]
-    return lm[0]
+    solve = _solve(prob, _plan_of(prob, joint=False), mesh, damping,
+                   fix_first, robust_delta, (cg_iters, cg_tol))
+    costs = solve.lm_drive(iterations)
+    return (*solve.result(), costs)
 
 
 def bundle_adjust_gated(prob: BAProblem, mesh=None, rounds: int = 3,
@@ -477,36 +649,65 @@ def bundle_adjust_gated(prob: BAProblem, mesh=None, rounds: int = 3,
     first solution is still outlier-pulled), gate_px for the final round.
     The per-round gating runs on the host (numpy), as in klt_tpu, on the
     whole problem; a mesh shards each round's normal equations as in
-    `bundle_adjust_cg`.
+    `bundle_adjust_cg`.  Without a mesh the rounds and the landmark
+    refits between them share one solve's programs.
 
     Returns (R, t, landmarks, costs [rounds*iterations] on the problem's
     device, active [M] numpy bool — the observations the final solution
     is supported by)."""
     m = int(prob.cam_idx.shape[0])
     prob = _padded(prob, mesh)
-    plan = _plan_of(prob, joint=False)
-    shard = _shard_of(prob, plan, mesh)
-    R, t, lm = prob.R, prob.t, prob.landmarks
+    solve = _solve(prob, _plan_of(prob, joint=False), mesh, damping,
+                   fix_first, robust_delta, (cg_iters, cg_tol))
+    return _gated(solve, prob, m, rounds, iterations, gate_px,
+                  min_obs_per_lm)
+
+
+def _bundle_adjust_eager(prob: BAProblem, iterations: int = 10,
+                         damping: float = 10.0, fix_first: bool = True,
+                         robust_delta: float | None = None, cg=None):
+    """`bundle_adjust` (cg None) or `bundle_adjust_cg` (cg = (cg_iters,
+    cg_tol)) without a mesh, through the eager bodies: what their
+    programs are held against."""
+    solve = _EagerSolve(prob, _plan_of(prob, joint=cg is None), damping,
+                        fix_first, robust_delta, cg)
+    costs = solve.lm_drive(iterations)
+    return (*solve.result(), costs)
+
+
+def _bundle_adjust_gated_eager(prob: BAProblem, rounds: int = 3,
+                               iterations: int = 20, damping: float = 10.0,
+                               fix_first: bool = True, cg_iters: int = 250,
+                               cg_tol: float = 1e-5,
+                               robust_delta: float = 2.0,
+                               gate_px: float = 2.0,
+                               min_obs_per_lm: int = 2):
+    """`bundle_adjust_gated` without a mesh, through the eager bodies:
+    what its programs are held against."""
+    solve = _EagerSolve(prob, _plan_of(prob, joint=False), damping,
+                        fix_first, robust_delta, (cg_iters, cg_tol))
+    return _gated(solve, prob, int(prob.cam_idx.shape[0]), rounds,
+                  iterations, gate_px, min_obs_per_lm)
+
+
+def _gated(solve, prob: BAProblem, m: int, rounds: int, iterations: int,
+           gate_px: float, min_obs_per_lm: int):
+    """bundle_adjust_gated's rounds on a solve (`_Solve` or
+    `_EagerSolve`), its gating on the host."""
     weight = prob.weight.cpu().numpy()
     active = weight > 0
     fed = weight > 0  # caller's hard zero-weights
     lm_idx = prob.lm_idx.cpu().numpy()
     n_lm = int(prob.landmarks.shape[0])
-    base_w = prob.weight
     costs_all = []
     for rd in range(rounds):
-        act_t = torch.from_numpy(active).to(base_w.device)
-        pw = dataclasses.replace(
-            prob, R=R, t=t, landmarks=lm,
-            weight=torch.where(act_t, base_w, torch.zeros_like(base_w)))
-        R, t, lm, costs = _bundle_adjust_cg(
-            pw, plan, iterations, damping, fix_first, cg_iters, cg_tol,
-            robust_delta, shard)
-        costs_all.append(costs)
+        solve.set_active(torch.from_numpy(active).to(prob.weight.device))
+        costs_all.append(solve.lm_drive(iterations))
         if rd < rounds - 1:
             # rescue frozen landmarks before re-evaluating the gate
-            lm = _refit_landmarks(R, t, lm, prob, 3, robust_delta, plan)
-            rn = _residual_norms_flat(R[None], t[None], lm[None], plan,
+            solve.refit_landmarks(3)
+            R, t, lm = solve.state()
+            rn = _residual_norms_flat(R[None], t[None], lm[None], solve.plan,
                                       prob.uv, prob.consts).cpu().numpy()
             gate = gate_px * (2.0 ** (rounds - 2 - rd))
             act = fed & (rn <= gate)
@@ -516,4 +717,4 @@ def bundle_adjust_gated(prob: BAProblem, mesh=None, rounds: int = 3,
             if act.sum() < 6:  # never gate into a degenerate problem
                 break
             active = act
-    return R, t, lm, torch.cat(costs_all), active[:m]
+    return (*solve.result(), torch.cat(costs_all), active[:m])

@@ -11,8 +11,12 @@ initialization.  All geometry comes from the tracked features themselves
 The pairs are batched by hand rather than by `torch.func.vmap`: one plan
 of segment sums over every pair's observations (ids offset by pair, the
 padding left out), the dense Schur step on [n_pairs, 12, 12] systems and a
-damping per pair.  The entry points take numpy arrays and run on
-`default_device(device)`: the card unless the caller names the CPU.
+damping per pair.  As klt_tpu jits the pair solve, it runs as a program
+of cuda/graph.py (`_PairSolve`): on the card every LM iteration after
+the first replays a CUDA graph; `_pair_solve_eager` is the same loop
+launch by launch, the reference it is held against.  The entry points
+take numpy arrays and run on `default_device(device)`: the card unless
+the caller names the CPU.
 """
 
 from __future__ import annotations
@@ -24,15 +28,61 @@ from ..device import default_device
 from .ba import _Plan, _costs, _gn_step
 from .chains import ba_translation_prior
 from .pose_graph import PoseGraph, optimize_pose_graph
+from .solvers import LMSolve
+
+
+class _PairSolve(LMSolve):
+    """`_pair_solve_eager` as a program (slam/solvers.py::LMSolve): the
+    pairs' start, observations and weights copied into static buffers,
+    an LM iteration (dense Schur step, accept test per pair) a step."""
+
+    def __init__(self, t0, lm0, cam_idx, lm_idx, uv, weight, consts):
+        super().__init__(t0.device)
+        b, L = lm0.shape[0], lm0.shape[1]
+        self.consts = consts
+        self.plan = _Plan(cam_idx, lm_idx, 2, L, joint=True,
+                          drop=weight == 0)
+        self.uv, self.weight = uv.reshape(-1, 2).clone(), \
+            weight.reshape(-1).clone()
+        self.R = torch.eye(3, dtype=torch.float32,
+                           device=t0.device).expand(b, 2, 3, 3).clone()
+        self.t, self.lm = t0.clone(), lm0.clone()
+        self.c = _costs(self.R, self.t, self.lm, self.plan, self.uv,
+                        self.weight, consts)
+        self.lam = torch.full((b,), 1e-2, dtype=torch.float32,
+                              device=t0.device)
+
+    def _iteration(self):
+        new = _gn_step(self.R, self.t, self.lm, self.plan, self.uv,
+                       self.weight, self.consts, self.lam, True)[:3]
+        c_new = _costs(*new, self.plan, self.uv, self.weight, self.consts)
+        ok = (c_new < self.c) & torch.isfinite(c_new)
+        for a, b in zip(new, (self.R, self.t, self.lm)):
+            torch.where(ok.reshape((-1,) + (1,) * (b.dim() - 1)), a, b,
+                        out=b)
+        torch.where(ok, torch.clamp(self.lam * 0.5, min=1e-6),
+                    self.lam * 4.0, out=self.lam)
+        torch.where(ok, c_new, self.c, out=self.c)
 
 
 def _pair_solve(t0, lm0, cam_idx, lm_idx, uv, weight, fx, fy, cx, cy,
                 iters: int):
     """Two-pose Levenberg-Marquardt solves of B pairs at once (tensors on
     one device): t0 [B, 2, 3], lm0 [B, L, 3], cam_idx, lm_idx [B, M],
-    uv [B, M, 2], weight [B, M].  Returns (R [B, 2, 3, 3], t [B, 2, 3]).
-    The LM accept/reject is load-bearing: plain damped Gauss-Newton
-    diverges (NaN) on real pairs with near-degenerate shared geometry."""
+    uv [B, M, 2], weight [B, M].  Returns (R [B, 2, 3, 3], t [B, 2, 3]),
+    the caller's own.  The LM accept/reject is load-bearing: plain damped
+    Gauss-Newton diverges (NaN) on real pairs with near-degenerate shared
+    geometry."""
+    solve = _PairSolve(t0, lm0, cam_idx, lm_idx, uv, weight,
+                       (fx, fy, cx, cy))
+    solve.lm_drive(iters)
+    return solve.R.clone(), solve.t.clone()
+
+
+def _pair_solve_eager(t0, lm0, cam_idx, lm_idx, uv, weight, fx, fy, cx, cy,
+                      iters: int):
+    """`_pair_solve` launch by launch: what its program is held
+    against."""
     b, L = lm0.shape[0], lm0.shape[1]
     consts = (fx, fy, cx, cy)
     plan = _Plan(cam_idx, lm_idx, 2, L, joint=True, drop=weight == 0)

@@ -10,10 +10,15 @@ linearized by `torch.func.jacfwd` under `torch.func.vmap` through the same
 Taylor-guarded exp map the BA uses.  The normal equations are summed per
 pose in a fixed order (slam/solvers.py), so two runs on the card give the
 same bits; the LM loop keeps its accept flag, damping and cost curve on
-the device.  With a mesh (parallel/mesh.py) the edges are padded to its
-"data" size and only the normal equations are sharded: each rank sums its
-contiguous block of the edges and one all_reduce over "data" adds them
-(klt_tpu's psum); the LM accept test runs on the whole graph.
+the device.  As klt_tpu compiles the solve into one XLA program, it runs
+as programs of cuda/graph.py (`_Solve`, a slam/solvers.py::LMSolve): on
+the card every LM iteration after the first replays CUDA graphs.  With a
+mesh (parallel/mesh.py) it runs `_optimize_pose_graph_eager`, the same
+loop launch by launch (also the reference the programs are held
+against): the edges are padded to the mesh's "data" size and only the
+normal equations are sharded: each rank sums its contiguous block of the
+edges and one all_reduce over "data" adds them (klt_tpu's psum); the LM
+accept test runs on the whole graph.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from torch.func import jacfwd, vmap
 
 from ..utils.linalg import gj_solve_spd
 from .geometry import so3_exp
-from .solvers import Segments, Shard, data_size, pcg
+from .solvers import LMSolve, Segments, Shard, data_size, pcg
 
 def _max(a: torch.Tensor, b: float) -> torch.Tensor:
     """jnp.maximum(a, b): half the tangent to each side at a tie."""
@@ -221,46 +226,103 @@ def _gn_step(R, t, pg: PoseGraph, plan: _Plan, damping, fix_first,
     return _apply(dx, R, t)
 
 
-def _gn_step_cg(R, t, pg: PoseGraph, plan: _Plan, damping, fix_first,
-                cg_iters: int, cg_tol: float, shard: Shard | None = None):
-    """Matrix-free edge-list Gauss-Newton step: never builds the
-    [P,6,P,6] H.  Each CG matvec streams through the per-edge Jacobians
+class _EdgeCG:
+    """The matrix-free edge-list system of one CG step: never builds the
+    [P,6,P,6] H.  Each matvec streams through the per-edge Jacobians
     (two gathers + one segment sum), so memory is O(E + P).  With a
     shard, every edge sum runs over its edges and is all-reduced."""
-    n = R.shape[0]
-    dev = R.device
-    mask = torch.ones((n, 6), dtype=torch.float32, device=dev)
-    if fix_first:
-        mask[0] = 0.0
-    shard = shard or Shard(pg.ei.shape[0], None, plan, None)
-    plan = shard.plan
-    pg = _edges(pg, shard.rows)
-    r, ji, jj = _edge_blocks(R, t, pg)
-    ei, ej = pg.ei.long(), pg.ej.long()
-    tr = lambda a: a.transpose(-1, -2)
-    # b and the block-diagonal of H (damping + preconditioning)
-    b, Hd = shard.reduce([
-        plan.ends.sum(torch.cat([_mv(tr(ji), r), _mv(tr(jj), r)])),
-        plan.ends.sum(torch.cat([tr(ji) @ ji, tr(jj) @ jj]))])
-    b = -b
-    diag = torch.diagonal(Hd, dim1=-2, dim2=-1)
-    eye6 = torch.eye(6, dtype=Hd.dtype, device=dev)[None]
-    Hd_damped = Hd + damping * diag[:, :, None] * eye6 + 1e-8 * eye6
-    Minv, _ = gj_solve_spd(Hd_damped, eye6.expand(Hd_damped.shape))
 
-    def h_matvec(v):
+    def __init__(self, R, t, pg: PoseGraph, plan: _Plan, damping,
+                 fix_first, shard: Shard | None = None):
+        n = R.shape[0]
+        dev = R.device
+        self.mask = torch.ones((n, 6), dtype=torch.float32, device=dev)
+        if fix_first:
+            self.mask[0] = 0.0
+        shard = shard or Shard(pg.ei.shape[0], None, plan, None)
+        self.plan, self.shard = shard.plan, shard
+        self.damping, self.fix_first = damping, fix_first
+        pg = _edges(pg, shard.rows)
+        r, self.ji, self.jj = _edge_blocks(R, t, pg)
+        ji, jj = self.ji, self.jj
+        self.ei, self.ej = pg.ei.long(), pg.ej.long()
+        # b and the block-diagonal of H (damping + preconditioning)
+        b, Hd = shard.reduce([
+            self.plan.ends.sum(torch.cat([_mv(_tr(ji), r), _mv(_tr(jj), r)])),
+            self.plan.ends.sum(torch.cat([_tr(ji) @ ji, _tr(jj) @ jj]))])
+        self.b = -b
+        self.diag = torch.diagonal(Hd, dim1=-2, dim2=-1)
+        eye6 = torch.eye(6, dtype=Hd.dtype, device=dev)[None]
+        Hd_damped = Hd + damping * self.diag[:, :, None] * eye6 + 1e-8 * eye6
+        self.Minv, _ = gj_solve_spd(Hd_damped, eye6.expand(Hd_damped.shape))
+
+    def matvec(self, v):
+        mask = self.mask
         v = v * mask
-        y = _mv(ji, v[ei]) + _mv(jj, v[ej])
-        out = shard.reduce([plan.ends.sum(
-            torch.cat([_mv(tr(ji), y), _mv(tr(jj), y)]))])[0]
-        out = (out + damping * diag * v + 1e-8 * v) * mask
-        return out + v * (1.0 - mask) if fix_first else out
+        y = _mv(self.ji, v[self.ei]) + _mv(self.jj, v[self.ej])
+        out = self.shard.reduce([self.plan.ends.sum(
+            torch.cat([_mv(_tr(self.ji), y), _mv(_tr(self.jj), y)]))])[0]
+        out = (out + self.damping * self.diag * v + 1e-8 * v) * mask
+        return out + v * (1.0 - mask) if self.fix_first else out
 
-    def precond(v):
-        return _mv(Minv, v) * mask
+    def precond(self, v):
+        return _mv(self.Minv, v) * self.mask
 
-    dx = pcg(h_matvec, precond, b * mask, cg_iters, cg_tol)
+
+def _tr(a):
+    return a.transpose(-1, -2)
+
+
+def _gn_step_cg(R, t, pg: PoseGraph, plan: _Plan, damping, fix_first,
+                cg_iters: int, cg_tol: float, shard: Shard | None = None):
+    """Matrix-free edge-list Gauss-Newton step (_EdgeCG solved with
+    preconditioned CG)."""
+    s = _EdgeCG(R, t, pg, plan, damping, fix_first, shard)
+    dx = pcg(s.matvec, s.precond, s.b * s.mask, cg_iters, cg_tol)
     return _apply(dx, R, t)
+
+
+class _Solve(LMSolve):
+    """One pose-graph optimization as programs (slam/solvers.py::LMSolve),
+    as klt_tpu compiles `optimize_pose_graph`: the caller's poses and
+    edges copied into static buffers, the current cost carried in its
+    slot; the dense step as one program, or the CG step's linearization
+    (`_EdgeCG` and CG's start), CG's chunks and the update."""
+
+    def __init__(self, pg: PoseGraph, plan: _Plan, damping: float,
+                 fix_first: bool, cg=None):
+        n = pg.R.shape[0]
+        super().__init__(pg.R.device, cg, (n, 6))
+        self.plan, self.fix_first = plan, fix_first
+        self.pg = dataclasses.replace(pg, **{
+            f.name: getattr(pg, f.name).clone()
+            for f in dataclasses.fields(pg)})
+        self.R, self.t = self.pg.R, self.pg.t
+        self.cost = _edge_cost(self.R, self.t, self.pg)
+        self.lam = torch.full((), damping, dtype=torch.float32,
+                              device=self.device)
+
+    def _iteration(self):
+        self._accept(_gn_step(self.R, self.t, self.pg, self.plan, self.lam,
+                              self.fix_first))
+
+    def _linearize(self):
+        self.sys = _EdgeCG(self.R, self.t, self.pg, self.plan, self.lam,
+                           self.fix_first)
+        self.cg.start(self.sys.matvec, self.sys.precond,
+                      self.sys.b * self.sys.mask)
+
+    def _update(self):
+        self._accept(_apply(self.cg.x, self.R, self.t))
+
+    def _accept(self, new):
+        c_new = _edge_cost(*new, self.pg)
+        ok = c_new < self.cost
+        for a, b in zip(new, (self.R, self.t)):
+            torch.where(ok, a, b, out=b)
+        torch.where(ok, torch.clamp(self.lam * 0.5, min=1e-8),
+                    self.lam * 4.0, out=self.lam)
+        torch.where(ok, c_new, self.cost, out=self.cost)
 
 
 def optimize_pose_graph(pg: PoseGraph, mesh=None, iterations: int = 10,
@@ -277,6 +339,23 @@ def optimize_pose_graph(pg: PoseGraph, mesh=None, iterations: int = 10,
     passes the same graph and gets the same result."""
     if solver not in ("dense", "cg"):
         raise ValueError(f"solver must be 'dense' or 'cg', got {solver!r}")
+    if mesh is not None:
+        return _optimize_pose_graph_eager(pg, mesh, iterations, damping,
+                                          fix_first, solver, cg_iters,
+                                          cg_tol)
+    solve = _Solve(pg, _Plan(pg, pg.R.shape[0], solver == "dense"),
+                   damping, fix_first,
+                   None if solver == "dense" else (cg_iters, cg_tol))
+    costs = solve.lm_drive(iterations)
+    return solve.R.clone(), solve.t.clone(), costs
+
+
+def _optimize_pose_graph_eager(pg: PoseGraph, mesh=None,
+                               iterations: int = 10, damping: float = 1e-3,
+                               fix_first: bool = True, solver: str = "dense",
+                               cg_iters: int = 200, cg_tol: float = 1e-6):
+    """`optimize_pose_graph` launch by launch: what its programs are held
+    against, and what a solve over a mesh runs."""
     if mesh is not None:
         pg = pg.pad_edges(data_size(mesh))
     n = pg.R.shape[0]

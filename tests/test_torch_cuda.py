@@ -1432,6 +1432,120 @@ def test_pair_solve_on_card_equals_cpu_and_repeats(dev):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-5)
 
 
+def solver_cases(dev):
+    """Each solver entry point and its eager body on small problems on
+    the card: name -> (graphed, eager, LM iterations, refit steps)."""
+    from chip_smoke import spiked_ba_fields
+    from klt_tpu_torch.interop import (ba_problem_from_numpy,
+                                       pose_graph_from_numpy)
+    from klt_tpu_torch.slam import ba, pose_graph
+    P = ba_problem_from_numpy(slam_problem(1), dev)
+    S = ba_problem_from_numpy(spiked_ba_fields(n_pose=6, n_lm=120)[0], dev)
+    G = pose_graph_from_numpy(slam_graph(2), dev)
+    gated = dict(rounds=3, iterations=5, damping=1e-2, robust_delta=2.0,
+                 gate_px=3.0, cg_iters=60)
+    pg = pose_graph.optimize_pose_graph
+    pg_eager = pose_graph._optimize_pose_graph_eager
+    return {
+        "bundle_adjust": (
+            lambda: ba.bundle_adjust(P, iterations=5, damping=1e-4),
+            lambda: ba._bundle_adjust_eager(P, 5, 1e-4), 5, 0),
+        "bundle_adjust_cg": (
+            lambda: ba.bundle_adjust_cg(P, iterations=5, damping=1e-4,
+                                        cg_iters=30),
+            lambda: ba._bundle_adjust_eager(P, 5, 1e-4, cg=(30, 1e-5)), 5,
+            0),
+        "bundle_adjust_cg huber": (
+            lambda: ba.bundle_adjust_cg(P, iterations=5, damping=1e-4,
+                                        cg_iters=30, robust_delta=2.0),
+            lambda: ba._bundle_adjust_eager(P, 5, 1e-4, robust_delta=2.0,
+                                            cg=(30, 1e-5)), 5, 0),
+        "bundle_adjust_gated": (
+            lambda: ba.bundle_adjust_gated(S, **gated),
+            lambda: ba._bundle_adjust_gated_eager(S, **gated), 15, 6),
+        "optimize_pose_graph dense": (
+            lambda: pg(G, iterations=6),
+            lambda: pg_eager(G, iterations=6), 6, 0),
+        "optimize_pose_graph cg": (
+            lambda: pg(G, iterations=6, solver="cg", cg_iters=40),
+            lambda: pg_eager(G, iterations=6, solver="cg", cg_iters=40), 6,
+            0),
+    }
+
+
+@pytest.mark.parametrize("case", [
+    "bundle_adjust", "bundle_adjust_cg", "bundle_adjust_cg huber",
+    "bundle_adjust_gated", "optimize_pose_graph dense",
+    "optimize_pose_graph cg"])
+def test_solver_programs_equal_eager_body(case, dev):
+    """A solver's programs on the card, every step run (warm-up and
+    capture) under the sync debug mode's "error": bit-equal to its eager
+    body, each LM iteration after the first (each refit step after the
+    first) a replay, and nothing returned in a static buffer."""
+    from chip_smoke import check_replays, made_solves, strict_programs
+    graphed, eager, its, refits = solver_cases(dev)[case]
+    with made_solves() as made, strict_programs():
+        got = graphed()
+    torch.cuda.synchronize()
+    ref = eager()
+    assert len(made) == 1
+    solve = made[0]
+    kept = [a.clone() for a in got if isinstance(a, torch.Tensor)]
+    graphed()   # a later solve changes nothing the first returned
+    for a, b in zip([a for a in got if isinstance(a, torch.Tensor)], kept):
+        assert torch.equal(bits([a])[0], bits([b])[0])
+    for a, b in zip(got, ref):
+        if isinstance(a, np.ndarray):
+            np.testing.assert_array_equal(a, b)
+        else:
+            assert torch.equal(bits([a])[0], bits([b])[0])
+    check_replays(case, solve, its, refits)
+
+
+def test_pair_solve_program_equals_eager_body(dev, monkeypatch):
+    """build_keyframe_pose_graph's pair solves: one program, its LM
+    iterations after the first replays, bit-equal to the eager body and
+    the pose graph they build too."""
+    from chip_smoke import check_replays, made_solves, strict_programs
+    from klt_tpu_torch.slam import frontend
+    f = slam_problem(3, n_pose=5, n_lm=120, noise=0.2)
+    args = (f["lm_idx"], f["cam_idx"], f["uv"][:, 0], f["uv"][:, 1], 5,
+            300.0, 300.0, 160.0, 120.0)
+    with made_solves() as made, strict_programs():
+        got = frontend.build_keyframe_pose_graph(*args, device=dev)
+    monkeypatch.setattr(frontend, "_pair_solve", frontend._pair_solve_eager)
+    ref = frontend.build_keyframe_pose_graph(*args, device=dev)
+    for k in ("R", "t", "ei", "ej", "Rz", "tz", "weight"):
+        assert torch.equal(bits([getattr(got, k)])[0],
+                           bits([getattr(ref, k)])[0])
+    assert len(made) == 1
+    check_replays("pair solves", made[0], 8)
+
+
+def test_solver_capture_error_raises(dev, monkeypatch):
+    """A step that reads the host runs in the solve's first LM iteration
+    (eager) and fails its capture in the second, which raises: nothing
+    falls back to the eager body; the card goes on."""
+    from klt_tpu_torch.interop import pose_graph_from_numpy
+    from klt_tpu_torch.slam import pose_graph
+    G = pose_graph_from_numpy(slam_graph(2), dev)
+    orig = pose_graph._edge_cost
+
+    def reads_host(R, t, pg):
+        c = orig(R, t, pg)
+        float(c)
+        return c
+    monkeypatch.setattr(pose_graph, "_edge_cost", reads_host)
+    with pytest.raises(RuntimeError):
+        pose_graph.optimize_pose_graph(G, iterations=3, solver="cg",
+                                       cg_iters=16)
+    torch.cuda.synchronize()
+    monkeypatch.setattr(pose_graph, "_edge_cost", orig)
+    out = pose_graph.optimize_pose_graph(G, iterations=3, solver="cg",
+                                         cg_iters=16)
+    assert bool(torch.isfinite(out[2]).all())
+
+
 # ------------------------------------------------------------------ #
 # the tooling and multi-device on the card                             #
 # ------------------------------------------------------------------ #
