@@ -41,6 +41,12 @@ copied out of the static buffers after each replay).  The kernels'
 wrappers check their inputs only when the chunk function runs, at the
 warm-up and at capture; a shape they would refuse is another key, so it
 is still checked.
+
+Every program records the spans `graph.warm_up`, `graph.capture` and
+`graph.replay` (utils/profiling.py) around a warm-up, a capture and a
+replay (on the CPU and for the plain versions: a run of the chunk
+function as it is), and counts its captures and their seconds
+(`graph.captures`, `graph.capture_s`: what `_Graph.seconds` keeps).
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ from collections import OrderedDict
 import torch
 
 from ..utils import checks
+from ..utils.profiling import count, span
 from . import credit_launches, launch_counts, take_launches
 
 # Steps a graph of the whole-sequence entries covers (measured with 8, 16
@@ -126,7 +133,7 @@ class Program:
         Returns the chunk function's outputs."""
         flags = checks.Flags() if flags is None else flags
         if not self.capture:
-            with checks.collecting(flags):
+            with span("graph.replay"), checks.collecting(flags):
                 return self.chunk_fn(n)
         with torch.cuda.device(self.device):
             if warm_up or not self.warm:
@@ -135,11 +142,13 @@ class Program:
                 return out
             g = self.graphs.get(n)
             if g is None:
-                g = self.graphs[n] = self._capture(n)
-            g.graph.replay()
-        credit_launches(g.launches)
-        flags.merge(g.flags)
-        self.replays += 1
+                with span("graph.capture"):
+                    g = self.graphs[n] = self._capture(n)
+            with span("graph.replay"):
+                g.graph.replay()
+                credit_launches(g.launches)
+                flags.merge(g.flags)
+                self.replays += 1
         return g.outputs
 
     def _warm_up(self, n: int, flags: checks.Flags):
@@ -149,7 +158,8 @@ class Program:
         side = _side_stream(self.device)
         side.wait_stream(cur)
         try:
-            with torch.cuda.stream(side), checks.collecting(flags):
+            with span("graph.warm_up"), torch.cuda.stream(side), \
+                    checks.collecting(flags):
                 return self.chunk_fn(n)
         finally:
             cur.wait_stream(side)
@@ -175,8 +185,10 @@ class Program:
             launches = take_launches(before)
             if collect:
                 gc.enable()
-        return _Graph(graph, outputs, flags, launches,
-                      time.perf_counter() - t0)
+        seconds = time.perf_counter() - t0
+        count("graph.captures")
+        count("graph.capture_s", seconds)
+        return _Graph(graph, outputs, flags, launches, seconds)
 
     def capture_seconds(self) -> float:
         """Capture plus instantiation, all of this key's graphs."""

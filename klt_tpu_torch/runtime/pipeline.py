@@ -35,6 +35,7 @@ graphs are held against.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 
@@ -58,6 +59,7 @@ from ..ops.replace_exact import (exact_response_device,
 from ..ops.selection import (candidate_points, corner_response,
                              corner_response_plain)
 from ..utils import checks
+from ..utils.profiling import span
 
 # Frames per batched-pyramid launch with precomp: bounds the stacks held
 # at once (64 VGA frames of 2-level stacks are about 250 MB).
@@ -260,11 +262,11 @@ def _run(frames, x, y, val, cfg: TrackingConfig, plain: bool,
     if batched:
         build = (build_pyramid_stacks_batched_plain if plain
                  else build_pyramid_stacks_batched)
-        st1 = build(frames[:, 0].contiguous(), cfg)
+        first = frames[:, 0].contiguous()
         step_shape = (frames.shape[0],) + frames.shape[2:]
     else:
         build = build_pyramid_stacks_plain if plain else build_pyramid_stacks
-        st1 = build(frames[0], cfg)
+        first = frames[0]
         step_shape = frames.shape[1:]
     key = _sequence_key("replace" if replace else "affine" if affine
                         else "track", step_shape, frames, feats, cfg, plain,
@@ -277,17 +279,22 @@ def _run(frames, x, y, val, cfg: TrackingConfig, plain: bool,
             b, lambda n: _sequence_chunk(b, n, cfg, plain, precomp, replace),
             frames.device, frames.is_cuda and not plain)
 
-    with graph.program(key, make) as prog:
-        b = prog.static
-        _load(b, st1, feats, cfg)
+    with span("sequence"), contextlib.ExitStack() as held:
+        with span("sequence.load"):
+            st1 = build(first, cfg)
+            prog = held.enter_context(graph.program(key, make))
+            b = prog.static
+            _load(b, st1, feats, cfg)
         flags = checks.Flags()
         t = 0
         for n in graph.chunk_lengths(t_len - 1, graph.K):
-            b.frames[:n].copy_(frames[:, 1 + t:1 + t + n].transpose(0, 1)
-                               if batched else frames[1 + t:1 + t + n])
+            with span("sequence.stage"):
+                b.frames[:n].copy_(frames[:, 1 + t:1 + t + n].transpose(0, 1)
+                                   if batched else frames[1 + t:1 + t + n])
             prog.run(n, flags)
-            for out, rows in zip((xs, ys, vals), b.rows):
-                out[t:t + n].copy_(rows[:n])
+            with span("sequence.rows"):
+                for out, rows in zip((xs, ys, vals), b.rows):
+                    out[t:t + n].copy_(rows[:n])
             t += n
         flags.report()
     return xs, ys, vals

@@ -65,6 +65,7 @@ from ..ops.lk import track_features_pyramid_stacks
 from ..ops.affine import AffineState, affine_consistency_step
 from ..cuda import graph
 from ..utils import checks
+from ..utils.profiling import count, span
 from .. import native
 
 _verbosity = 1
@@ -121,7 +122,8 @@ class KLTracker:
         img = np.asarray(img)
         _log(f"(KLT) Selecting the {fl.n_features} best features from a "
              f"{img.shape[1]} by {img.shape[0]} image...")
-        self._select(img, fl, overwrite_all=True)
+        with span("tracker.select"):
+            self._select(img, fl, overwrite_all=True)
         _log(f"\t{fl.count_remaining()} features found.")
 
     def replace_lost_features(self, img: np.ndarray, fl: FeatureList) -> None:
@@ -133,33 +135,43 @@ class KLTracker:
         n_lost = fl.n_features - fl.count_remaining()
         _log(f"(KLT) Attempting to replace {n_lost} features...")
         if n_lost > 0:
-            self._select(np.asarray(img), fl, overwrite_all=False)
+            with span("tracker.replace"):
+                self._select(np.asarray(img), fl, overwrite_all=False)
 
     def _select(self, img: np.ndarray, fl: FeatureList,
                 overwrite_all: bool) -> None:
         nrows, ncols = img.shape
         cfg = self.cfg
-        if (not overwrite_all and self.sequential
-                and self._pyr_last is not None):
-            # replacement in sequential mode reuses the cached pyramid's
-            # level-0 gradients (src/V1/selectGoodFeatures.c:342-348)
-            lvl0 = self._pyr_last[0]
-            response = corner_response(lvl0[1], lvl0[2], cfg.window_width,
-                                       cfg.window_height)
-        elif _exact_select_enabled():
-            response = selection_response_exact(img, cfg)
-        else:
-            response = self._device_response(img)
+        count("select.calls")
+        with span("select.response"):
+            if (not overwrite_all and self.sequential
+                    and self._pyr_last is not None):
+                # replacement in sequential mode reuses the cached
+                # pyramid's level-0 gradients
+                # (src/V1/selectGoodFeatures.c:342-348)
+                lvl0 = self._pyr_last[0]
+                response = corner_response(lvl0[1], lvl0[2],
+                                           cfg.window_width,
+                                           cfg.window_height)
+            elif _exact_select_enabled():
+                response = selection_response_exact(img, cfg)
+            else:
+                response = self._device_response(img)
         newly = None if overwrite_all else (fl.val < 0)
         if not self._suppress_prefiltered(response, fl, ncols, nrows,
                                           overwrite_all):
             if isinstance(response, torch.Tensor):
-                response = response.cpu().numpy()
-            pts = candidate_points(response, cfg, ncols, nrows)
-            native.sort_points_desc(pts)
-            native.min_dist_suppress(pts, fl.x, fl.y, fl.val, ncols, nrows,
-                                     cfg.mindist, cfg.min_eigenvalue,
-                                     overwrite_all)
+                with span("select.readback"):
+                    response = response.cpu().numpy()
+            with span("select.candidates"):
+                pts = candidate_points(response, cfg, ncols, nrows)
+            count("select.candidates", len(pts))
+            with span("select.sort"):
+                native.sort_points_desc(pts)
+            with span("select.suppress"):
+                native.min_dist_suppress(pts, fl.x, fl.y, fl.val, ncols,
+                                         nrows, cfg.mindist,
+                                         cfg.min_eigenvalue, overwrite_all)
         # reset the affine reference patches of (re)selected slots
         if cfg.affine_consistency_check >= 0 and self._affine is not None:
             reset = np.ones(fl.n_features, bool) if overwrite_all else newly
@@ -176,27 +188,29 @@ class KLTracker:
         cfg = self.cfg
         if not self.prefilter or cfg.mindist < 2:
             return False
-        pts, dropped_cells = candidate_points_topk(response, cfg, ncols,
-                                                   nrows)
-        save = (fl.x.copy(), fl.y.copy(), fl.val.copy())
-        native.sort_points_desc(pts)
-        native.min_dist_suppress(pts, fl.x, fl.y, fl.val, ncols, nrows,
-                                 cfg.mindist, cfg.min_eigenvalue,
-                                 overwrite_all)
-        target = np.ones(fl.n_features, bool) if overwrite_all \
-            else (save[2] < 0)
-        added = target & (fl.val >= 0)  # every target slot now filled
-        n_unfilled = int((target & (fl.val < 0)).sum())
-        exist = np.zeros(fl.n_features, bool) if overwrite_all \
-            else (save[2] >= 0)
-        ok = selection_prefilter_audit(
-            pts, dropped_cells, fl.val[added],
-            fl.x[added].astype(np.int32), fl.y[added].astype(np.int32),
-            save[0][exist].astype(np.int32), save[1][exist].astype(np.int32),
-            n_unfilled, cfg)
-        if not ok:
-            fl.x[:], fl.y[:], fl.val[:] = save
-        return ok
+        with span("select.prefilter"):
+            pts, dropped_cells = candidate_points_topk(response, cfg, ncols,
+                                                       nrows)
+            count("select.candidates", len(pts))
+            save = (fl.x.copy(), fl.y.copy(), fl.val.copy())
+            native.sort_points_desc(pts)
+            native.min_dist_suppress(pts, fl.x, fl.y, fl.val, ncols, nrows,
+                                     cfg.mindist, cfg.min_eigenvalue,
+                                     overwrite_all)
+            target = np.ones(fl.n_features, bool) if overwrite_all \
+                else (save[2] < 0)
+            added = target & (fl.val >= 0)  # every target slot now filled
+            n_unfilled = int((target & (fl.val < 0)).sum())
+            exist = np.zeros(fl.n_features, bool) if overwrite_all \
+                else (save[2] >= 0)
+            ok = selection_prefilter_audit(
+                pts, dropped_cells, fl.val[added],
+                fl.x[added].astype(np.int32), fl.y[added].astype(np.int32),
+                save[0][exist].astype(np.int32),
+                save[1][exist].astype(np.int32), n_unfilled, cfg)
+            if not ok:
+                fl.x[:], fl.y[:], fl.val[:] = save
+            return ok
 
     def _device_response(self, img: np.ndarray) -> torch.Tensor:
         """The selection response computed on the tracker's device: the
@@ -240,6 +254,39 @@ class KLTracker:
                 raise ValueError(
                     f"img1 ({img1.shape}, {img1.dtype}) and img2 "
                     f"({img2.shape}, {img2.dtype}) differ in shape or dtype")
+        with span("tracker.track"):
+            with span("track.stage"):
+                b, programs, src = self._stage(img1, img2, fl, pyr1)
+            key = (src, checks.debug_enabled())
+            prog = programs.get(key)
+            if prog is None:
+                state = self._affine if cfg.affine_consistency_check >= 0 \
+                    else None
+                prog = programs[key] = graph.Program(
+                    b, lambda n: _track_step(b, cfg, state, src),
+                    self.device, self.device.type == "cuda")
+            flags = checks.Flags()
+            prog.run(1, flags)
+            flags.report()
+            with span("track.readback"):
+                b.stage_out.copy_(b.out)
+            with span("track.unpack"):
+                out = b.stage_out.numpy()
+                fl.x[:] = out[0].view(np.float32)
+                fl.y[:] = out[1].view(np.float32)
+                fl.val[:] = out[2]
+                if self.sequential:
+                    self._pyr_last = b.slots[_carry_slot(src)]
+        if _verbosity >= 1:
+            _log(f"\t{fl.count_remaining()} features successfully tracked.")
+
+    def _stage(self, img1: np.ndarray, img2: np.ndarray, fl: FeatureList,
+               pyr1) -> tuple:
+        """A call's frames and features into the pinned staging buffer of
+        its geometry, and their copies to the device enqueued.  Returns
+        (the step buffers, their programs, the slot that holds image 1's
+        pyramid, or None when the step builds it from image 1)."""
+        cfg = self.cfg
         if cfg.affine_consistency_check >= 0 and self._affine is None:
             self._affine = AffineState.create(fl.n_features, cfg,
                                               self.device)
@@ -265,28 +312,7 @@ class KLTracker:
         else:
             b.frames[1].copy_(b.stage[1], non_blocking=True)
         b.feats.copy_(b.stage_feats, non_blocking=True)
-
-        key = (src, checks.debug_enabled())
-        prog = programs.get(key)
-        if prog is None:
-            state = self._affine if cfg.affine_consistency_check >= 0 \
-                else None
-            prog = programs[key] = graph.Program(
-                b, lambda n: _track_step(b, cfg, state, src), self.device,
-                self.device.type == "cuda")
-        flags = checks.Flags()
-        prog.run(1, flags)
-        flags.report()
-        b.stage_out.copy_(b.out)
-        out = b.stage_out.numpy()
-        fl.x[:] = out[0].view(np.float32)
-        fl.y[:] = out[1].view(np.float32)
-        fl.val[:] = out[2]
-
-        if self.sequential:
-            self._pyr_last = b.slots[_carry_slot(src)]
-        if _verbosity >= 1:
-            _log(f"\t{fl.count_remaining()} features successfully tracked.")
+        return b, programs, src
 
     def _step_buffers(self, img2: np.ndarray, n: int) -> tuple:
         """The static buffers of this call's geometry and their programs,

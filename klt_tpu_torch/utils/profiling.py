@@ -1,13 +1,23 @@
 """Profiling utilities — the GPU analogue of the reference's gprof/nsys
 toolchain (src/V1/Makefile:76-91, src/V4/Makefile:100-103).
 
-Two layers:
+Three layers:
 * `trace(...)` — context manager around `torch.profiler.profile` (CPU and
   CUDA activities) writing a Chrome trace (`*.pt.trace.json.gz`) under a
   directory;
 * `op_breakdown(...)` — reads the newest such trace and aggregates the
   device's kernel and copy time by (category, name): a flat profile of
-  what the card ran.
+  what the card ran;
+* `span(name)` and `count(name)` — the program's own spans and counters
+  at its layer boundaries (runtime/tracker.py, runtime/pipeline.py,
+  cuda/graph.py).  A span records only while a torch profiler is active
+  in the process: it is then a range named "klt:" + name on the
+  profiler's host timeline, on the device trace's clock, and a
+  record in an in-memory store (`spans()`, `span_seconds`,
+  `self_seconds`, `reset_spans`).  With no profiler active a span costs
+  one flag check.  Counters are always on (`counters()`).  No span sits in
+  anything a CUDA graph captures: it would run once, at capture, and
+  never at a replay.
 """
 
 from __future__ import annotations
@@ -16,9 +26,11 @@ import collections
 import contextlib
 import glob
 import gzip
+import itertools
 import json
 import os
 import socket
+import threading
 import time
 
 import torch
@@ -32,6 +44,11 @@ HEAD_LAUNCHES = 256
 # after the closing marker: a pause (s), then launches that are not read
 TAIL_PAUSE_S = 0.1
 TAIL_LAUNCHES = 4096
+# the prefix of the program's spans on the profiler's timeline
+SPAN_PREFIX = "klt:"
+# spans the store keeps, the oldest dropped first (counted under
+# "spans.dropped")
+MAX_SPANS = 65536
 
 
 def marker() -> None:
@@ -166,3 +183,144 @@ def op_breakdown(log_dir: str, runs: int = 1, top: int = 30):
 def print_breakdown(log_dir: str, runs: int = 1, top: int = 30) -> None:
     for us, n, cat, name in op_breakdown(log_dir, runs, top):
         print(f"{us:9.1f} us  n={n:7.1f}  {cat[:22]:22s} {name}")
+
+
+# ---------------------------------------------------------------- spans
+
+# the module whose `_is_profiler_enabled` every torch profiler sets while
+# it records (torch.profiler.profile, torch.autograd.profiler.profile)
+_autograd_profiler = torch.autograd.profiler
+# a profiler range on the host track, as `torch.profiler.record_function`
+# opens, at a fifth to a tenth of its cost (3 us a span against 13-20 us
+# on an H100 machine's host): the spans of a profiled loop must not turn a
+# device-bound loop into a host-bound one
+_range = torch._C._profiler._RecordFunctionFast
+_OFF = contextlib.nullcontext()
+_store: collections.deque = collections.deque(maxlen=MAX_SPANS)
+_index = itertools.count()
+_request = itertools.count()
+_local = threading.local()
+_counters: dict = {}
+
+
+class Span:
+    """One recorded span: its name, start and end (`time.perf_counter_ns`;
+    end 0 while it is open), its index in the store since the last reset,
+    the index of the span that encloses it (None for a root) and its
+    request: a root opens a new one, its children carry it."""
+
+    __slots__ = ("name", "start", "end", "index", "parent", "request")
+
+    def __init__(self, name, index, parent, request):
+        self.name = name
+        self.index = index
+        self.parent = parent
+        self.request = request
+        self.start = self.end = 0
+
+    @property
+    def seconds(self) -> float:
+        return (self.end - self.start) * 1e-9
+
+
+class _Recording:
+    """The context of a span while a profiler records.  The span's start
+    and end enclose its own recording (the profiler's range and the
+    store), so that its parent's self time is the parent's own work and
+    not its children's instrumentation."""
+
+    __slots__ = ("name", "span", "function")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        start = time.perf_counter_ns()
+        stack = _stack()
+        up = stack[-1] if stack else None
+        sp = self.span = Span(
+            self.name, next(_index), None if up is None else up.index,
+            next(_request) if up is None else up.request)
+        sp.start = start
+        self.function = _range(SPAN_PREFIX + self.name)
+        self.function.__enter__()
+        if len(_store) == MAX_SPANS:
+            count("spans.dropped")
+        _store.append(sp)
+        stack.append(sp)
+        return sp
+
+    def __exit__(self, *exc):
+        _stack().pop()
+        self.function.__exit__(*exc)
+        self.span.end = time.perf_counter_ns()
+        return False
+
+
+def _stack() -> list:
+    """This thread's open spans, innermost last."""
+    try:
+        return _local.stack
+    except AttributeError:
+        _local.stack = []
+        return _local.stack
+
+
+def span(name: str):
+    """A span named `name` around the with-block, recorded while a torch
+    profiler is active in the process; otherwise a shared no-op context."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Recording(name)
+
+
+def spans() -> list:
+    """The store's spans, oldest first (open ones with end 0)."""
+    return list(_store)
+
+
+def reset_spans() -> None:
+    """Empty the store and start the indices and requests again."""
+    global _index, _request
+    _store.clear()
+    _index = itertools.count()
+    _request = itertools.count()
+
+
+def _closed(name: str, root: str | None) -> list:
+    done = [s for s in _store if s.end]
+    if root is not None:
+        roots = {s.request: s.name for s in done if s.parent is None}
+        done = [s for s in done if roots.get(s.request) == root]
+    return [s for s in done if s.name == name]
+
+
+def span_seconds(name: str, root: str | None = None) -> list[float]:
+    """The durations (s) of the closed spans named `name`, oldest first;
+    with `root`, only those of requests whose root span is named so."""
+    return [s.seconds for s in _closed(name, root)]
+
+
+def self_seconds(name: str, root: str | None = None,
+                 children=None) -> list[float]:
+    """As `span_seconds`, each less the durations of its children: all of
+    them (the span's self time), or those whose name is in `children`."""
+    picked = _closed(name, root)
+    less = {s.index: 0 for s in picked}
+    for s in _store:
+        if s.end and s.parent in less and \
+                (children is None or s.name in children):
+            less[s.parent] += s.end - s.start
+    return [(s.end - s.start - less[s.index]) * 1e-9 for s in picked]
+
+
+# ------------------------------------------------------------- counters
+
+def count(name: str, n=1) -> None:
+    """Add n to counter `name` (always on)."""
+    _counters[name] = _counters.get(name, 0) + n
+
+
+def counters() -> dict:
+    """A copy of the counters since the process started."""
+    return dict(_counters)
