@@ -1,11 +1,13 @@
 """ctypes bindings for the native host runtime (sort + suppression, the
-threaded PGM batch loader) and for the scalar oracle of the bit-exact LK
-tier.
+threaded PGM batch loader), for the lazy sort that the suppression drives,
+and for the scalar oracle of the bit-exact LK tier.
 
 Compiles the port's own `kltnative.c`, beside this file (a byte-for-byte
 copy of the JAX package's native source, which the tests hold equal),
 with `cc -O2 -shared -fPIC` into the port's build directory on first use,
-and again whenever the source is newer than the library.  `lk_exact_ref.c`
+and again whenever the source is newer than the library; `lazy_select.c`
+(`LazySort`, which includes `kltnative.c`'s helpers) builds the same way
+into a library of its own.  `lk_exact_ref.c`
 (the scalar lane program of csrc/lk_exact_lane.h, whose per-cell helpers
 kernel G shares, one feature after another) builds the same way with `cc -O0 -ffp-contract=off`, so that
 every f32 operation rounds on its own, as the reference's goldens were
@@ -27,9 +29,25 @@ _LIB = os.path.join(BUILD_DIR, "libkltnative.so")
 _REF_SRC = repo_path("klt_tpu_torch", "native", "lk_exact_ref.c")
 _REF_DEPS = [_REF_SRC, repo_path("klt_tpu_torch", "csrc", "lk_exact_lane.h")]
 _REF_LIB = os.path.join(BUILD_DIR, "liblkexactref.so")
+_LAZY_SRC = repo_path("klt_tpu_torch", "native", "lazy_select.c")
+_LAZY_LIB = os.path.join(BUILD_DIR, "liblazyselect.so")
 _lock = threading.Lock()
 _lib = None
 _ref_lib = None
+_lazy_lib = None
+# The most ranges a LazySort keeps pending; a range that would nest
+# deeper is sorted whole (lazy_select.c).  Its state stays this small, so
+# each call allocates no buffer that grows with the candidate list.
+LAZY_PENDING = 128
+
+
+def _open(lib: str, deps: list[str], flags: list[str]) -> ctypes.CDLL:
+    """The library `lib`, compiled from deps[0] first when any of deps is
+    newer than it."""
+    if is_stale(lib, deps):
+        cc = os.environ.get("CC", "cc")
+        compile_shared([cc, *flags, "-shared", "-fPIC", deps[0]], lib)
+    return ctypes.CDLL(lib)
 
 
 def _load() -> ctypes.CDLL:
@@ -37,11 +55,7 @@ def _load() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        if is_stale(_LIB, [_SRC]):
-            cc = os.environ.get("CC", "cc")
-            compile_shared([cc, "-O2", "-shared", "-fPIC", "-pthread", _SRC],
-                           _LIB)
-        lib = ctypes.CDLL(_LIB)
+        lib = _open(_LIB, [_SRC], ["-O2", "-pthread"])
         lib.klt_sort_points_desc.argtypes = [
             ctypes.POINTER(ctypes.c_int32), ctypes.c_int64]
         lib.klt_sort_points_desc.restype = None
@@ -74,12 +88,9 @@ def sort_points_desc(pts: np.ndarray) -> np.ndarray:
     return pts
 
 
-def min_dist_suppress(pts: np.ndarray, fx: np.ndarray, fy: np.ndarray,
-                      fval: np.ndarray, ncols: int, nrows: int,
-                      mindist: int, min_eigenvalue: int,
-                      overwrite_all: bool) -> None:
-    """Greedy minimum-distance acceptance into (fx, fy, fval), in place."""
-    pts = np.ascontiguousarray(pts, dtype=np.int32)
+def _check_walk(pts: np.ndarray, fx: np.ndarray, fy: np.ndarray,
+                fval: np.ndarray, ncols: int, nrows: int) -> None:
+    """The suppression's arguments as its C loop reads them."""
     for a, dt in ((fx, np.float32), (fy, np.float32), (fval, np.int32)):
         if a.dtype != dt or not a.flags.c_contiguous or a.shape != fx.shape:
             raise ValueError("feature arrays must be contiguous [n] "
@@ -89,6 +100,15 @@ def min_dist_suppress(pts: np.ndarray, fx: np.ndarray, fy: np.ndarray,
     if pts.size and (pts[:, 0].min() < 0 or pts[:, 0].max() >= ncols or
                      pts[:, 1].min() < 0 or pts[:, 1].max() >= nrows):
         raise ValueError("candidate points outside the image")
+
+
+def min_dist_suppress(pts: np.ndarray, fx: np.ndarray, fy: np.ndarray,
+                      fval: np.ndarray, ncols: int, nrows: int,
+                      mindist: int, min_eigenvalue: int,
+                      overwrite_all: bool) -> None:
+    """Greedy minimum-distance acceptance into (fx, fy, fval), in place."""
+    pts = np.ascontiguousarray(pts, dtype=np.int32)
+    _check_walk(pts, fx, fy, fval, ncols, nrows)
     lib = _load()
     lib.klt_min_dist_suppress(
         pts.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
@@ -100,6 +120,73 @@ def min_dist_suppress(pts: np.ndarray, fx: np.ndarray, fy: np.ndarray,
         ctypes.c_int32(ncols), ctypes.c_int32(nrows),
         ctypes.c_int32(max(mindist, 0)), ctypes.c_int32(min_eigenvalue),
         ctypes.c_int32(1 if overwrite_all else 0))
+
+
+def _load_lazy() -> ctypes.CDLL:
+    global _lazy_lib
+    with _lock:
+        if _lazy_lib is not None:
+            return _lazy_lib
+        lib = _open(_LAZY_LIB, [_LAZY_SRC, _SRC], ["-O2", "-pthread"])
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        f32p = ctypes.POINTER(ctypes.c_float)
+        lib.klt_lazy_sort_begin.argtypes = [i32p, ctypes.c_int64, i64p]
+        lib.klt_lazy_sort_begin.restype = None
+        lib.klt_lazy_min_dist_suppress.argtypes = [
+            i32p, ctypes.c_int64, i64p, f32p, f32p, i32p, ctypes.c_int64,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_int32]
+        lib.klt_lazy_min_dist_suppress.restype = None
+        _lazy_lib = lib
+        return lib
+
+
+class LazySort:
+    """`sort_points_desc` then `min_dist_suppress`, with only the rows the
+    suppression reads sorted (lazy_select.c): the same features, and the
+    same first `n_final` rows as the full sort, ties in the same order.
+
+    pts: contiguous int32 [n, 3] (x, y, val) triples, partitioned in
+    place.  Making the object partitions the list until row 0 holds the
+    best candidate; `min_dist_suppress` sorts the rest of what it reads as
+    it walks."""
+
+    def __init__(self, pts: np.ndarray):
+        if pts.dtype != np.int32 or not pts.flags.c_contiguous or \
+                pts.ndim != 2 or pts.shape[1] != 3:
+            raise ValueError("expected contiguous int32 [n, 3] points")
+        self.pts = pts
+        self._state = np.empty(3 + 2 * LAZY_PENDING, np.int64)
+        self._state[0] = LAZY_PENDING
+        _load_lazy().klt_lazy_sort_begin(
+            pts.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            ctypes.c_int64(pts.shape[0]),
+            self._state.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+
+    @property
+    def n_final(self) -> int:
+        """The rows at the head of `pts` that hold their sorted values."""
+        return int(self._state[2])
+
+    def min_dist_suppress(self, fx: np.ndarray, fy: np.ndarray,
+                          fval: np.ndarray, ncols: int, nrows: int,
+                          mindist: int, min_eigenvalue: int,
+                          overwrite_all: bool) -> None:
+        """As the module's `min_dist_suppress` on the sorted list."""
+        pts = self.pts
+        _check_walk(pts, fx, fy, fval, ncols, nrows)
+        _load_lazy().klt_lazy_min_dist_suppress(
+            pts.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            ctypes.c_int64(pts.shape[0]),
+            self._state.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            fx.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            fy.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            fval.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            ctypes.c_int64(fx.shape[0]),
+            ctypes.c_int32(ncols), ctypes.c_int32(nrows),
+            ctypes.c_int32(max(mindist, 0)), ctypes.c_int32(min_eigenvalue),
+            ctypes.c_int32(1 if overwrite_all else 0))
 
 
 def load_pgm_batch(paths, height: int, width: int,
@@ -132,11 +219,7 @@ def _load_ref() -> ctypes.CDLL:
     with _lock:
         if _ref_lib is not None:
             return _ref_lib
-        if is_stale(_REF_LIB, _REF_DEPS):
-            cc = os.environ.get("CC", "cc")
-            compile_shared([cc, "-O0", "-ffp-contract=off", "-shared",
-                            "-fPIC", _REF_SRC], _REF_LIB)
-        lib = ctypes.CDLL(_REF_LIB)
+        lib = _open(_REF_LIB, _REF_DEPS, ["-O0", "-ffp-contract=off"])
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.klt_exact_track_ref.argtypes = (
             [ctypes.POINTER(p), ctypes.POINTER(p), ctypes.POINTER(i),

@@ -1,0 +1,164 @@
+/* Lazy descending sort of (x, y, v) candidate triples, driven by the
+ * greedy minimum-distance walk that reads it.
+ *
+ * The walk (klt_min_dist_suppress in kltnative.c) stops once the free
+ * slots are filled, and then has read only the head of the sorted list:
+ * a replacement of about 10 slots of 500 in a 640x480 frame reads some
+ * thousands of its 255,744 rows.  So only the ranges that meet that head
+ * are partitioned here.
+ *
+ * The partition step is klt_sort_points_desc's: the middle element
+ * swapped to the front as the pivot, then Hoare's loop, with the same
+ * swaps.  Once a range is partitioned its two sides are sorted on their
+ * own, so the final contents of positions [0, K) depend only on the
+ * partitions of the ranges that meet [0, K), whatever order the sides are
+ * finished in.  Partitioning exactly those ranges gives the full sort's
+ * first K rows bit for bit, ties in the same order, and the walk over
+ * them accepts what klt_min_dist_suppress accepts over the full sort.
+ *
+ * The caller owns the state, int64 state[3 + 2 * cap]:
+ *   state[0]  cap, the most ranges that may be pending (>= 1, set by the
+ *             caller);
+ *   state[1]  the number of pending ranges;
+ *   state[2]  the rows final: every row before the leftmost pending range
+ *             (a range of one row and every pivot are final at once);
+ *   state[3 + 2k], state[4 + 2k]  pending range k as [lo, hi), the
+ *             leftmost range last.
+ * Pending ranges are disjoint and hold at least two rows each.  Where a
+ * partition would leave more than cap pending (partitions nested deeper
+ * than cap), the range is sorted whole by klt_sort_points_desc instead:
+ * the same partitions, all at once.  So the state never overflows and its
+ * size does not grow with n; a few dozen ranges are pending in practice.
+ *
+ * Built as a shared library of its own, bound via ctypes (__init__.py).
+ * It includes kltnative.c for the reference's swap_triple,
+ * stamp_neighborhood and KLT_NOT_FOUND; kltnative.c stays a copy of the
+ * JAX package's source.
+ */
+
+#include "kltnative.c"
+
+/* One step of klt_sort_points_desc on a range of n >= 2 rows: returns
+ * the pivot's final position j; rows [0, j) hold values >= the pivot's,
+ * rows (j, n) values <= it. */
+static int64_t partition_desc(int32_t *a, int64_t n)
+{
+  int64_t i = 0, j = n;
+  swap_triple(a, 0, n / 2); /* median-guess pivot to the front */
+  for (;;) {
+    do {
+      j--;
+    } while (a[3 * j + 2] < a[2]);
+    do {
+      i++;
+    } while (i < j && a[3 * i + 2] > a[2]);
+    if (i >= j)
+      break;
+    swap_triple(a, i, j);
+  }
+  swap_triple(a, j, 0);
+  return j;
+}
+
+/* Partitions the leftmost pending range until row p (< n) is final. */
+static void finalize_through(int32_t *a, int64_t n, int64_t *state,
+                             int64_t p)
+{
+  int64_t *ranges = state + 3;
+  while (state[2] <= p) {
+    int64_t k = state[1] - 1;
+    int64_t lo = ranges[2 * k], hi = ranges[2 * k + 1];
+    if (k + 2 > state[0]) {
+      klt_sort_points_desc(a + 3 * lo, hi - lo);
+    } else {
+      int64_t j = lo + partition_desc(a + 3 * lo, hi - lo);
+      /* the right side below the left, so the leftmost stays last */
+      if (hi - (j + 1) >= 2) {
+        ranges[2 * k] = j + 1;
+        ranges[2 * k + 1] = hi;
+        k++;
+      }
+      if (j - lo >= 2) {
+        ranges[2 * k] = lo;
+        ranges[2 * k + 1] = j;
+        k++;
+      }
+    }
+    state[1] = k;
+    state[2] = k ? ranges[2 * (k - 1)] : n;
+  }
+}
+
+/* Starts the lazy sort of the n triples at a: partitions the leftmost
+ * ranges until row 0 holds the best candidate. */
+void klt_lazy_sort_begin(int32_t *a, int64_t n, int64_t *state)
+{
+  state[1] = 0;
+  state[2] = n;
+  if (n < 2)
+    return;
+  state[1] = 1;
+  state[2] = 0;
+  state[3] = 0;
+  state[4] = n;
+  finalize_through(a, n, state, 0);
+}
+
+/* klt_min_dist_suppress over the triples that klt_lazy_sort_begin
+ * started, each row made final just before the walk reads it.  On return
+ * state[2] is the number of rows the sort made final. */
+void klt_lazy_min_dist_suppress(int32_t *pts, int64_t npts, int64_t *state,
+                                float *fx, float *fy, int32_t *fval,
+                                int64_t nfeat, int32_t ncols, int32_t nrows,
+                                int32_t mindist, int32_t min_eigenvalue,
+                                int32_t overwrite_all)
+{
+  uint8_t *map = (uint8_t *)calloc((size_t)ncols * nrows, 1);
+  int64_t slot = 0, p;
+  int32_t rad = mindist - 1; /* the scan below works with mindist-1 */
+
+  if (min_eigenvalue < 1)
+    min_eigenvalue = 1;
+  if (rad < -1)
+    rad = -1;
+
+  if (!overwrite_all) {
+    for (p = 0; p < nfeat; p++)
+      if (fval[p] >= 0)
+        stamp_neighborhood(map, (int32_t)fx[p], (int32_t)fy[p], rad,
+                           ncols, nrows);
+  }
+
+  for (p = 0; p < npts; p++) {
+    int32_t x, y, v;
+
+    while (!overwrite_all && slot < nfeat && fval[slot] >= 0)
+      slot++;
+    if (slot >= nfeat)
+      break;
+
+    if (p >= state[2])
+      finalize_through(pts, npts, state, p);
+    x = pts[3 * p];
+    y = pts[3 * p + 1];
+    v = pts[3 * p + 2];
+    if (!map[(int64_t)y * ncols + x] && v >= min_eigenvalue) {
+      fx[slot] = (float)x;
+      fy[slot] = (float)y;
+      fval[slot] = v;
+      slot++;
+      stamp_neighborhood(map, x, y, rad, ncols, nrows);
+    }
+  }
+
+  /* Candidates exhausted: remaining writable slots become NOT_FOUND. */
+  for (; slot < nfeat; slot++) {
+    if (overwrite_all || fval[slot] < 0) {
+      fx[slot] = -1.0f;
+      fy[slot] = -1.0f;
+      fval[slot] = KLT_NOT_FOUND;
+    }
+  }
+
+  free(map);
+}

@@ -18,7 +18,10 @@ KLTReplaceLostFeatures, src/V1/klt.h:150-169), bound to one torch device:
   each (mindist x mindist) cell on the response's device
   (ops/selection.py::candidate_points_topk), so that a response on the
   card comes back as O(k * nCells) values instead of the whole map; the
-  full list is taken whenever the exactness audit cannot certify the cut;
+  full list is taken whenever the exactness audit cannot certify the cut.
+  On the full list the sort is lazy (native.LazySort): the suppression
+  stops once the free slots are filled, so only the head of the list it
+  reads is sorted, with the full sort's rows and tie order;
 * tracking builds pyramids and runs the coarse-to-fine LK on the device;
   sequential mode keeps the previous frame's pyramids there between
   calls — the V3 lesson (src/V3/trackFeaturesGPU.cu:481-484): never
@@ -166,12 +169,14 @@ class KLTracker:
             with span("select.candidates"):
                 pts = candidate_points(response, cfg, ncols, nrows)
             count("select.candidates", len(pts))
+            # the walk reads a few % of the list: sort only that head
             with span("select.sort"):
-                native.sort_points_desc(pts)
+                lazy = native.LazySort(pts)
             with span("select.suppress"):
-                native.min_dist_suppress(pts, fl.x, fl.y, fl.val, ncols,
-                                         nrows, cfg.mindist,
-                                         cfg.min_eigenvalue, overwrite_all)
+                lazy.min_dist_suppress(fl.x, fl.y, fl.val, ncols, nrows,
+                                       cfg.mindist, cfg.min_eigenvalue,
+                                       overwrite_all)
+            count("select.sorted", lazy.n_final)
         # reset the affine reference patches of (re)selected slots
         if cfg.affine_consistency_check >= 0 and self._affine is not None:
             reset = np.ones(fl.n_features, bool) if overwrite_all else newly

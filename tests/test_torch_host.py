@@ -122,6 +122,70 @@ def test_native_sort_and_suppress_equal_klt_tpu():
         np.testing.assert_array_equal(a, b)
 
 
+def _lazy_case(name, rng):
+    """(pts int32 [n, 3] in a 200x150 image, slots, min_eigenvalue); a
+    "<case>.pending<k>" case keeps at most k ranges pending."""
+    name = name.split(".")[0]
+    n, hi, slots, floor = 4000, 8, 60, 1
+    if name in ("n0", "n1", "n2"):
+        n = int(name[1])
+    elif name == "spread":
+        hi = 20000
+    elif name == "floor_above_all":
+        floor = hi + 1               # the walk reads the whole list
+    elif name == "fewer_candidates_than_slots":
+        n = 25
+    pts = np.stack([rng.randint(0, 200, n), rng.randint(0, 150, n),
+                    rng.randint(1, hi + 1, n)], axis=1).astype(np.int32)
+    if name == "all_equal":
+        pts[:, 2] = 5
+    elif name == "sorted":
+        pts[:, 2] = np.arange(n, 0, -1)
+    return pts, slots, floor
+
+
+@pytest.mark.parametrize("mindist", [0, 1, 10])
+@pytest.mark.parametrize("overwrite_all", [True, False])
+@pytest.mark.parametrize("case", [
+    "ties", "spread", "n0", "n1", "n2", "all_equal", "sorted",
+    "floor_above_all", "fewer_candidates_than_slots",
+    # ranges nested deeper than the pending bound are sorted whole
+    "ties.pending1", "spread.pending2", "sorted.pending3",
+    "floor_above_all.pending4"])
+def test_lazy_sort_equals_the_full_sort(case, overwrite_all, mindist,
+                                        monkeypatch):
+    """The lazy sort and its walk select what sort_points_desc and
+    min_dist_suppress select, and its final rows are the full sort's."""
+    from klt_tpu_torch import native
+    if ".pending" in case:
+        monkeypatch.setattr(native, "LAZY_PENDING", int(case[-1]))
+    rng = np.random.RandomState(len(case) + 10 * mindist)
+    pts, slots, floor = _lazy_case(case, rng)
+    live = rng.rand(slots) < (0.0 if overwrite_all else 0.5)
+    start = (np.where(live, rng.randint(0, 200, slots), -1).astype(np.float32),
+             np.where(live, rng.randint(0, 150, slots), -1).astype(np.float32),
+             np.where(live, rng.randint(1, 50, slots), -1).astype(np.int32))
+    full = native.sort_points_desc(pts.copy())
+    want = tuple(a.copy() for a in start)
+    native.min_dist_suppress(full, *want, 200, 150, mindist, floor,
+                             overwrite_all)
+    lazy = native.LazySort(pts.copy())
+    got = tuple(a.copy() for a in start)
+    lazy.min_dist_suppress(*got, 200, 150, mindist, floor, overwrite_all)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+    k = lazy.n_final
+    assert min(len(pts), 1) <= k <= len(pts)
+    np.testing.assert_array_equal(lazy.pts[:k], full[:k])  # tie order too
+    # the rest is the same rows, not yet in order
+    np.testing.assert_array_equal(np.sort(lazy.pts[:, 2]),
+                                  np.sort(pts[:, 2]))
+    if case.split(".")[0] in ("floor_above_all",
+                              "fewer_candidates_than_slots"):
+        assert k == len(pts)
+        np.testing.assert_array_equal(lazy.pts, full)
+
+
 def test_native_rejects_points_outside_the_image():
     from klt_tpu_torch import native
     pts = np.array([[5, 5, 10], [300, 5, 9]], np.int32)

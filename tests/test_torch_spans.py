@@ -6,12 +6,13 @@ programs' warm-ups, captures and replays (cuda/graph.py).
 On the CPU: with no profiler active nothing is recorded; under
 `torch.profiler.profile` every call records its named spans, with their
 parents and one request id a call, and the profiler's host events carry
-the "klt:" names; the counters count the candidate list and the chunk
-replays; the benchmark's readers of these spans give their numbers from
-a store made by hand and None without a span.  On the card (-m cuda): a
-graph replay records `graph.replay` and nothing of its chunk function,
-and the benchmark's traced segment counts no span as device work.  This
-file imports no jax, so on the card it runs alone:
+the "klt:" names; the counters count the candidate list, the rows of it
+the lazy sort made final and the chunk replays; the benchmark's readers
+of these spans give their numbers from a store made by hand and None
+without a span.  On the card (-m cuda): a graph replay records
+`graph.replay` and nothing of its chunk function, and the benchmark's
+traced segment counts no span as device work.  This file imports no
+jax, so on the card it runs alone:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_spans.py
 """
@@ -197,6 +198,74 @@ def test_candidates_counted_as_the_list_sorted(overwrite_all):
         (W - 2 * CFG.borderx) * (H - 2 * CFG.bordery)
 
 
+@pytest.mark.parametrize("overwrite_all", [True, False])
+def test_sorted_counted_as_the_rows_made_final(overwrite_all, monkeypatch):
+    """`select.sorted` is counted once a full-list call: the rows of the
+    candidate list that the lazy sort made final, at least those the walk
+    read and at most the list."""
+    from klt_tpu_torch import native
+    from klt_tpu_torch.runtime import tracker as tracker_mod
+    frames = scene()
+    tr = kt.KLTracker(CFG, device="cpu")
+    fl = kt.FeatureList.create(4)      # few slots: the walk stops early
+    tr.select_good_features(frames[0], fl)
+    tr.track_features(frames[0], frames[1], fl)
+    fl.val[:2] = -1
+    made, counted = [], []
+
+    class Spy(native.LazySort):
+        def __init__(self, pts):
+            made.append((self, pts.copy()))
+            super().__init__(pts)
+
+    real_count = tracker_mod.count
+
+    def spy_count(name, n=1):
+        counted.append((name, n))
+        real_count(name, n)
+
+    monkeypatch.setattr(native, "LazySort", Spy)
+    monkeypatch.setattr(tracker_mod, "count", spy_count)
+    target = np.ones(4, bool) if overwrite_all else fl.val < 0
+    before = profiling.counters()
+    if overwrite_all:
+        tr.select_good_features(frames[1], fl)
+    else:
+        tr.replace_lost_features(frames[1], fl)
+    after = profiling.counters()
+    sorted_ = after["select.sorted"] - before.get("select.sorted", 0)
+    assert [n for n, _ in counted].count("select.sorted") == 1
+    [(lazy, pts)] = made
+    assert sorted_ == lazy.n_final == dict(counted)["select.sorted"]
+    # the rows the walk read: through its last pick in the full sort's
+    # order, or all of them when it left a slot unfilled
+    full = native.sort_points_desc(pts)
+    if (fl.val[target] < 0).any():
+        read = len(full)
+    else:
+        at = {(x, y): p for p, (x, y, _) in enumerate(full.tolist())}
+        read = 1 + max(at[(int(x), int(y))]
+                       for x, y in zip(fl.x[target], fl.y[target]))
+    assert read <= sorted_ <= \
+        after["select.candidates"] - before["select.candidates"]
+    assert sorted_ < len(full)         # the lazy sort left rows unsorted
+
+
+def test_sorted_not_counted_on_the_prefilter_branch():
+    frame = synthetic_frames(1)[0]
+    tr = kt.KLTracker(CFG, device="cpu", prefilter=True)
+    fl = kt.FeatureList.create(10)
+    before = profiling.counters()
+    tr.select_good_features(frame, fl)
+    after = profiling.counters()
+    assert after["select.calls"] - before.get("select.calls", 0) == 1
+    # the audit certified the cut list, so the full list was never made
+    assert after["select.candidates"] - before.get("select.candidates", 0) \
+        < (frame.shape[0] - 2 * CFG.bordery) * \
+        (frame.shape[1] - 2 * CFG.borderx)
+    assert after.get("select.sorted", 0) == before.get("select.sorted", 0)
+
+
 @pytest.mark.parametrize("steps", [1, graph.K - 1, graph.K, graph.K + 3,
                                    2 * graph.K + 1])
 def test_sequence_records_a_replay_a_chunk(steps):
@@ -290,6 +359,9 @@ READERS = [
      None, 9.0),
     ("live.candidates_per_replace", [],
      {"select.calls": 4, "select.candidates": 4 * 512}, 512.0),
+    ("live.sorted_per_replace", [],
+     {"select.calls": 4, "select.candidates": 4 * 512,
+      "select.sorted": 4 * 30}, 30.0),
     ("live.captures_traced",
      [("tracker.track", None, 0, 100), ("graph.replay", 0, 10, 20)],
      None, 0.0),
