@@ -46,7 +46,10 @@ Every program records the spans `graph.warm_up`, `graph.capture` and
 `graph.replay` (utils/profiling.py) around a warm-up, a capture and a
 replay (on the CPU and for the plain versions: a run of the chunk
 function as it is), and counts its captures and their seconds
-(`graph.captures`, `graph.capture_s`: what `_Graph.seconds` keeps).
+(`graph.captures`, `graph.capture_s`: what `_Graph.seconds` keeps).  The
+counts a chunk function makes (the affine step's `affine.steps` and
+`affine.lanes`) are taken back after a capture and credited at every
+replay, as the kernels' launch counts are.
 """
 
 from __future__ import annotations
@@ -60,7 +63,8 @@ from collections import OrderedDict
 import torch
 
 from ..utils import checks
-from ..utils.profiling import count, span
+from ..utils.profiling import count, counters, credit_counts, span, \
+    take_counts
 from . import credit_launches, launch_counts, take_launches
 
 # Steps a graph of the whole-sequence entries covers (measured with 8, 16
@@ -90,13 +94,15 @@ def chunk_lengths(steps: int, longest: int) -> list[int]:
 class _Graph:
     """One captured chunk length: the graph, what the chunk function
     returned at capture (tensors of the graph's pool, rewritten by every
-    replay), its debug flags and its kernel launches."""
+    replay), its debug flags, its kernel launches and the program's
+    counts its chunk function made (utils/profiling.py)."""
 
-    def __init__(self, graph, outputs, flags, launches, seconds):
+    def __init__(self, graph, outputs, flags, launches, counts, seconds):
         self.graph = graph
         self.outputs = outputs
         self.flags = flags
         self.launches = launches
+        self.counts = counts
         self.seconds = seconds
 
 
@@ -147,6 +153,7 @@ class Program:
             with span("graph.replay"):
                 g.graph.replay()
                 credit_launches(g.launches)
+                credit_counts(g.counts)
                 flags.merge(g.flags)
                 self.replays += 1
         return g.outputs
@@ -172,6 +179,7 @@ class Program:
         graph = torch.cuda.CUDAGraph()
         flags = checks.Flags()
         before = launch_counts()
+        counted = counters()
         t0 = time.perf_counter()
         # no garbage collection inside the capture: one that frees another
         # program's graph there invalidates the capture
@@ -183,12 +191,13 @@ class Program:
                 outputs = self.chunk_fn(n)
         finally:
             launches = take_launches(before)
+            counts = take_counts(counted)
             if collect:
                 gc.enable()
         seconds = time.perf_counter() - t0
         count("graph.captures")
         count("graph.capture_s", seconds)
-        return _Graph(graph, outputs, flags, launches, seconds)
+        return _Graph(graph, outputs, flags, launches, counts, seconds)
 
     def capture_seconds(self) -> float:
         """Capture plus instantiation, all of this key's graphs."""

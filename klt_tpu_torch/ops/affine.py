@@ -56,6 +56,7 @@ import torch
 
 from ..config import TrackingConfig, TRACKED, SMALL_DET, OOB, LARGE_RESIDUE
 from ..utils.linalg import gj_solve_spd
+from ..utils.profiling import count
 from .interp import sample_stack_at
 from .lk import _EPS, _div, _f32, _window_oob, _window_sum
 
@@ -91,6 +92,15 @@ class AffineState:
         return cls(valid=torch.zeros(n, dtype=torch.bool, device=device),
                    patches=z(3, n, ph, pw), x=z(n), y=z(n), axx=z(n) + 1.0,
                    ayx=z(n), axy=z(n), ayy=z(n) + 1.0)
+
+    def reset_(self) -> None:
+        """Forget every patch and map, in place: the state `create`
+        makes, in the tensors this state holds."""
+        self.valid.zero_()
+        for t in (self.patches, self.x, self.y, self.ayx, self.axy):
+            t.zero_()
+        self.axx.fill_(1.0)
+        self.ayy.fill_(1.0)
 
     @property
     def img(self) -> torch.Tensor:
@@ -397,7 +407,10 @@ def affine_consistency_step(state: AffineState, stack1, stack2, x_old, y_old,
     version).  CUDA tensors: one launch of kernel F's step entry, which
     saves the new patches, verifies the others and updates the state's
     tensors in place.  CPU tensors, or plain=True on any device: the plain
-    version."""
+    version.  Counts the step under `affine.steps` and its lanes under
+    `affine.lanes` (under a CUDA graph, at every replay: cuda/graph.py)."""
+    count("affine.steps")
+    count("affine.lanes", xn.shape[0])
     if not plain and stack1.is_cuda:
         from ..cuda.affine import affine_step_cuda_
         return affine_step_cuda_(state, stack1, stack2, x_old, y_old, xn, yn,

@@ -159,13 +159,13 @@ def _copy(dsts, srcs) -> None:
         dst.copy_(src)
 
 
-def _load(b: _Buffers, st1, feats, cfg: TrackingConfig) -> None:
-    """A call's initial state into the static buffers."""
+def _load(b: _Buffers, st1, feats) -> None:
+    """A call's initial state into the static buffers: the affine state
+    reset in place (span `affine.reset`)."""
     _copy((*b.st1, *b.feats), (*st1, *feats))
     if b.state is not None:
-        fresh = AffineState.create(b.feats[0].numel(), cfg, b.state.x.device)
-        for f in dataclasses.fields(AffineState):
-            getattr(b.state, f.name).copy_(getattr(fresh, f.name))
+        with span("affine.reset"):
+            b.state.reset_()
 
 
 def _chunk_stacks(frames: torch.Tensor, cfg: TrackingConfig, plain: bool,
@@ -284,7 +284,7 @@ def _run(frames, x, y, val, cfg: TrackingConfig, plain: bool,
             st1 = build(first, cfg)
             prog = held.enter_context(graph.program(key, make))
             b = prog.static
-            _load(b, st1, feats, cfg)
+            _load(b, st1, feats)
         flags = checks.Flags()
         t = 0
         for n in graph.chunk_lengths(t_len - 1, graph.K):
@@ -660,7 +660,7 @@ def track_sequence_stream(frames_iter, x, y, val, cfg: TrackingConfig,
 
     with graph.program(key, make) as prog:
         b = prog.static
-        _load(b, st1, feats, cfg)
+        _load(b, st1, feats)
         t = 0
         while True:
             block = list(itertools.islice(it, chunk))

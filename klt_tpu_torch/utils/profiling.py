@@ -15,7 +15,9 @@ Three layers:
   profiler's host timeline, on the device trace's clock, and a
   record in an in-memory store (`spans()`, `span_seconds`,
   `self_seconds`, `reset_spans`).  With no profiler active a span costs
-  one flag check.  Counters are always on (`counters()`).  No span sits in
+  one flag check.  Counters are always on (`counters()`); what a chunk
+  function counts under a CUDA graph is taken back after the capture and
+  credited at every replay (`take_counts`, `credit_counts`).  No span sits in
   anything a CUDA graph captures: it would run once, at capture, and
   never at a replay.
 """
@@ -324,3 +326,23 @@ def count(name: str, n=1) -> None:
 def counters() -> dict:
     """A copy of the counters since the process started."""
     return dict(_counters)
+
+
+def take_counts(before: dict) -> dict:
+    """The counts added since `before` (counters()), taken off again: a
+    stream capture runs a chunk function's host code once and the card
+    nothing (cuda/graph.py credits them at every replay)."""
+    taken = {k: v - before.get(k, 0) for k, v in _counters.items()
+             if v != before.get(k, 0)}
+    for k in taken:
+        if k in before:
+            _counters[k] = before[k]
+        else:
+            del _counters[k]
+    return taken
+
+
+def credit_counts(taken: dict) -> None:
+    """Add a replayed graph's counts (take_counts) to the counters."""
+    for k, n in taken.items():
+        count(k, n)

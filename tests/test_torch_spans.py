@@ -381,6 +381,13 @@ READERS = [
      None, 12.0),
     ("graphs.capture_s", [], {"graph.captures": 3, "graph.capture_s": 0.25},
      0.25),
+    ("affine.reset_us_p50",
+     [("sequence", None, 0, 100), ("sequence.load", 0, 0, 40),
+      ("affine.reset", 1, 10, 30), ("sequence", None, 100, 200),
+      ("sequence.load", 3, 100, 150), ("affine.reset", 4, 110, 160)],
+     None, 35.0),
+    ("affine.lanes_per_step", [],
+     {"affine.steps": 200, "affine.lanes": 200 * 16000}, 16000.0),
 ]
 
 
