@@ -6,8 +6,9 @@ Compiles the port's own `kltnative.c`, beside this file (a byte-for-byte
 copy of the JAX package's native source, which the tests hold equal),
 with `cc -O2 -shared -fPIC` into the port's build directory on first use,
 and again whenever the source is newer than the library; `lazy_select.c`
-(`LazySort`, which includes `kltnative.c`'s helpers) builds the same way
-into a library of its own.  `lk_exact_ref.c`
+(`LazySort`, which includes `kltnative.c`'s helpers, and `candidate_list`,
+the pass that writes the list it sorts) builds the same way into a library
+of its own.  `lk_exact_ref.c`
 (the scalar lane program of csrc/lk_exact_lane.h, whose per-cell helpers
 kernel G shares, one feature after another) builds the same way with `cc -O0 -ffp-contract=off`, so that
 every f32 operation rounds on its own, as the reference's goldens were
@@ -138,8 +139,50 @@ def _load_lazy() -> ctypes.CDLL:
             ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
             ctypes.c_int32]
         lib.klt_lazy_min_dist_suppress.restype = None
+        lib.klt_candidate_list.argtypes = [
+            f32p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, i32p]
+        lib.klt_candidate_list.restype = ctypes.c_int64
         _lazy_lib = lib
         return lib
+
+
+def candidate_count(ncols: int, nrows: int, borderx: int, bordery: int,
+                    step: int) -> int:
+    """The rows of `candidate_list`'s list: its grid's size."""
+    if step < 1 or min(ncols, nrows, borderx, bordery) < 0:
+        raise ValueError("step must be >= 1, sizes and borders >= 0")
+    return len(range(bordery, nrows - bordery, step)) * \
+        len(range(borderx, ncols - borderx, step))
+
+
+def candidate_list(response: np.ndarray, ncols: int, nrows: int,
+                   borderx: int, bordery: int, step: int,
+                   out: np.ndarray) -> np.ndarray:
+    """The reference's candidate rows (x, y, (int)response[y, x]),
+    row-major over the grid of `step` inside the borders, written into
+    `out` (lazy_select.c::klt_candidate_list).
+
+    response: C-contiguous float32 [>= nrows, >= ncols]; out: C-contiguous
+    int32 [candidate_count(...), 3], every row of which is written.
+    Returns out."""
+    n = candidate_count(ncols, nrows, borderx, bordery, step)
+    if response.dtype != np.float32 or response.ndim != 2 or \
+            not response.flags.c_contiguous or \
+            response.shape[0] < nrows or response.shape[1] < ncols:
+        raise ValueError(f"expected a contiguous float32 map of at least "
+                         f"{nrows} x {ncols}")
+    if out.dtype != np.int32 or out.shape != (n, 3) or \
+            not out.flags.c_contiguous or not out.flags.writeable:
+        raise ValueError(f"expected a writeable contiguous int32 [{n}, 3] "
+                         f"list, got {out.dtype} {out.shape}")
+    _load_lazy().klt_candidate_list(
+        response.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        ctypes.c_int64(response.shape[1]), ctypes.c_int32(ncols),
+        ctypes.c_int32(nrows), ctypes.c_int32(borderx),
+        ctypes.c_int32(bordery), ctypes.c_int32(step),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    return out
 
 
 class LazySort:

@@ -30,6 +30,9 @@
  * the same partitions, all at once.  So the state never overflows and its
  * size does not grow with n; a few dozen ranges are pending in practice.
  *
+ * The list the sort starts from is written by klt_candidate_list, into a
+ * buffer the caller owns and reuses.
+ *
  * Built as a shared library of its own, bound via ctypes (__init__.py).
  * It includes kltnative.c for the reference's swap_triple,
  * stamp_neighborhood and KLT_NOT_FOUND; kltnative.c stays a copy of the
@@ -37,6 +40,40 @@
  */
 
 #include "kltnative.c"
+
+/* C's (int) cast of a response value: truncation toward zero where the
+ * cast is defined; elsewhere (NaN, beyond int32) INT32_MIN, what x86's
+ * cvttss2si and so numpy's astype(int32) give. */
+static inline int32_t truncate_value(float v)
+{
+  if (v >= -2147483648.0f && v < 2147483648.0f)
+    return (int32_t)v;
+  return INT32_MIN;
+}
+
+/* The candidate list of _KLTSelectGoodFeatures
+ * (src/V1/selectGoodFeatures.c:394-424): for y from bordery below
+ * nrows - bordery and x from borderx below ncols - borderx, both by step,
+ * row-major, the row (x, y, (int)resp[y][x]) into out, int32 [n, 3].
+ * resp is float32 with rows of `stride` floats.  Every row of out is
+ * written; returns n. */
+int64_t klt_candidate_list(const float *resp, int64_t stride, int32_t ncols,
+                           int32_t nrows, int32_t borderx, int32_t bordery,
+                           int32_t step, int32_t *out)
+{
+  int32_t *row = out;
+  int32_t x, y;
+  for (y = bordery; y < nrows - bordery; y += step) {
+    const float *line = resp + (int64_t)y * stride;
+    for (x = borderx; x < ncols - borderx; x += step) {
+      row[0] = x;
+      row[1] = y;
+      row[2] = truncate_value(line[x]);
+      row += 3;
+    }
+  }
+  return (row - out) / 3;
+}
 
 /* One step of klt_sort_points_desc on a range of n >= 2 rows: returns
  * the pivot's final position j; rows [0, j) hold values >= the pivot's,

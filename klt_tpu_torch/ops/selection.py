@@ -10,7 +10,8 @@ the gradient products.  Both follow klt_tpu's Pallas kernel
 path zero-pads instead, which differs only outside the candidate region.
 
 `candidate_points` turns a response map into the reference's row-major
-candidate list (src/V1/selectGoodFeatures.c:394-424), which the native
+candidate list (src/V1/selectGoodFeatures.c:394-424), in one C pass into
+a buffer the caller may own and reuse, which the native
 host runtime (klt_tpu_torch/native) sorts tie-exactly and thins by
 minimum distance.  The selection prefilter (`cell_topk`,
 `candidate_points_topk`, `selection_prefilter_audit`) keeps only the best
@@ -24,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import native
 from ..config import TrackingConfig
 from .convolve import convolve_1d
 from .ieee import sqrt_rn
@@ -155,25 +157,27 @@ def _candidate_borders(cfg: TrackingConfig):
             cfg.n_skipped_pixels + 1)
 
 
+def candidate_count(cfg: TrackingConfig, ncols: int, nrows: int) -> int:
+    """The length of `candidate_points`' list for an nrows x ncols map."""
+    return native.candidate_count(ncols, nrows, *_candidate_borders(cfg))
+
+
 def candidate_points(response: np.ndarray, cfg: TrackingConfig,
-                     ncols: int, nrows: int) -> np.ndarray:
+                     ncols: int, nrows: int,
+                     out: np.ndarray | None = None) -> np.ndarray:
     """Host-side pointlist [(x, y, int(val)), ...] in the reference's
-    row-major scan order (src/V1/selectGoodFeatures.c:394-424).
+    row-major scan order (src/V1/selectGoodFeatures.c:394-424), written by
+    one C pass (native.candidate_list).
 
-    Returns int32 [n, 3].  Truncation toward zero matches the C cast.
+    response: float32 [nrows, ncols] on the host.  out: an int32
+    [candidate_count(cfg, ncols, nrows), 3] buffer to write every row of
+    the list into, reused from call to call; a fresh one when None.
+    Returns the list.  Truncation toward zero matches the C cast.
     """
-    borderx, bordery, step = _candidate_borders(cfg)
-
-    ys = np.arange(bordery, nrows - bordery, step, dtype=np.int32)
-    xs = np.arange(borderx, ncols - borderx, step, dtype=np.int32)
-    vals = np.asarray(response)[np.ix_(ys, xs)].astype(np.int32)  # trunc
-
-    gx, gy = np.meshgrid(xs, ys)
-    pts = np.empty((vals.size, 3), dtype=np.int32)
-    pts[:, 0] = gx.ravel()
-    pts[:, 1] = gy.ravel()
-    pts[:, 2] = vals.ravel()
-    return pts
+    if out is None:
+        out = np.empty((candidate_count(cfg, ncols, nrows), 3), np.int32)
+    return native.candidate_list(np.ascontiguousarray(response), ncols,
+                                 nrows, *_candidate_borders(cfg), out)
 
 
 def cell_topk(response: torch.Tensor, cell: int, k: int, borderx: int,

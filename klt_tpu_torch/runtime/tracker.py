@@ -19,7 +19,11 @@ KLTReplaceLostFeatures, src/V1/klt.h:150-169), bound to one torch device:
   (ops/selection.py::candidate_points_topk), so that a response on the
   card comes back as O(k * nCells) values instead of the whole map; the
   full list is taken whenever the exactness audit cannot certify the cut.
-  On the full list the sort is lazy (native.LazySort): the suppression
+  The full list is built in host memory the tracker keeps for the
+  selection's geometry (`_Lists`): a response on the card comes back by
+  one copy into a pinned map, and one C pass writes the list into an
+  int32 [n, 3] buffer, so that a call allocates nothing.  On the full
+  list the sort is lazy (native.LazySort): the suppression
   stops once the free slots are filled, so only the head of the list it
   reads is sorted, with the full sort's rows and tie order;
 * tracking builds pyramids and runs the coarse-to-fine LK on the device;
@@ -61,7 +65,8 @@ from ..device import default_device
 from ..features import FeatureList
 from ..ops.convolve import compute_gradients
 from ..ops.exact_select import selection_response_exact
-from ..ops.selection import (candidate_points, candidate_points_topk,
+from ..ops.selection import (_candidate_borders, candidate_count,
+                             candidate_points, candidate_points_topk,
                              corner_response, selection_prefilter_audit)
 from ..ops.pyramid import build_pyramid_stacks
 from ..ops.lk import track_features_pyramid_stacks
@@ -74,7 +79,7 @@ from .. import native
 _verbosity = 1
 # Geometries (frame shape and dtype, feature count, configuration) whose
 # step buffers and programs a tracker keeps, the least recently used
-# dropped first.
+# dropped first; as many geometries of its selection's list buffers.
 STEP_KEYS = 4
 
 
@@ -117,6 +122,9 @@ class KLTracker:
         # never the other way round, so a dropped tracker frees its
         # buffers and graphs at once, not at the next garbage collection
         self._steps: OrderedDict = OrderedDict()
+        # (frame shape, borders and step) -> _Lists; selection may come
+        # before any track, so these are not the step's
+        self._lists: OrderedDict = OrderedDict()
 
     def select_good_features(self, img: np.ndarray, fl: FeatureList) -> None:
         """reference: KLTSelectGoodFeatures, src/V1/selectGoodFeatures.c:472.
@@ -163,11 +171,16 @@ class KLTracker:
         newly = None if overwrite_all else (fl.val < 0)
         if not self._suppress_prefiltered(response, fl, ncols, nrows,
                                           overwrite_all):
+            bufs = self._list_buffers(img.shape)
             if isinstance(response, torch.Tensor):
                 with span("select.readback"):
-                    response = response.cpu().numpy()
+                    if response.device.type != "cpu":
+                        bufs.stage.copy_(response)
+                        response = bufs.stage
+                    response = response.numpy()
             with span("select.candidates"):
-                pts = candidate_points(response, cfg, ncols, nrows)
+                pts = candidate_points(response, cfg, ncols, nrows,
+                                       out=bufs.pts)
             count("select.candidates", len(pts))
             # the walk reads a few % of the list: sort only that head
             with span("select.sort"):
@@ -216,6 +229,22 @@ class KLTracker:
             if not ok:
                 fl.x[:], fl.y[:], fl.val[:] = save
             return ok
+
+    def _list_buffers(self, shape: tuple) -> "_Lists":
+        """The owned buffers of a full-list selection on a frame of this
+        shape under the tracker's borders and step; counted as made or
+        reused."""
+        key = (shape, _candidate_borders(self.cfg))
+        bufs = self._lists.pop(key, None)
+        if bufs is None:
+            count("select.lists_made")
+            bufs = _Lists.create(shape, self.cfg, self.device)
+        else:
+            count("select.lists_reused")
+        self._lists[key] = bufs
+        while len(self._lists) > STEP_KEYS:
+            self._lists.popitem(last=False)
+        return bufs
 
     def _device_response(self, img: np.ndarray) -> torch.Tensor:
         """The selection response computed on the tracker's device: the
@@ -408,6 +437,24 @@ class _Step:
     @property
     def stage_np(self) -> np.ndarray:
         return self.stage.numpy()
+
+
+@dataclasses.dataclass
+class _Lists:
+    """The host buffers of a full-list selection for one geometry (frame
+    shape, borders and step), kept from call to call: nothing is
+    allocated per call."""
+
+    stage: torch.Tensor | None  # pinned f32 [H, W]: the card's response
+    pts: np.ndarray             # i32 [n, 3]: the candidate list
+
+    @classmethod
+    def create(cls, shape, cfg: TrackingConfig,
+               device: torch.device) -> "_Lists":
+        stage = None if device.type == "cpu" else \
+            torch.empty(shape, dtype=torch.float32, pin_memory=True)
+        return cls(stage=stage, pts=np.empty(
+            (candidate_count(cfg, shape[1], shape[0]), 3), np.int32))
 
 
 def _carry_slot(src: int | None) -> int:

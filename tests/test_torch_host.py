@@ -214,6 +214,67 @@ def test_selection_response_and_candidates_equal():
                                       jcand(ref, ref_cfg, 320, 240))
 
 
+# (frame rows, cols, config fields): the grid's step, a window wider than
+# twice the border, odd sizes, a border that leaves no candidate
+CANDIDATE_GRIDS = [
+    (64, 80, {}),
+    (64, 80, {"n_skipped_pixels": 1}),
+    (61, 77, {"n_skipped_pixels": 2}),
+    (97, 123, {"window_width": 61, "window_height": 55, "borderx": 3,
+               "bordery": 5}),
+    (53, 71, {"n_skipped_pixels": 1, "window_width": 5, "borderx": 0,
+              "bordery": 1}),
+    (40, 44, {}),
+]
+
+
+def candidate_map(rng, rows, cols):
+    """A float32 response map holding negative, fractional and +-0.5
+    values and values near 2^31, spread over the whole map so that every
+    grid meets them."""
+    special = np.float32([0.5, -0.5, 0.4999999, -0.4999999, 1.5, -1.5,
+                          2.9999998, -2.9999998, 0.0, -0.0, 1e-30, -7.25,
+                          2147483520.0, -2147483520.0, -2147483648.0,
+                          16777217.0, 8388607.5])
+    m = rng.normal(0.0, 3e3, (rows, cols)).astype(np.float32)
+    pick = rng.random((rows, cols)) < 0.4
+    m[pick] = rng.choice(special, int(pick.sum()))
+    return m
+
+
+@pytest.mark.parametrize("rows,cols,kw", CANDIDATE_GRIDS,
+                         ids=[f"{r}x{c}-{sorted(k)}"
+                              for r, c, k in CANDIDATE_GRIDS])
+def test_candidate_pass_equals_klt_tpu(rows, cols, kw):
+    """The C pass (native.candidate_list) gives klt_tpu's candidate list
+    bit for bit, rows in the same order; two maps written one after the
+    other into one buffer, which the lazy sort permuted in between, give
+    exactly the second map's list."""
+    from klt_tpu.ops.selection import candidate_points as jcand
+    from klt_tpu_torch import native
+    from klt_tpu_torch.ops.selection import (candidate_count,
+                                             candidate_points)
+    rng = np.random.default_rng(rows * 1000 + cols)
+    ours_cfg = kt.TrackingConfig(**kw)
+    ref_cfg = klt_tpu.TrackingConfig(**kw)
+    first, second = (candidate_map(rng, rows, cols) for _ in range(2))
+    want = jcand(first, ref_cfg, cols, rows)
+    assert len(want) == candidate_count(ours_cfg, cols, rows)
+    np.testing.assert_array_equal(
+        candidate_points(first, ours_cfg, cols, rows), want)
+    out = np.full_like(want, -7)
+    assert candidate_points(first, ours_cfg, cols, rows, out=out) is out
+    np.testing.assert_array_equal(out, want)
+    if len(out) > 1:
+        native.LazySort(out)               # rows permuted in place
+        assert not np.array_equal(out, want)
+    np.testing.assert_array_equal(
+        candidate_points(second, ours_cfg, cols, rows, out=out),
+        jcand(second, ref_cfg, cols, rows))
+    with pytest.raises(ValueError):
+        candidate_points(first, ours_cfg, cols, rows, out=out[:, :2])
+
+
 @pytest.mark.parametrize("n_feat,kw", [(150, {}), (1000, {"mindist": 5}),
                                        (64, {"min_eigenvalue": 500})])
 def test_selection_picks_equal(n_feat, kw):

@@ -7,7 +7,9 @@ On the CPU: with no profiler active nothing is recorded; under
 `torch.profiler.profile` every call records its named spans, with their
 parents and one request id a call, and the profiler's host events carry
 the "klt:" names; the counters count the candidate list, the rows of it
-the lazy sort made final and the chunk replays; the benchmark's readers
+the lazy sort made final, the list buffers made and reused (once a
+geometry, bit-equal to the numpy list) and the chunk replays; the
+benchmark's readers
 of these spans give their numbers from a store made by hand and None
 without a span.  On the card (-m cuda): a graph replay records
 `graph.replay` and nothing of its chunk function, and the benchmark's
@@ -266,6 +268,96 @@ def test_sorted_not_counted_on_the_prefilter_branch():
     assert after.get("select.sorted", 0) == before.get("select.sorted", 0)
 
 
+def frozen_candidate_points(response, cfg, ncols, nrows, out=None):
+    """`candidate_points` as numpy built it before the C pass: fresh
+    arrays a call, the list that the tracker's owned buffers must give."""
+    from klt_tpu_torch.ops.selection import _candidate_borders
+    borderx, bordery, step = _candidate_borders(cfg)
+    ys = np.arange(bordery, nrows - bordery, step, dtype=np.int32)
+    xs = np.arange(borderx, ncols - borderx, step, dtype=np.int32)
+    vals = np.asarray(response)[np.ix_(ys, xs)].astype(np.int32)
+    gx, gy = np.meshgrid(xs, ys)
+    pts = np.empty((vals.size, 3), dtype=np.int32)
+    pts[:, 0] = gx.ravel()
+    pts[:, 1] = gy.ravel()
+    pts[:, 2] = vals.ravel()
+    return pts
+
+
+def lists_counted(before):
+    after = profiling.counters()
+    return tuple(after.get(k, 0) - before.get(k, 0) for k in
+                 ("select.calls", "select.lists_made", "select.lists_reused"))
+
+
+@pytest.mark.parametrize("device", ["cpu",
+                                    pytest.param("cuda",
+                                                 marks=pytest.mark.cuda)])
+def test_selection_reuses_the_trackers_lists(device, monkeypatch):
+    """A tracker makes its map and list buffers once for a geometry and
+    reuses them at every later selection (on the card the map comes back
+    into the pinned one); the spans stay, and the features are those of
+    the numpy list, bit for bit."""
+    from klt_tpu_torch.runtime import tracker as tracker_mod
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run `python -m pytest "
+                    "--noconftest -m cuda tests/test_torch_spans.py` on the "
+                    "GPU")
+    frames = scene()
+
+    def run():
+        tr = kt.KLTracker(CFG, device=device)
+        fl = kt.FeatureList.create(N_FEAT)
+        tr.select_good_features(frames[0], fl)
+        out = [fl.copy()]
+        for k in range(T - 1):
+            tracker_calls(tr, fl, frames, k)
+            out.append(fl.copy())
+        return tr, out
+
+    before = profiling.counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        tr, got = run()
+    assert lists_counted(before) == (T, 1, T - 1)
+    names = [s.name for s in profiling.spans()]
+    assert names.count("select.readback") == T - 1   # the replacements
+    assert names.count("select.candidates") == T
+    [bufs] = tr._lists.values()
+    if device == "cuda":
+        assert bufs.stage.is_pinned() and bufs.stage.shape == (H, W)
+    else:
+        assert bufs.stage is None
+    monkeypatch.setattr(tracker_mod, "candidate_points",
+                        frozen_candidate_points)
+    _, want = run()
+    for a, b in zip(got, want):
+        for u, v in ((a.x, b.x), (a.y, b.y), (a.val, b.val)):
+            np.testing.assert_array_equal(u.view(np.int32),
+                                          v.view(np.int32))
+    assert (np.stack([f.val for f in got]) >= 0).any()
+
+
+def test_list_buffers_one_pair_a_geometry(monkeypatch):
+    """Two frame sizes in turn: one pair of buffers each, made once; past
+    STEP_KEYS geometries the least recently used is dropped."""
+    from klt_tpu_torch.runtime import tracker as tracker_mod
+    frames = scene()
+    small = np.ascontiguousarray(frames[:, :56, :72])
+    tiny = np.ascontiguousarray(frames[:, :52, :68])
+    tr = kt.KLTracker(CFG, device="cpu")
+    fl = kt.FeatureList.create(N_FEAT)
+    before = profiling.counters()
+    for k in range(4):
+        tr.select_good_features((frames, small)[k % 2][k], fl)
+    assert lists_counted(before) == (4, 2, 2)
+    assert [k[0] for k in tr._lists] == [(H, W), (56, 72)]
+    monkeypatch.setattr(tracker_mod, "STEP_KEYS", 2)
+    tr.select_good_features(tiny[0], fl)
+    assert [k[0] for k in tr._lists] == [(56, 72), (52, 68)]
+    assert [len(b.pts) for b in tr._lists.values()] == \
+        [(56 - 48) * (72 - 48), (52 - 48) * (68 - 48)]
+
+
 @pytest.mark.parametrize("steps", [1, graph.K - 1, graph.K, graph.K + 3,
                                    2 * graph.K + 1])
 def test_sequence_records_a_replay_a_chunk(steps):
@@ -362,6 +454,9 @@ READERS = [
     ("live.sorted_per_replace", [],
      {"select.calls": 4, "select.candidates": 4 * 512,
       "select.sorted": 4 * 30}, 30.0),
+    ("live.list_reuse_share", [],
+     {"select.calls": 400, "select.lists_made": 1,
+      "select.lists_reused": 399}, 99.75),
     ("live.captures_traced",
      [("tracker.track", None, 0, 100), ("graph.replay", 0, 10, 20)],
      None, 0.0),
