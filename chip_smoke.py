@@ -71,18 +71,17 @@ paths:
 * the whole-sequence programs: every sequence entry runs its frame loop
   as CUDA graphs of chunks of steps (cuda/graph.py), and every path above
   goes through them; phase 40 holds each graphed entry bit-equal to the
-  eager step loop it replaced (`_run_eager`, `_replace_exact_eager`) on
+  same call with every chunk run eagerly (Program.run's warm_up=True) on
   the six cells of PERF.md section 5 (the exact run over the first 100
   traffic frames, and the tie flagship, whose repair resumes inside a
-  chunk), with the eager loop's launches, one warning from the debug
+  chunk), with the eager run's launches, one warning from the debug
   checks inside the graphs, and a capture that fails raising;
 * KLTracker's per-frame calls and track_pair_carry as CUDA graphs of one
   step (runtime/tracker.py, runtime/pipeline.py), which every KLTracker
-  flow above goes through: phase 41 holds them bit-equal to their eager
-  bodies (`_track_features_eager`, `_track_pair_carry_eager`) on the
-  translation run (640x480 x 2000 requested, 100 frames), the replace loop
+  flow above goes through: phase 41 holds them bit-equal to the same
+  calls with every step run eagerly on the translation run (640x480 x 2000 requested, 100 frames), the replace loop
   (640x480 x 500, 100 traffic frames) and the affine run with replacement
-  (20 frames), with the eager bodies' launches, two trackers interleaved
+  (20 frames), with the eager runs' launches, two trackers interleaved
   call by call, and a capture that fails raising;
 * the SLAM solvers as programs of CUDA graphs (slam/solvers.py::LMSolve:
   each LM iteration after a solve's first replays its steps' graphs),
@@ -3112,19 +3111,14 @@ def no_plain_versions(plain=EXACT_PLAIN):
 
 
 @contextmanager
-def counting_repairs(repaired: list, seconds: list | None = None):
+def counting_repairs(repaired: list):
     """Appends to `repaired` each frame repaired on the host (its pixels'
-    sum, to tell frames apart) while the block runs, and to `seconds` the
-    host seconds of each repair."""
+    sum, to tell frames apart) while the block runs."""
     orig = pipeline._repair_replacement_host
 
     def spy(frame, *args):
         repaired.append(int(frame.to(torch.int64).sum()))
-        t0 = time.perf_counter()
-        out = orig(frame, *args)
-        if seconds is not None:
-            seconds.append(time.perf_counter() - t0)
-        return out
+        return orig(frame, *args)
 
     pipeline._repair_replacement_host = spy
     try:
@@ -4476,8 +4470,8 @@ def phase_multi_device(flag_b, flag_feats, cfg, tag: str) -> dict:
 
 
 # ------------------------------------------------------------------ #
-# whole-sequence programs: the graphed entries against their eager     #
-# loops                                                                #
+# whole-sequence programs: the graphed entries against their chunks    #
+# run eagerly                                                          #
 # ------------------------------------------------------------------ #
 
 def graph_overhead(steps: int, nlev: int, longest: int = graph.K) -> float:
@@ -4502,47 +4496,62 @@ def graph_replays() -> int:
     return sum(p.replays for _, p in graph.programs())
 
 
-def graph_cell(tag: str, name: str, graphed, eager, steps: int,
+@contextmanager
+def eager_chunks():
+    """Every chunk of every program run as a key's first chunk runs:
+    eagerly on the side stream (Program.run's warm_up=True), with no
+    capture and no replay."""
+    run = graph.Program.run
+
+    def eager(self, n, flags=None, warm_up=False):
+        return run(self, n, flags, warm_up=True)
+    graph.Program.run = eager
+    try:
+        yield
+    finally:
+        graph.Program.run = run
+
+
+def graph_cell(tag: str, name: str, fn, steps: int,
                exact: bool = False) -> dict:
     """One cell of phase 40: the graphed entry's first call (the key's
     warm-up chunk and its captures) and a second one (replays only), both
-    bit-equal to its eager loop; each call's kernel launches equal to the
-    eager loop's (the exact tier: every computed step one launch each of
-    A, G, H2 and R's tie entry, as its chunking after a repair may differ);
-    graphs replayed.  Prints the key's capture plus instantiation time.
-    Returns the warm call's launches."""
+    bit-equal to the same call with every chunk run eagerly; each call's
+    kernel launches equal to the eager run's (the exact tier: every
+    computed step one launch each of A, G, H2 and R's tie entry, as its
+    chunking after a repair may differ); graphs replayed.  Prints the
+    key's capture plus instantiation time.  Returns the warm call's
+    launches."""
     known = {id(p) for _, p in graph.programs()}
     runs = {}
-    for run, fn in (("cold", graphed), ("warm", graphed), ("eager", eager)):
+    for run in ("cold", "warm", "eager"):
         before, replays = launch_counts(), graph_replays()
+        with eager_chunks() if run == "eager" else contextlib.nullcontext():
+            out = fn()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
         after = launch_counts()
         runs[run] = (out, {k: after[k] - before[k] for k in after},
-                     graph_replays() - replays, secs)
+                     graph_replays() - replays)
     new = [p for _, p in graph.programs() if id(p) not in known]
     ref = runs["eager"][0]
     same = {run: all(bits_equal(a, b) for a, b in zip(runs[run][0], ref))
             for run in ("cold", "warm")}
     nz = lambda c: {k: v for k, v in c.items() if v}
-    print(f"[{tag}] {name}, {steps} steps: bit-equal to the eager loop "
+    print(f"[{tag}] {name}, {steps} steps: bit-equal to the eager run "
           f"{same}; graphs {sum(len(p.graphs) for p in new)} of "
           f"{len(new)} key(s), capture and instantiation "
           f"{sum(p.capture_seconds() for p in new) * 1e3:.1f} ms; replays "
-          f"cold {runs['cold'][2]}, warm {runs['warm'][2]}; seconds cold "
-          f"{runs['cold'][3]:.3f}, warm {runs['warm'][3]:.3f}, eager "
-          f"{runs['eager'][3]:.3f}; launches warm "
-          f"{nz(runs['warm'][1])}, eager {nz(runs['eager'][1])}")
+          f"cold {runs['cold'][2]}, warm {runs['warm'][2]}, eager "
+          f"{runs['eager'][2]}; launches warm {nz(runs['warm'][1])}, eager "
+          f"{nz(runs['eager'][1])}")
     check(all(same.values()), f"{name}: the graphed run differs from the "
-          f"eager loop")
-    check(runs["warm"][2] > 0, f"{name}: no graph replayed")
+          f"eager run")
+    check(runs["warm"][2] > 0 and runs["eager"][2] == 0,
+          f"{name}: no graph replayed, or one replayed in the eager run")
     if not exact:
         check(runs["cold"][1] == runs["warm"][1] == runs["eager"][1],
               f"{name}: the graphed run's launches differ from the eager "
-              f"loop's")
+              f"run's")
     return runs["warm"][1]
 
 
@@ -4569,44 +4578,37 @@ def graph_capture_error(tag: str) -> None:
 
 def phase_graphs(cells: dict, cfg, acfg, tag: str) -> dict:
     """Phase 40: each graphed sequence entry (cuda/graph.py) on the six
-    cells against its eager loop (`_run_eager`, `_replace_exact_eager`),
-    launches per step equal, the debug checks' one warning from inside
-    the graphs, a capture that fails raising.  cells: name -> inputs.
-    Returns each cell's launches per step (warm graphed call)."""
-    from klt_tpu_torch.parallel import batched_affine, batched_lk
+    cells against the same call with every chunk run eagerly, launches
+    per step equal, the debug checks' one warning from inside the graphs,
+    a capture that fails raising.  cells: name -> inputs.  Returns each
+    cell's launches per step (warm graphed call)."""
     graph._clear()   # every key captured here, so its cost is printed
     per_step = {}
 
-    def single(name, frames, n_feats, seq, eager_kw, c=cfg):
+    def single(name, frames, n_feats, seq, c=cfg):
         fl = select_on(frames[0], n_feats, c)
         f = torch.from_numpy(frames).cuda()
         feats = [torch.from_numpy(a).cuda() for a in (fl.x, fl.y, fl.val)]
         steps = len(frames) - 1
-        got = graph_cell(tag, name, lambda: seq(f, *feats, c),
-                         lambda: pipeline._run_eager(f, *feats, c, False,
-                                                     False, **eager_kw),
-                         steps)
+        got = graph_cell(tag, name, lambda: seq(f, *feats, c), steps)
         per_step[name] = {k: round(v / steps, 3) for k, v in got.items()}
         return f, feats
 
     f, feats = single("track_sequence 640x480", cells["vga"], 2000,
-                      track_sequence, {})
+                      track_sequence)
     single("replace run 640x480 x 500", cells["traffic"], 500,
-           track_sequence_replace, {"replace": True})
+           track_sequence_replace)
     single("affine run 640x480", cells["aff"], 2000, track_sequence_affine,
-           {"affine": True}, acfg)
-    for name, frames, feats_b, c, seq, eager in (
+           acfg)
+    for name, frames, feats_b, c, seq in (
             ("batched 32 x 320x240 x 150", cells["flag_b"],
-             cells["flag_feats"], cfg, track_sequences_batched,
-             batched_lk._run_eager),
+             cells["flag_feats"], cfg, track_sequences_batched),
             ("batched affine 8 x 640x480", cells["aff_b"],
-             cells["aff_b_feats"], acfg, track_sequences_affine_batched,
-             batched_affine._run_eager)):
+             cells["aff_b_feats"], acfg, track_sequences_affine_batched)):
         fb = torch.from_numpy(frames).cuda()
         fd = [torch.from_numpy(a).cuda() for a in feats_b]
         steps = frames.shape[1] - 1
-        got = graph_cell(tag, name, lambda: seq(fb, *fd, c),
-                         lambda: eager(fb, *fd, c), steps)
+        got = graph_cell(tag, name, lambda: seq(fb, *fd, c), steps)
         per_step[name] = {k: round(v / steps, 3) for k, v in got.items()}
         del fb, fd
 
@@ -4618,29 +4620,20 @@ def phase_graphs(cells: dict, cfg, acfg, tag: str) -> dict:
         fl = select_on(frames[0], n_feats, cfg)
         fe = torch.from_numpy(frames).cuda()
         fd = [torch.from_numpy(a).cuda() for a in (fl.x, fl.y, fl.val)]
-        reps = {"graph": [], "eager": []}
-        secs = {"graph": [], "eager": []}
+        reps = []   # the frames each call repaired: cold, warm, eager
 
-        def run(kind, fn):
-            reps[kind].clear()
-            secs[kind].clear()
-            with no_plain_versions(), counting_repairs(reps[kind],
-                                                       secs[kind]):
-                return fn(fe, *fd, cfg)
-        got = graph_cell(
-            tag, name, lambda: run("graph", track_sequence_replace_exact),
-            lambda: run("eager", pipeline._replace_exact_eager),
-            len(frames) - 1, exact=True)
-        check_exact_launches(tag, got, reps["graph"], len(frames), "exact")
-        print(f"[{tag}] {name}: frames repaired, graphed {reps['graph']}, "
-              f"eager {reps['eager']}; host seconds of the repairs "
-              f"{[round(v, 4) for v in secs['graph']]} (graphed), "
-              f"{[round(v, 4) for v in secs['eager']]} (eager)")
-        check(reps["graph"] == reps["eager"], f"{name}: the graphed run "
-              f"repaired other frames than the eager loop")
+        def run():
+            reps.append([])
+            with no_plain_versions(), counting_repairs(reps[-1]):
+                return track_sequence_replace_exact(fe, *fd, cfg)
+        got = graph_cell(tag, name, run, len(frames) - 1, exact=True)
+        check_exact_launches(tag, got, reps[1], len(frames), "exact")
+        print(f"[{tag}] {name}: frames repaired, graphed {reps[1]}, eager "
+              f"{reps[2]}")
+        check(reps[0] == reps[1] == reps[2], f"{name}: the graphed run "
+              f"repaired other frames than the eager run")
         if "tie" in name:
-            check(len(reps["graph"]) >= 1, "the tie flagship repaired no "
-                  "frame")
+            check(len(reps[1]) >= 1, "the tie flagship repaired no frame")
         steps = max(1, got[cuda.REPLACE_LOST_TIE.symbol])
         per_step[name] = {k: round(v / steps, 3) for k, v in got.items()}
 
@@ -4671,8 +4664,8 @@ def phase_graphs(cells: dict, cfg, acfg, tag: str) -> dict:
 
 
 # ------------------------------------------------------------------ #
-# KLTracker's step programs and track_pair_carry's against their eager #
-# bodies                                                               #
+# KLTracker's step programs and track_pair_carry's against their steps #
+# run eagerly                                                          #
 # ------------------------------------------------------------------ #
 
 TRACKER_AFFINE_FRAMES = 20
@@ -4683,28 +4676,26 @@ def tracker_programs(tr) -> list:
     return [p for _, progs in tr._steps.values() for p in progs.values()]
 
 
-def tracker_flow(frames, fl, cfg, method: str = "track_features",
-                 replace: bool = False, tracker=None, calls=None) -> dict:
-    """KLTracker on the card through `method` (`track_features` or the
-    eager body) over the frames, with replace_lost_features after every
-    call when asked; fl moves in place.  Returns the feature list after
-    every call, the kernel launches of the run, the host seconds of each
-    tracking call (it ends in the features' copy to the host), the
-    tracker's graph replays and its programs' capture seconds."""
+def tracker_flow(frames, fl, cfg, replace: bool = False, tracker=None,
+                 calls=None) -> dict:
+    """KLTracker on the card over the frames, with replace_lost_features
+    after every call when asked; fl moves in place.  Returns the feature
+    list after every call, the kernel launches of the run, the number of
+    tracking calls, the tracker's graph replays and its programs' capture
+    seconds."""
     tr = tracker or klt.KLTracker(cfg, device="cuda")
     before = launch_counts()
-    rows, secs = [], []
-    for i in range(1, len(frames) if calls is None else calls + 1):
-        t0 = time.perf_counter()
-        getattr(tr, method)(frames[i - 1], frames[i], fl)
-        secs.append(time.perf_counter() - t0)
+    rows = []
+    n_calls = len(frames) - 1 if calls is None else calls
+    for i in range(1, n_calls + 1):
+        tr.track_features(frames[i - 1], frames[i], fl)
         rows.append(fl.copy())
         if replace:
             tr.replace_lost_features(frames[i], fl)
             rows.append(fl.copy())
     after = launch_counts()
     progs = tracker_programs(tr)
-    return {"rows": rows, "tracker": tr, "secs": secs,
+    return {"rows": rows, "tracker": tr, "calls": n_calls,
             "launches": {k: after[k] - before[k] for k in after},
             "replays": sum(p.replays for p in progs),
             "capture_s": [p.capture_seconds() for p in progs if p.graphs]}
@@ -4717,19 +4708,19 @@ def same_rows(a, b) -> bool:
         for r, q in zip(a, b) for k in ("x", "y", "val"))
 
 
-def tracker_device_us(frames, n_feats, cfg, method, replace, tag, label):
+def tracker_device_us(frames, n_feats, cfg, replace, tag, label):
     """Device time and device launches per call of a tracker's steady
     calls (profile_device over TRACKER_PROFILE_CALLS calls, after the
     calls that warm up and capture the programs)."""
     fl = select_on(frames[0], n_feats, cfg)
     tr = klt.KLTracker(cfg, device="cuda")
-    tracker_flow(frames, fl, cfg, method, replace, tr, calls=5)
+    tracker_flow(frames, fl, cfg, replace, tr, calls=5)
     state = {"i": 5}
 
     def run():
         for _ in range(TRACKER_PROFILE_CALLS):
             i = state["i"] % (len(frames) - 1) + 1
-            getattr(tr, method)(frames[i - 1], frames[i], fl)
+            tr.track_features(frames[i - 1], frames[i], fl)
             if replace:
                 tr.replace_lost_features(frames[i], fl)
             state["i"] += 1
@@ -4739,39 +4730,32 @@ def tracker_device_us(frames, n_feats, cfg, method, replace, tag, label):
 def tracker_cell(tag: str, name: str, frames, n_feats: int, cfg,
                  replace: bool) -> dict:
     """One cell of phase 41: the graphed KLTracker flow bit-equal to the
-    eager body's, with the eager body's launches, the calls after the
-    first ones replays; per-call wall and device time of both.  Returns
-    the graphed flow."""
+    same flow with every step run eagerly, with its launches, the calls
+    after the first ones replays; the graphed flow's device time per
+    call.  Returns the graphed flow."""
     start = select_on(frames[0], n_feats, cfg)
-    graphed = tracker_flow(frames, start.copy(), cfg, replace=replace)
-    eager = tracker_flow(frames, start.copy(), cfg, "_track_features_eager",
-                         replace)
+    graphed = tracker_flow(frames, start.copy(), cfg, replace)
+    with eager_chunks():
+        eager = tracker_flow(frames, start.copy(), cfg, replace)
     same = same_rows(graphed["rows"], eager["rows"])
-    dev = {m: tracker_device_us(frames, n_feats, cfg, m, replace, tag,
-                                f"{name}, {m}")
-           for m in ("track_features", "_track_features_eager")}
-    calls = len(graphed["secs"])
-    med = {k: 1e6 * float(np.median(r["secs"][5:]))
-           for k, r in (("graphed", graphed), ("eager", eager))}
+    dev = tracker_device_us(frames, n_feats, cfg, replace, tag, name)
+    calls = graphed["calls"]
     nz = lambda c: {k: v for k, v in c.items() if v}
-    print(f"[{tag}] {name}, {calls} calls: bit-equal to the eager body "
+    print(f"[{tag}] {name}, {calls} calls: bit-equal to the eager run "
           f"{same}; replays {graphed['replays']}; capture and "
           f"instantiation ms a key "
-          f"{[round(v * 1e3, 1) for v in graphed['capture_s']]}; wall per "
-          f"call (median of calls 6-{calls}) graphed {med['graphed']:.1f} "
-          f"us, eager {med['eager']:.1f} us; device us per call (with the "
-          f"replacement's, where it replaces) graphed "
-          f"{dev['track_features']['device_us']:.1f}, eager "
-          f"{dev['_track_features_eager']['device_us']:.1f}; launches "
-          f"graphed {nz(graphed['launches'])}, eager "
-          f"{nz(eager['launches'])}")
+          f"{[round(v * 1e3, 1) for v in graphed['capture_s']]}; device us "
+          f"per call (with the replacement's, where it replaces) "
+          f"{dev['device_us']:.1f}; launches graphed "
+          f"{nz(graphed['launches'])}, eager {nz(eager['launches'])}")
     check(same, f"{name}: the graphed KLTracker differs from its eager "
-          f"body")
+          f"run")
     check(graphed["launches"] == eager["launches"],
           f"{name}: the graphed KLTracker's launches differ from the eager "
-          f"body's")
-    check(graphed["replays"] == calls - 3,
-          f"{name}: {graphed['replays']} replays in {calls} calls")
+          f"run's")
+    check(graphed["replays"] == calls - 3 and eager["replays"] == 0,
+          f"{name}: {graphed['replays']} replays in {calls} calls, "
+          f"{eager['replays']} in the eager run")
     return graphed
 
 
@@ -4807,59 +4791,57 @@ def tracker_capture_error(tag: str, cfg, frames, fl) -> None:
 
 
 def pair_carry_cell(tag: str, frames, n_feats: int, cfg) -> dict:
-    """track_pair_carry's graph against `_track_pair_carry_eager` over the
-    frames: bit-equal, the same launches, every returned tensor unchanged
-    after the later calls.  Returns the graphed chain's launches."""
+    """track_pair_carry's graph against the same calls with the step run
+    eagerly over the frames: bit-equal, the same launches, every returned
+    tensor unchanged after the later calls.  Returns the graphed chain's
+    launches."""
     graph._clear()
     fl = select_on(frames[0], n_feats, cfg)
     feats0 = [torch.from_numpy(a).cuda() for a in (fl.x, fl.y, fl.val)]
     imgs = torch.from_numpy(frames).cuda()
     runs = {}
-    for name, fn in (("graphed", pipeline.track_pair_carry),
-                     ("eager", pipeline._track_pair_carry_eager)):
+    for name in ("graphed", "eager"):
         feats, state = feats0, pipeline.prepare_pyramids(imgs[0], cfg)
         before = launch_counts()
-        outs, secs = [], []
-        for i in range(1, len(frames)):
-            t0 = time.perf_counter()
-            feats, state = fn(state, imgs[i], feats, cfg)
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
-            outs.append((*feats, *state))
+        outs = []
+        with eager_chunks() if name == "eager" else contextlib.nullcontext():
+            for i in range(1, len(frames)):
+                feats, state = pipeline.track_pair_carry(state, imgs[i],
+                                                         feats, cfg)
+                outs.append((*feats, *state))
+        torch.cuda.synchronize()
         after = launch_counts()
-        runs[name] = (outs, {k: after[k] - before[k] for k in after}, secs,
+        runs[name] = (outs, {k: after[k] - before[k] for k in after},
                       [[a.clone() for a in o] for o in outs])
     same = all(bits_equal(a, b) for o, q in zip(runs["graphed"][0],
                                                 runs["eager"][0])
                for a, b in zip(o, q))
     kept = all(bits_equal(a, b) for o, q in zip(runs["graphed"][0],
-                                                runs["graphed"][3])
+                                                runs["graphed"][2])
                for a, b in zip(o, q))
     progs = [p for k, p in graph.programs() if k[0] == "pair_carry"]
-    med = {k: 1e6 * float(np.median(r[2][2:])) for k, r in runs.items()}
     print(f"[{tag}] track_pair_carry {frames.shape[2]}x{frames.shape[1]} x "
           f"{int((fl.val >= 0).sum())}, {len(frames) - 1} calls: bit-equal "
-          f"to the eager body {same}; returned tensors unchanged after the "
+          f"to the eager run {same}; returned tensors unchanged after the "
           f"later calls {kept}; replays {sum(p.replays for p in progs)}; "
-          f"capture ms {[round(p.capture_seconds() * 1e3, 1) for p in progs]}"
-          f"; wall per call with a sync (median of calls 3-) graphed "
-          f"{med['graphed']:.1f} us, eager {med['eager']:.1f} us")
+          f"capture ms {[round(p.capture_seconds() * 1e3, 1) for p in progs]}")
     check(same and kept, "track_pair_carry's graph differs from its eager "
-          "body, or a returned tensor changed")
+          "run, or a returned tensor changed")
     check(runs["graphed"][1] == runs["eager"][1],
-          "track_pair_carry's launches differ from the eager body's")
+          "track_pair_carry's launches differ from the eager run's")
     check(sum(p.replays for p in progs) == len(frames) - 2,
           "track_pair_carry did not replay its graph")
     return runs["graphed"][1]
 
 
 def phase_tracker_graphs(vga, traffic, aff, cfg, acfg, tag: str) -> dict:
-    """Phase 41: KLTracker's step programs against its eager body on the
-    translation run (640x480 x 2000 requested, 100 frames), the replace
-    loop (640x480 x 500, the first 100 traffic frames) and the affine run
-    with replacement (640x480 x 2000 requested, mode 2, 4 levels,
-    TRACKER_AFFINE_FRAMES frames); two trackers interleaved; a capture
-    that fails; track_pair_carry's graph against its eager body.  Returns
+    """Phase 41: KLTracker's step programs against its steps run eagerly
+    on the translation run (640x480 x 2000 requested, 100 frames), the
+    replace loop (640x480 x 500, the first 100 traffic frames) and the
+    affine run with replacement (640x480 x 2000 requested, mode 2, 4
+    levels, TRACKER_AFFINE_FRAMES frames); two trackers interleaved; a
+    capture that fails; track_pair_carry's graph against its step run
+    eagerly.  Returns
     the graphed runs' kernel launches (counted from 0)."""
     cuda.reset_launch_counts()
     launches = dict.fromkeys(launch_counts(), 0)
@@ -5464,8 +5446,8 @@ def main() -> int:
         print(f"[{tag} launches] "
               f"{ {k: n for k, n in counts.items() if n} }")
 
-    # path 15: every graphed sequence entry against its eager loop on the
-    # six cells of PERF.md section 5
+    # path 15: every graphed sequence entry against its chunks run eagerly
+    # on the six cells of PERF.md section 5
     with phase("40 graphs"):
         graph_steps = phase_graphs(
             {"vga": vga, "traffic": traffic, "aff": aff, "flag_b": flag_b,
@@ -5475,7 +5457,7 @@ def main() -> int:
         per_step.update({f"40 {k}": v for k, v in graph_steps.items()})
 
     # path 16: KLTracker's step programs and track_pair_carry's graph
-    # against their eager bodies
+    # against their steps run eagerly
     with phase("41 tracker graphs"):
         tracker_launches = phase_tracker_graphs(vga, traffic, aff, cfg, acfg,
                                                 "41 tracker graphs")

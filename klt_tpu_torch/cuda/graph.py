@@ -19,6 +19,11 @@ back into them.  `Program.run(n)` runs a chunk:
   as it is, without capture, so that the bookkeeping around it (staging,
   carry, remainder, resume) is one code on both devices.
 
+The graphs are held against their own chunk function: `run(n,
+warm_up=True)` runs any chunk as a key's first one runs, eagerly on the
+side stream, and the card tests run every entry so beside its replays,
+its tables and kernel launches compared bit for bit.
+
 Chunk lengths are klt_tpu's dispatch lengths (`chunk_lengths`): the
 longest (K, or the stream's and the exact tier's `chunk`) while that many
 steps are left, then powers of two, so a key holds at most

@@ -23,10 +23,8 @@ from __future__ import annotations
 import torch
 
 from ..config import TrackingConfig
-from ..ops.affine import AffineState, affine_consistency_step
 from ..runtime.pipeline import _run
-from .batched_lk import (_check_batched, _step_stacks,
-                         track_features_pyramid_batched)
+from .batched_lk import _check_batched
 
 
 def track_sequences_affine_batched(frames: torch.Tensor, x: torch.Tensor,
@@ -54,35 +52,3 @@ def _check_affine(cfg: TrackingConfig) -> None:
         raise ValueError("track_sequences_affine_batched needs "
                          "affine_consistency_check 0, 1 or 2, got "
                          f"{cfg.affine_consistency_check}")
-
-
-def _run_eager(frames: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
-               val: torch.Tensor, cfg: TrackingConfig, plain: bool = False,
-               precomp: bool = False):
-    """`track_sequences_affine_batched`'s step loop with the kernels
-    called one step at a time, without graphs: what the graphs are held
-    against on the card."""
-    _check_affine(cfg)
-    _check_batched(frames, x)
-    b, t_len = frames.shape[:2]
-    n = x.shape[1]
-    shape = (max(t_len - 1, 0), b, n)
-    xs = torch.empty(shape, dtype=torch.float32, device=frames.device)
-    ys = torch.empty_like(xs)
-    vals = torch.empty(shape, dtype=torch.int32, device=frames.device)
-    if t_len == 0:
-        return xs, ys, vals
-    state = AffineState.create(b * n, cfg, frames.device)
-    flat = lambda a: a.reshape(b * n)
-    stacks = _step_stacks(frames, cfg, plain, precomp)
-    st1 = next(stacks)
-    for t, st2 in enumerate(stacks):
-        xn, yn, vn = track_features_pyramid_batched(st1, st2, x, y, val, cfg,
-                                                    plain)
-        out = affine_consistency_step(state, st1[0], st2[0], flat(x),
-                                      flat(y), flat(val), flat(xn), flat(yn),
-                                      flat(vn), cfg, plain=plain)
-        x, y, val = (a.reshape(b, n) for a in out)
-        xs[t], ys[t], vals[t] = x, y, val
-        st1 = st2
-    return xs, ys, vals

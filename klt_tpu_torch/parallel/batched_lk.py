@@ -24,7 +24,7 @@ from ..config import TrackingConfig
 from ..ops.lk import track_features_pyramid_stacks
 from ..ops.pyramid import (build_pyramid_stacks_batched,
                            build_pyramid_stacks_batched_plain)
-from ..runtime.pipeline import PRECOMP_FRAMES, _run
+from ..runtime.pipeline import _run
 
 
 def _build(plain: bool):
@@ -73,23 +73,6 @@ def make_fused_pair_step(cfg: TrackingConfig, plain: bool = False):
     return step
 
 
-def _step_stacks(frames: torch.Tensor, cfg: TrackingConfig, plain: bool,
-                 precomp: bool):
-    """Each frame index's [B, 3, H_l, W_l] stacks, in order: one
-    batched-pyramid launch per frame index, or with precomp one per
-    max(1, PRECOMP_FRAMES // B) frame indices, so that about
-    PRECOMP_FRAMES images are built ahead at once."""
-    b, t_len = frames.shape[:2]
-    per_launch = max(1, PRECOMP_FRAMES // b) if precomp else 1
-    build = _build(plain)
-    for t0 in range(0, t_len, per_launch):
-        imgs = frames[:, t0:t0 + per_launch].transpose(0, 1)  # [k, B, H, W]
-        stacks = build(imgs.reshape((-1,) + frames.shape[2:]).contiguous(),
-                       cfg)
-        for j in range(imgs.shape[0]):
-            yield [s[j * b:(j + 1) * b] for s in stacks]
-
-
 def track_sequences_batched(frames: torch.Tensor, x: torch.Tensor,
                             y: torch.Tensor, val: torch.Tensor,
                             cfg: TrackingConfig, plain: bool = False,
@@ -119,27 +102,3 @@ def _check_batched(frames: torch.Tensor, x: torch.Tensor) -> None:
     if x.dim() != 2 or x.shape[0] != frames.shape[0]:
         raise ValueError(f"features must be [B={frames.shape[0]}, N], got "
                          f"{tuple(x.shape)}")
-
-
-def _run_eager(frames: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
-               val: torch.Tensor, cfg: TrackingConfig, plain: bool = False,
-               precomp: bool = False):
-    """`track_sequences_batched`'s step loop with the kernels called one
-    step at a time, without graphs: what the graphs are held against on
-    the card."""
-    _check_batched(frames, x)
-    b, t_len = frames.shape[:2]
-    shape = (max(t_len - 1, 0), b, x.shape[1])
-    xs = torch.empty(shape, dtype=torch.float32, device=frames.device)
-    ys = torch.empty_like(xs)
-    vals = torch.empty(shape, dtype=torch.int32, device=frames.device)
-    if t_len == 0:
-        return xs, ys, vals
-    stacks = _step_stacks(frames, cfg, plain, precomp)
-    st1 = next(stacks)
-    for t, st2 in enumerate(stacks):
-        x, y, val = track_features_pyramid_batched(st1, st2, x, y, val, cfg,
-                                                   plain)
-        xs[t], ys[t], vals[t] = x, y, val
-        st1 = st2
-    return xs, ys, vals

@@ -28,9 +28,7 @@ step.
 the reference the kernels are held against on the card.  `precomp=True`
 builds the pyramids of a chunk's frames in one batched-pyramid launch
 ahead of their steps (klt_tpu's KLT_TPU_PRECOMP_PYR=1), with results
-bit-equal to the default's.  `_run_eager` (and `_replace_exact_eager`)
-is the step loop of the same kernels one call at a time, which the
-graphs are held against.
+bit-equal to the default's.
 """
 
 from __future__ import annotations
@@ -64,68 +62,6 @@ from ..utils.profiling import span
 # Frames per batched-pyramid launch with precomp: bounds the stacks held
 # at once (64 VGA frames of 2-level stacks are about 250 MB).
 PRECOMP_FRAMES = 64
-
-
-def _frame_stacks(frames: torch.Tensor, cfg: TrackingConfig, plain: bool,
-                  precomp: bool, per_launch: int | None = None):
-    """Each frame's finest-first stacks, in order: one pyramid build per
-    frame, or with precomp one batched build per `per_launch` frames
-    (default PRECOMP_FRAMES), made just before the first of them is
-    needed."""
-    per_launch = per_launch or PRECOMP_FRAMES
-    if not precomp:
-        build = build_pyramid_stacks_plain if plain else build_pyramid_stacks
-        for frame in frames:
-            yield build(frame, cfg)
-        return
-    build = (build_pyramid_stacks_batched_plain if plain
-             else build_pyramid_stacks_batched)
-    for t0 in range(0, frames.shape[0], per_launch):
-        stacks = build(frames[t0:t0 + per_launch], cfg)
-        for i in range(stacks[0].shape[0]):
-            yield [s[i] for s in stacks]
-
-
-def _run_eager(frames, x, y, val, cfg: TrackingConfig, plain: bool,
-               precomp: bool, replace: bool = False, affine: bool = False):
-    """The step loop of `track_sequence` (replace=True:
-    `track_sequence_replace`, affine=True: `track_sequence_affine`), the
-    kernels called one step at a time, without graphs: what the graphs
-    are held against on the card."""
-    if frames.dim() != 3:
-        raise ValueError(f"frames must be [T, H, W], got "
-                         f"{tuple(frames.shape)}")
-    t_len, n = frames.shape[0], x.shape[0]
-    xs = torch.empty((max(t_len - 1, 0), n), dtype=torch.float32,
-                     device=frames.device)
-    ys = torch.empty_like(xs)
-    vals = torch.empty((max(t_len - 1, 0), n), dtype=torch.int32,
-                       device=frames.device)
-    if t_len == 0:
-        return xs, ys, vals
-    build = build_pyramid_stacks_plain if plain else build_pyramid_stacks
-    respond = corner_response_plain if plain else corner_response
-    st1 = build(frames[0], cfg)
-    state = AffineState.create(n, cfg, frames.device) if affine else None
-    for t, st2 in enumerate(_frame_stacks(frames[1:], cfg, plain, precomp)):
-        xn, yn, vn = track_features_pyramid_stacks(st1, st2, x, y, val, cfg,
-                                                   plain=plain)
-        if affine:
-            # level 0 of both frames, the positions before the track
-            xn, yn, vn = affine_consistency_step(
-                state, st1[0], st2[0], x, y, val, xn, yn, vn, cfg,
-                plain=plain)
-        x, y, val = xn, yn, vn
-        xs[t], ys[t], vals[t] = x, y, val
-        if replace:
-            # the table rows are the state carried on: replacement fills
-            # them in place from the new frame's level-0 gradients
-            x, y, val = xs[t], ys[t], vals[t]
-            resp = respond(st2[0][1], st2[0][2], cfg.window_width,
-                           cfg.window_height)
-            replace_lost_(resp, x, y, val, cfg, plain=plain)
-        st1 = st2
-    return xs, ys, vals
 
 
 @dataclasses.dataclass
@@ -198,9 +134,9 @@ def _chunk_stacks(frames: torch.Tensor, cfg: TrackingConfig, plain: bool,
 
 def _sequence_chunk(b: _Buffers, n: int, cfg: TrackingConfig, plain: bool,
                     precomp: bool, replace: bool):
-    """n steps of a sequence program on its static buffers: the step of
-    `_run_eager` (and of the batched tier's), the rows into b.rows, the
-    last step's stacks and features carried into b.st1 and b.feats."""
+    """n steps of a sequence program (one sequence or B) on its static
+    buffers: the rows into b.rows, the last step's stacks and features
+    carried into b.st1 and b.feats."""
     respond = corner_response_plain if plain else corner_response
     st1, (x, y, val) = b.st1, b.feats
     for k, st2 in enumerate(_chunk_stacks(b.frames[:n], cfg, plain,
@@ -521,71 +457,6 @@ def track_sequence_replace_exact(frames, x, y, val, cfg: TrackingConfig,
     return xs, ys, vals
 
 
-def _replace_exact_eager(frames, x, y, val, cfg: TrackingConfig,
-                         tier: str = "exact", chunk: int = 32,
-                         plain: bool = False, device=None):
-    """`track_sequence_replace_exact`'s loop with the kernels called one
-    step at a time, without graphs: what the graphs are held against on
-    the card."""
-    frames, (x, y, val), dev, exact = _exact_inputs(frames, x, y, val, cfg,
-                                                    tier, chunk, device)
-    t_len, n = frames.shape[0], x.shape[0]
-    xs = torch.empty((max(t_len - 1, 0), n), dtype=torch.float32, device=dev)
-    ys = torch.empty_like(xs)
-    vals = torch.empty((max(t_len - 1, 0), n), dtype=torch.int32, device=dev)
-    if t_len < 2:
-        return xs, ys, vals
-
-    st1 = build_pyramids_exact(frames[0], cfg, plain=plain)
-    t = 1  # the next frame to track into
-    while t < t_len:
-        step = min(chunk, t_len - t)
-        pre = (torch.empty((step, n), dtype=torch.float32, device=dev),
-               torch.empty((step, n), dtype=torch.float32, device=dev),
-               torch.empty((step, n), dtype=torch.int32, device=dev))
-        ties = torch.zeros(step, dtype=torch.int32, device=dev)
-        pyramids = []
-        for k in range(step):
-            frame = frames[t + k]
-            st2 = build_pyramids_exact(frame, cfg, plain=plain)
-            pyramids.append(st2)
-            if exact:
-                xn, yn, vn = track_features_exact(st1, st2, x, y, val, cfg,
-                                                  plain=plain)
-            else:
-                xn, yn, vn = track_features_pyramid_stacks(
-                    st1, st2, x, y, val, cfg, plain=plain)
-            pre[0][k], pre[1][k], pre[2][k] = xn, yn, vn
-            row = t - 1 + k
-            xs[row], ys[row], vals[row] = xn, yn, vn
-            # the table rows are the state carried on: replacement fills
-            # them in place
-            x, y, val = xs[row], ys[row], vals[row]
-            # the plain loop asks the host anyway: no response without a
-            # lost slot (the tie flag stays 0, as klt_tpu's no_replace)
-            if not (plain or dev.type == "cpu") or bool((val < 0).any()):
-                resp = (exact_response_from_grads(st2[0][1], st2[0][2], cfg,
-                                                  plain=plain) if exact
-                        else _selection_response(frame, st2, cfg, plain))
-                replace_lost_exact_(resp, x, y, val, cfg, ties[k:k + 1],
-                                    plain=plain)
-            st1 = st2
-        flagged = torch.nonzero(ties.cpu()).flatten()  # one read a chunk
-        if not len(flagged):
-            t += step
-            continue
-        k = int(flagged[0])
-        row = t - 1 + k
-        st1 = pyramids[k]
-        fixed = _repair_replacement_host(frames[t + k], st1, pre[0][k],
-                                         pre[1][k], pre[2][k], cfg, plain)
-        for out, a in zip((xs, ys, vals), fixed):
-            out[row] = torch.from_numpy(a).to(dev)
-        x, y, val = xs[row], ys[row], vals[row]
-        t += k + 1
-    return xs, ys, vals
-
-
 def _features_on(x, y, val, device):
     """(x f32, y f32, val i32) tensors and the device they run on:
     tensors run where they lie, numpy arrays go to the card, and `device`
@@ -710,8 +581,7 @@ def track_pair_carry(pyr1_state, img2: torch.Tensor, feat,
     card a replay of the step's CUDA graph (cached by shapes, dtypes,
     devices, cfg and KLT_TPU_DEBUG, as klt_tpu's jit): the arguments are
     copied into its static buffers, and what it returns is copied out, so
-    the caller owns every tensor it gets.  `_track_pair_carry_eager` is
-    the same step without graphs.
+    the caller owns every tensor it gets.
     """
     inputs = (*pyr1_state, img2, *feat)
     dev = img2.device
@@ -732,17 +602,6 @@ def track_pair_carry(pyr1_state, img2: torch.Tensor, feat,
         out = [a.clone() for a in prog.run(1, flags)]
         flags.report()
     return tuple(out[:3]), tuple(out[3:])
-
-
-def _track_pair_carry_eager(pyr1_state, img2: torch.Tensor, feat,
-                            cfg: TrackingConfig):
-    """`track_pair_carry` as the kernels' calls one at a time: what its
-    graph is held against."""
-    x, y, val = feat
-    st2 = tuple(build_pyramid_stacks(img2, cfg))
-    xn, yn, vn = track_features_pyramid_stacks(list(pyr1_state), list(st2),
-                                               x, y, val, cfg)
-    return (xn, yn, vn), st2
 
 
 def prepare_pyramids(img: torch.Tensor, cfg: TrackingConfig):

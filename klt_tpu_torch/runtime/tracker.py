@@ -38,8 +38,7 @@ KLTReplaceLostFeatures, src/V1/klt.h:150-169), bound to one torch device:
   image 1's pyramid is the carried one (or is built from image 1 on a
   first or non-sequential call), image 2's is built into the other of
   two slots, so that nothing is copied to carry it (a graph for each
-  parity), and the features go out by one copy.  `_track_features_eager`
-  is the step's calls one at a time, which the graphs are held against.
+  parity), and the features go out by one copy.
 
 * with affine_consistency_check >= 0 every tracked feature is then
   verified against the reference patch saved at its first successful
@@ -332,8 +331,8 @@ class KLTracker:
             src = next((i for i, s in enumerate(b.slots) if s is pyr1),
                        None)
             if src is None:
-                # carried by another geometry's buffers (or the eager
-                # body): into slot 0, outside the graph
+                # carried by another geometry's buffers: into slot 0,
+                # outside the graph
                 src = 0
                 for dst, st in zip(b.slots[0], pyr1):
                     dst.copy_(st)
@@ -361,42 +360,6 @@ class KLTracker:
         while len(self._steps) > STEP_KEYS:
             self._steps.popitem(last=False)
         return entry
-
-    def _track_features_eager(self, img1: np.ndarray, img2: np.ndarray,
-                              fl: FeatureList) -> None:
-        """`track_features` as the kernels' calls one at a time, without
-        graphs or static buffers: what the step programs are held
-        against."""
-        cfg = self.cfg
-        _log(f"(KLT) Tracking {fl.count_remaining()} features in a "
-             f"{img2.shape[1]} by {img2.shape[0]} image...")
-
-        if self.sequential and self._pyr_last is not None:
-            pyr1 = self._pyr_last
-            if tuple(pyr1[0].shape[-2:]) != tuple(img2.shape):
-                raise ValueError(
-                    f"incoming image {tuple(img2.shape)} differs from "
-                    f"previous image {tuple(pyr1[0].shape[-2:])}")
-        else:
-            pyr1 = build_pyramid_stacks(self._upload(img1), cfg)
-        pyr2 = build_pyramid_stacks(self._upload(img2), cfg)
-
-        x, y, val = (self._upload(a) for a in (fl.x, fl.y, fl.val))
-        xn, yn, vn = track_features_pyramid_stacks(pyr1, pyr2, x, y, val,
-                                                   cfg)
-        if cfg.affine_consistency_check >= 0:
-            if self._affine is None:
-                self._affine = AffineState.create(fl.n_features, cfg,
-                                                  self.device)
-            xn, yn, vn = affine_consistency_step(
-                self._affine, pyr1[0], pyr2[0], x, y, val, xn, yn, vn, cfg)
-        fl.x[:] = xn.cpu().numpy()
-        fl.y[:] = yn.cpu().numpy()
-        fl.val[:] = vn.cpu().numpy()
-
-        if self.sequential:
-            self._pyr_last = pyr2
-        _log(f"\t{fl.count_remaining()} features successfully tracked.")
 
     def stop_sequential_mode(self) -> None:
         """reference: KLTStopSequentialMode, src/V1/klt.c:490-500."""

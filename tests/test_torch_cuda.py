@@ -19,10 +19,10 @@ import torch
 
 import klt_tpu_torch as kt
 from chip_smoke import (affine_cases, affine_frames, batched_affine_frames,
-                        batched_frames, exact_cases, exact_lk_cases,
-                        exact_replace_cases, noise_frames, pyramid_cases,
-                        replace_cases, response_cases, synthetic_frames,
-                        tie_frames)
+                        batched_frames, eager_chunks, exact_cases,
+                        exact_lk_cases, exact_replace_cases, noise_frames,
+                        pyramid_cases, replace_cases, response_cases,
+                        synthetic_frames, tie_frames)
 from klt_tpu_torch.ops.affine import (AffineState, affine_consistency_step,
                                       save_patches_plain, track_affine,
                                       track_affine_plain, verification_inputs)
@@ -1645,23 +1645,29 @@ GRAPH_ENTRIES = ["track", "replace", "affine", "precomp", "batched",
                  "batched_affine", "stream", "exact", "fast"]
 
 
+def eagerly(fn):
+    """fn with every chunk of its programs run eagerly
+    (chip_smoke.eager_chunks: Program.run's warm_up=True)."""
+    def run(*args):
+        with eager_chunks():
+            return fn(*args)
+    return run
+
+
 def graph_cell(entry, dev):
-    """(graphed run, eager run) of a small cell of `entry`, each returning
-    its table: 2K + 2 frames (full chunks and a tail of one), the stream
-    in chunks of 8, the exact tier in chunks of 4 over tie_frames, whose
-    repair resumes inside a chunk."""
+    """(graphed run, the same run with its chunks run eagerly) of a small
+    cell of `entry`, each returning its table: 2K + 2 frames (full chunks
+    and a tail of one), the stream in chunks of 8, the exact tier in
+    chunks of 4 over tie_frames, whose repair resumes inside a chunk."""
     from klt_tpu_torch.cuda import graph
-    from klt_tpu_torch.parallel import batched_affine, batched_lk
-    from klt_tpu_torch.runtime import pipeline
     n_frames = 2 * graph.K + 2
     if entry in ("exact", "fast"):
         cfg, frames, feats = exact_sequence_inputs(12)
         f = torch.from_numpy(frames).to(dev)
         featd = [torch.from_numpy(a).to(dev) for a in feats]
-        return (lambda: kt.track_sequence_replace_exact(
-                    f, *featd, cfg, tier=entry, chunk=4),
-                lambda: pipeline._replace_exact_eager(
-                    f, *featd, cfg, tier=entry, chunk=4))
+        run = lambda: kt.track_sequence_replace_exact(
+            f, *featd, cfg, tier=entry, chunk=4)
+        return run, eagerly(run)
     if entry.startswith("batched"):
         mode = 2 if entry == "batched_affine" else -1
         cfg = kt.TrackingConfig(sequential_mode=True,
@@ -1674,10 +1680,10 @@ def graph_cell(entry, dev):
         featd = [torch.from_numpy(np.stack([getattr(fl, k) for fl in lists]))
                  .to(dev) for k in ("x", "y", "val")]
         fd = torch.from_numpy(frames).to(dev)
-        seq, eager = (
-            (track_sequences_affine_batched, batched_affine._run_eager)
-            if mode == 2 else (track_sequences_batched, batched_lk._run_eager))
-        return (lambda: seq(fd, *featd, cfg), lambda: eager(fd, *featd, cfg))
+        seq = (track_sequences_affine_batched if mode == 2
+               else track_sequences_batched)
+        run = lambda: seq(fd, *featd, cfg)
+        return run, eagerly(run)
     mode = 2 if entry == "affine" else -1
     cfg = kt.TrackingConfig(sequential_mode=True,
                             affine_consistency_check=mode)
@@ -1687,35 +1693,26 @@ def graph_cell(entry, dev):
     kt.KLTracker(cfg).select_good_features(frames[0], fl)
     featd = [torch.from_numpy(a).to(dev) for a in (fl.x, fl.y, fl.val)]
     fd = torch.from_numpy(frames).to(dev)
-    precomp, replace, affine = (entry == e for e in
-                                ("precomp", "replace", "affine"))
-    seq = {"replace": track_sequence_replace,
-           "affine": track_sequence_affine}.get(entry, track_sequence)
-    eager = lambda: pipeline._run_eager(fd, *featd, cfg, False, precomp,
-                                        replace=replace, affine=affine)
     if entry == "stream":
-        def stream():
+        def run():
             snaps = list(track_sequence_stream(iter(fd), *featd, cfg,
                                                chunk=8))
             return [torch.from_numpy(np.stack([s[i] for s in snaps]))
                     for i in (1, 2, 3)]
-
-        def ends():
-            table = pipeline._run_eager(fd, *featd, cfg, False, False)
-            rows = list(range(7, n_frames - 1, 8)) + [n_frames - 2]
-            return [a[rows].cpu() for a in table]
-        return stream, ends
-    return lambda: seq(fd, *featd, cfg, precomp=precomp), eager
+        return run, eagerly(run)
+    seq = {"replace": track_sequence_replace,
+           "affine": track_sequence_affine}.get(entry, track_sequence)
+    run = lambda: seq(fd, *featd, cfg, precomp=entry == "precomp")
+    return run, eagerly(run)
 
 
 @pytest.mark.parametrize("entry", GRAPH_ENTRIES)
 def test_graphed_entry_equals_eager(entry, dev):
     """A graphed entry's first call (the warm-up chunk, then captures) and
-    its second (replays) are bit-equal to the eager loop; each call counts
-    the eager loop's kernel launches, credited per replay (the exact tier:
-    one launch each of A, G or B, H2 and R's tie entry a computed step;
-    with precomp E once a chunk, where the eager loop builds up to
-    PRECOMP_FRAMES frames a launch)."""
+    its second (replays) are bit-equal to the same call with every chunk
+    run eagerly; each call counts the eager run's kernel launches,
+    credited per replay (the exact tier: one launch each of A, G or B, H2
+    and R's tie entry a computed step; with precomp E once a chunk)."""
     from klt_tpu_torch import cuda
     from klt_tpu_torch.cuda import graph
     graphed, eager = graph_cell(entry, dev)
@@ -1737,10 +1734,8 @@ def test_graphed_entry_equals_eager(entry, dev):
             assert c["klt_build_pyramid"] == 1 + steps
     else:
         if entry == "precomp":
-            e = "klt_build_pyramid_batched"
-            assert counts[1][e] == len(graph.chunk_lengths(
-                len(outs[2][0]), graph.K))
-            counts[2][e] = counts[1][e]
+            assert counts[1]["klt_build_pyramid_batched"] == len(
+                graph.chunk_lengths(len(outs[2][0]), graph.K))
         assert counts[0] == counts[1] == counts[2]
 
 
@@ -1781,10 +1776,10 @@ TRACKER_CASES = {
 }
 
 
-def tracker_flow(case, method, n_frames=8):
+def tracker_flow(case, n_frames=8):
     """The example3 flow of a TRACKER_CASES case at 320x240 x 150 through
-    KLTracker.`method` on the card: (the feature lists after every call,
-    each kernel's launches, the tracker's graph replays)."""
+    a KLTracker on the card: (the feature lists after every call, each
+    kernel's launches, the tracker's graph replays)."""
     from klt_tpu_torch import cuda
     kw, frames, replace, events = TRACKER_CASES[case]
     frames = replace_frames(n_frames) if frames == "scene" else \
@@ -1797,7 +1792,7 @@ def tracker_flow(case, method, n_frames=8):
     for i in range(1, n_frames):
         if events.get(i) == "stop":
             tr.stop_sequential_mode()
-        getattr(tr, method)(frames[i - 1], frames[i], fl)
+        tr.track_features(frames[i - 1], frames[i], fl)
         rows.append(fl.copy())
         if events.get(i) == "select":
             tr.select_good_features(frames[i], fl)
@@ -1823,10 +1818,11 @@ def assert_same_lists(got, ref):
 def test_tracker_graphs_equal_the_eager_body(case, dev):
     """KLTracker's step programs on the card: every call after a key's
     first two (warm-up, capture) a replay, the feature lists bit-equal to
-    the eager body's, the same kernel launches (credited per replay)."""
-    got, launches, replays = tracker_flow(case, "track_features")
-    ref, ref_launches, ref_replays = tracker_flow(case,
-                                                  "_track_features_eager")
+    the same flow's with every step run eagerly, the same kernel launches
+    (credited per replay)."""
+    got, launches, replays = tracker_flow(case)
+    with eager_chunks():
+        ref, ref_launches, ref_replays = tracker_flow(case)
     assert_same_lists(got, ref)
     assert launches == ref_launches and ref_replays == 0
     assert replays >= {"non-sequential": 6, "stop sequential mode": 3}.get(
@@ -1836,7 +1832,7 @@ def test_tracker_graphs_equal_the_eager_body(case, dev):
 def test_tracker_graphs_of_two_trackers_interleaved(dev):
     """Two trackers stepped call by call in turns equal their runs alone:
     no static buffer, carried slot or affine state is shared."""
-    alone = [tracker_flow(c, "track_features")[0]
+    alone = [tracker_flow(c)[0]
              for c in ("replace", "affine")]
     frames = [replace_frames(8), affine_frames(8, rate=0.1)]
     cfgs = [kt.TrackingConfig(**TRACKER_CASES[c][0])
@@ -1880,9 +1876,9 @@ def test_tracker_capture_error_raises(dev, monkeypatch):
 
 
 def test_track_pair_carry_graph_equals_eager(dev):
-    """track_pair_carry's replays bit-equal to the eager body, with its
-    launches; every tensor returned is the caller's: unchanged by later
-    calls."""
+    """track_pair_carry's replays bit-equal to its step run eagerly, with
+    its launches; every tensor returned is the caller's: unchanged by
+    later calls."""
     from klt_tpu_torch import cuda
     from klt_tpu_torch.cuda import graph
     from klt_tpu_torch.runtime import pipeline
@@ -1891,7 +1887,7 @@ def test_track_pair_carry_graph_equals_eager(dev):
     graph._clear()
     outs, counts, snaps = {}, {}, {}
     for name, fn in (("graphed", pipeline.track_pair_carry),
-                     ("eager", pipeline._track_pair_carry_eager)):
+                     ("eager", eagerly(pipeline.track_pair_carry))):
         cuda.reset_launch_counts()
         fd, state = feats, pipeline.prepare_pyramids(f[0], cfg)
         outs[name] = []

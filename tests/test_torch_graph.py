@@ -5,15 +5,18 @@ carried stacks and features, the remainder in powers of two, the exact
 tier's resume after a repair, the cache).
 
 Each entry runs at 64x80 with a few features over T - 1 = 1, K - 1, K,
-K + 3 and 2K + 1 steps (K = cuda.graph.K): its table equals the step loop
-it replaced (`_run_eager`, `_replace_exact_eager`) bit for bit.  At
-2K + 1 steps each entry is also held against klt_tpu's entry of that name
-(XLA path, KLT_TPU_NO_PALLAS=1) with the tolerances of the entry's own
-test file: statuses exact, positions within POS_TOL (tests/test_torch_
-replace.py, test_torch_batched.py), AFFINE_POS_TOL (test_torch_affine.py);
-the exact tier's repaired frames and picks as tests/test_torch_exact_
-sequence.py asks.  The graphs themselves are held against the eager loops
-on a card in test_torch_cuda.py and chip_smoke.py phase 40.
+K + 3 and 2K + 1 steps (K = cuda.graph.K): its table equals the same entry
+run one step a chunk (graph.K = 1 for the entries of `_run`, chunk=1 for
+the stream and the exact tier) bit for bit, so the carry between chunks,
+the rows, the remainder and the resume are what the two runs differ in;
+every kernel call is the same.  At 2K + 1 steps each entry is also held
+against klt_tpu's entry of that name (XLA path, KLT_TPU_NO_PALLAS=1) with
+the tolerances of the entry's own test file: statuses exact, positions
+within POS_TOL (tests/test_torch_replace.py, test_torch_batched.py),
+AFFINE_POS_TOL (test_torch_affine.py); the exact tier's repaired frames
+and picks as tests/test_torch_exact_sequence.py asks.  The graphs
+themselves are held against the same chunk functions run eagerly on a
+card in test_torch_cuda.py and chip_smoke.py phase 40.
 """
 
 import functools
@@ -27,8 +30,7 @@ import klt_tpu
 import klt_tpu_torch as kt
 from chip_smoke import affine_frames, synthetic_frames, tie_frames
 from klt_tpu_torch.cuda import graph
-from klt_tpu_torch.parallel import (batched_affine, batched_lk,
-                                    track_sequences_affine_batched,
+from klt_tpu_torch.parallel import (track_sequences_affine_batched,
                                     track_sequences_batched)
 from klt_tpu_torch.runtime import pipeline
 
@@ -110,45 +112,50 @@ def inputs(entry, steps):
         [torch.from_numpy(a.copy()) for a in (x, y, val)]
 
 
-def stream_table(frames, feats, cfg):
-    """The stream's snapshots, one a chunk of K, stacked: (t, x, y, val)."""
+def stream_table(frames, feats, cfg, chunk=K):
+    """The stream's snapshots, one a chunk, stacked: (t, x, y, val)."""
     snaps = list(pipeline.track_sequence_stream(iter(frames), *feats, cfg,
-                                                chunk=K, device="cpu"))
+                                                chunk=chunk, device="cpu"))
     return [s[0] for s in snaps], [np.stack([s[i] for s in snaps])
                                    for i in (1, 2, 3)]
 
 
-def runs(entry, steps):
-    """(the chunked loop's table, the eager loop's table) as numpy."""
-    cfg, f, feats = inputs(entry, steps)
+def table(entry, f, feats, cfg, chunk=K):
+    """The entry's table as numpy, its chunks of `chunk` steps (the
+    stream: its snapshots at the ends of chunks of K)."""
     if entry == "stream":
         ts, got = stream_table(f, feats, cfg)
-        ref = pipeline._run_eager(f, *feats, cfg, False, False)
-        return got, [a.numpy()[[t - 1 for t in ts]] for a in ref]
+        if chunk == K:
+            return got
+        every, snaps = stream_table(f, feats, cfg, chunk)
+        return [a[[every.index(t) for t in ts]] for a in snaps]
     if entry == "exact":
-        got = kt.track_sequence_replace_exact(f, *feats, cfg, chunk=K)
-        ref = pipeline._replace_exact_eager(f, *feats, cfg, chunk=K)
-    elif entry == "batched":
-        got = track_sequences_batched(f, *feats, cfg)
-        ref = batched_lk._run_eager(f, *feats, cfg)
-    elif entry == "batched_affine":
-        got = track_sequences_affine_batched(f, *feats, cfg)
-        ref = batched_affine._run_eager(f, *feats, cfg)
+        got = kt.track_sequence_replace_exact(f, *feats, cfg, chunk=chunk)
     else:
         seq = {"track": pipeline.track_sequence,
                "replace": pipeline.track_sequence_replace,
-               "affine": pipeline.track_sequence_affine}[entry]
+               "affine": pipeline.track_sequence_affine,
+               "batched": track_sequences_batched,
+               "batched_affine": track_sequences_affine_batched}[entry]
         got = seq(f, *feats, cfg)
-        ref = pipeline._run_eager(f, *feats, cfg, False, False,
-                                  replace=entry == "replace",
-                                  affine=entry == "affine")
-    return [a.numpy() for a in got], [a.numpy() for a in ref]
+    return [a.numpy() for a in got]
+
+
+def runs(entry, steps, monkeypatch):
+    """(the chunked loop's table, the table of one step a chunk)."""
+    cfg, f, feats = inputs(entry, steps)
+    got = table(entry, f, feats, cfg)
+    with monkeypatch.context() as m:
+        m.setattr(graph, "K", 1)
+        ref = table(entry, f, feats, cfg, chunk=1)
+    return got, ref
 
 
 @pytest.mark.parametrize("steps", STEPS)
 @pytest.mark.parametrize("entry", ENTRIES)
-def test_chunked_loop_equals_the_eager_loop(entry, steps):
-    got, ref = runs(entry, steps)
+def test_chunked_loop_equals_the_eager_loop(entry, steps, monkeypatch):
+    """The chunked loop against the same entry run one step a chunk."""
+    got, ref = runs(entry, steps, monkeypatch)
     assert got[0].shape[0] == (-(-steps // K) if entry == "stream"
                                else steps)
     for a, b in zip(got, ref):
@@ -185,8 +192,8 @@ def klt_tpu_table(entry, frames, feats, monkeypatch):
 def test_chunked_loop_agrees_with_klt_tpu(entry, monkeypatch):
     """2K + 1 steps (chunks K, K and 1) against klt_tpu's entry."""
     steps = 2 * K + 1
-    got, _ = runs(entry, steps)
-    _, f, feats = inputs(entry, steps)
+    cfg, f, feats = inputs(entry, steps)
+    got = table(entry, f, feats, cfg)
     ref = klt_tpu_table(entry, f.numpy(), [a.numpy() for a in feats],
                         monkeypatch)
     np.testing.assert_array_equal(got[2] > 0, ref[2] > 0)
@@ -200,24 +207,24 @@ def test_chunked_loop_agrees_with_klt_tpu(entry, monkeypatch):
 
 def test_exact_repair_resumes_inside_a_chunk(monkeypatch):
     """tie_frames meet an integer tie in the first chunk: the chunked
-    loop repairs that frame on the host, resumes from its kept pyramid inside
-    the chunk and ends as the eager loop, repairing the same frames."""
+    loop repairs that frame on the host, resumes from its kept pyramid
+    inside the chunk and ends as the run of one step a chunk, repairing
+    the same frames."""
     cfg, f, feats = inputs("exact", 2 * K + 1)
-    repaired = {"chunked": [], "eager": []}
+    repaired = {K: [], 1: []}
+    tables = {}
     orig = pipeline._repair_replacement_host
-    for name, fn in (("chunked", kt.track_sequence_replace_exact),
-                     ("eager", pipeline._replace_exact_eager)):
-        def spy(frame, *args, name=name):
-            repaired[name].append(next(i for i in range(len(f))
-                                       if torch.equal(f[i], frame)))
+    for chunk in (K, 1):
+        def spy(frame, *args, chunk=chunk):
+            repaired[chunk].append(next(i for i in range(len(f))
+                                        if torch.equal(f[i], frame)))
             return orig(frame, *args)
         monkeypatch.setattr(pipeline, "_repair_replacement_host", spy)
-        out = fn(f, *feats, cfg, chunk=K)
-        if name == "chunked":
-            got = out
-    assert repaired["chunked"] == repaired["eager"]
-    assert repaired["chunked"] and repaired["chunked"][0] < K
-    for a, b in zip(got, out):
+        tables[chunk] = kt.track_sequence_replace_exact(f, *feats, cfg,
+                                                        chunk=chunk)
+    assert repaired[K] == repaired[1]
+    assert repaired[K] and repaired[K][0] < K
+    for a, b in zip(tables[K], tables[1]):
         assert torch.equal(a, b)
 
 

@@ -5,12 +5,16 @@ graphs share (the staging of frames and features, the carried pyramid in
 two slots and its parity, the affine state's invalidation between calls,
 the copies out).
 
-The program path (`track_features`, `track_pair_carry`) is held bit for
-bit against the eager bodies it replaced (`KLTracker._track_features_eager`,
-`pipeline._track_pair_carry_eager`) at 64x80, and track_pair_carry
-against klt_tpu's (XLA path, KLT_TPU_NO_PALLAS=1): statuses exact,
-positions within POS_TOL.  The graphs themselves are held against the
-eager bodies on a card in test_torch_cuda.py and chip_smoke.py phase 41.
+The program path is held bit for bit at 64x80 against the same flow with
+the tracker's step buffers and programs dropped before every call, so
+that each call gets fresh static buffers and the carried pyramid comes
+in by a copy into slot 0: slot parity, buffer reuse and the program cache
+are what the two runs differ in.  `track_pair_carry` is held against
+`track_sequence` over the same frames and start features (the same
+kernels through another entry) and against klt_tpu's (XLA path,
+KLT_TPU_NO_PALLAS=1): statuses exact, positions within POS_TOL.  The
+graphs themselves are held against the same step functions run eagerly
+on a card in test_torch_cuda.py and chip_smoke.py phase 41.
 """
 
 import functools
@@ -75,9 +79,10 @@ CASES = {
 }
 
 
-def run_flow(case, method):
-    """The reference's example3 flow on the case's frames through
-    `method` of a CPU KLTracker: the feature list after every call."""
+def run_flow(case, cleared=False):
+    """The reference's example3 flow on the case's frames through a CPU
+    KLTracker: the feature list after every call.  cleared: the tracker's
+    step buffers and programs dropped before every track_features."""
     kw, frames, replace, events = CASES[case]
     frames = frames()
     cfg = kt.TrackingConfig(mindist=3, **kw)
@@ -88,7 +93,9 @@ def run_flow(case, method):
     for i in range(1, len(frames)):
         if events.get(i) == "stop":
             tr.stop_sequential_mode()
-        getattr(tr, method)(frames[i - 1], frames[i], fl)
+        if cleared:
+            tr._steps.clear()
+        tr.track_features(frames[i - 1], frames[i], fl)
         rows.append(fl.copy())
         if events.get(i) == "select":
             tr.select_good_features(frames[i], fl)
@@ -109,12 +116,12 @@ def assert_same_lists(got, ref):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_program_path_equals_the_eager_body(case):
-    """Every feature list of the flow bit-equal to the eager body's, the
-    affine state too; the programs made are the ones the call sequence
-    needs (a pair built from both frames; then the two parities of the
-    carried pyramid, or pairs again after stop_sequential_mode)."""
-    tr, got = run_flow(case, "track_features")
-    ref_tr, ref = run_flow(case, "_track_features_eager")
+    """Every feature list of the flow bit-equal to the cleared flow's,
+    the affine state too; the programs made are the ones the call
+    sequence needs (a pair built from both frames; then the two parities
+    of the carried pyramid, or pairs again after stop_sequential_mode)."""
+    tr, got = run_flow(case)
+    ref_tr, ref = run_flow(case, cleared=True)
     assert_same_lists(got, ref)
     lost = sum(int((r.val < 0).sum()) for r in got)
     assert lost > 0
@@ -195,20 +202,21 @@ def pair_inputs():
 
 def test_track_pair_carry_returns_what_the_caller_owns():
     """Every tensor returned stays as it was while later calls run, and
-    shares no storage with the program's static buffers; the chain
-    equals `_track_pair_carry_eager`'s bit for bit."""
+    shares no storage with the program's static buffers; each step's
+    features equal `track_sequence`'s row on the same frames bit for bit,
+    and its pyramid `prepare_pyramids` of the new frame."""
     cfg, frames, fl = pair_inputs()
     graph._clear()
     feats = [torch.from_numpy(a.copy()) for a in (fl.x, fl.y, fl.val)]
-    state = pipeline.prepare_pyramids(torch.from_numpy(frames[0]), cfg)
-    ref_feats, ref_state = list(feats), state
+    imgs = torch.from_numpy(frames)
+    ref = pipeline.track_sequence(imgs, *feats, cfg)
+    state = pipeline.prepare_pyramids(imgs[0], cfg)
     outs, snaps = [], []
     for i in range(1, T):
-        img = torch.from_numpy(frames[i])
-        feats, state = pipeline.track_pair_carry(state, img, feats, cfg)
-        ref_feats, ref_state = pipeline._track_pair_carry_eager(
-            ref_state, img, ref_feats, cfg)
-        for a, b in zip((*feats, *state), (*ref_feats, *ref_state)):
+        feats, state = pipeline.track_pair_carry(state, imgs[i], feats, cfg)
+        ref_state = pipeline.prepare_pyramids(imgs[i], cfg)
+        for a, b in zip((*feats, *state),
+                        (*(r[i - 1] for r in ref), *ref_state)):
             assert a.dtype == b.dtype and torch.equal(a, b)
         outs.append((*feats, *state))
         snaps.append([a.clone() for a in outs[-1]])
