@@ -36,6 +36,10 @@ paths:
   101 frames of batched_affine_frames;
 * selection from the response computed on the card (KLT_TPU_EXACT_SELECT=0)
   with the default window and with one that no tile of kernel D holds;
+  kernel S (the candidate list and the lazy sort's large partitions, on
+  the card) makes that selection's list and every sequential
+  replacement's of KLTracker, held bit for bit against its plain version
+  on kernel D's maps of the traffic frames;
 * selection and replacement through the prefilter (KLTracker with
   prefilter=True: the candidates cut to the best few of each cell on the
   card), held bit for bit against the full list at 640x480;
@@ -135,7 +139,7 @@ import numpy as np
 import torch
 
 import klt_tpu_torch as klt
-from klt_tpu_torch import cuda
+from klt_tpu_torch import cuda, native
 from klt_tpu_torch.config import pyramid_shapes
 from klt_tpu_torch.cuda.affine import affine_step_cuda_, track_affine_cuda
 from klt_tpu_torch.cuda.corner_response import (corner_response_cuda,
@@ -146,6 +150,8 @@ from klt_tpu_torch.cuda.lk_level import (lk_level_batched_cuda, lk_level_cuda,
 from klt_tpu_torch.cuda.pyramid import (build_pyramid_stacks_batched_cuda,
                                         build_pyramid_stacks_cuda)
 from klt_tpu_torch.cuda.replace import replace_lost_cuda_
+from klt_tpu_torch.cuda.select_sort import (candidate_list_cuda,
+                                            head_partitions_cuda, scratch_for)
 from klt_tpu_torch.io.pnm import read_pgm
 from klt_tpu_torch.kernels import gaussian_kernels
 from klt_tpu_torch.ops.affine import (AffineState,
@@ -157,6 +163,9 @@ from klt_tpu_torch.ops.lk import (lk_level_batched_plain, lk_level_plain,
 from klt_tpu_torch.ops.pyramid import (build_pyramid_stacks_batched_plain,
                                        build_pyramid_stacks_plain)
 from klt_tpu_torch.ops.replace import replace_lost_plain_
+from klt_tpu_torch.ops import select_sort
+from klt_tpu_torch.ops.select_sort import (candidate_list_plain,
+                                           head_partitions_plain)
 from klt_tpu_torch.ops.selection import (corner_response_plain,
                                          response_tile_rows)
 from klt_tpu_torch.parallel import (track_sequences_affine_batched,
@@ -204,6 +213,8 @@ PROCESS_START = time.perf_counter()
 FIXTURE = os.path.join(HERE, "tests", "fixtures", "smoothed_img0.f32")
 # images_traffic, the reference's traffic sequence: 551 frames of 640x480
 TRAFFIC_FRAMES = 551
+# traffic frames whose kernel D maps phase 43 gives kernel S
+SELECT_SORT_FRAMES = (1, 150, 300, 450)
 # the least young features a frame's known-motion bounds are taken over
 MIN_YOUNG = 20
 # batched tracking: (sequences, frames) of klt_tpu's bench rows
@@ -835,6 +846,22 @@ def replace_work(rows: int, cols: int, n: int, picks: int
     return rows * cols * 4 + 2 * 12 * n, max(picks, 1) * rows * cols
 
 
+def select_list_work(n: int) -> tuple[float, float]:
+    """(bytes, flops) of kernel S's list entry for n rows: a response
+    value read and a row of three int32 written a row; the cast's two
+    comparisons."""
+    return 16 * n, 2 * n
+
+
+def select_partitions_work(parts) -> tuple[float, float]:
+    """(bytes, flops) of kernel S's partition entry over the partitions
+    (rows of the range, rows moved) it made: each range's rows read once,
+    each moved row written once; two comparisons a row in each of the
+    count and rank passes."""
+    return (sum(12 * (rows + moved) for rows, moved in parts),
+            sum(4 * rows for rows, _ in parts))
+
+
 def lk_level_work(act: int, iters: int, lanes: int, cfg,
                   residue: bool) -> tuple[float, float]:
     """(bytes, flops) of one LK level for `act` live lanes that ran
@@ -1365,6 +1392,114 @@ def phase_replace_kernel(frames_by_size, n_feats, cfg, errs) -> None:
         check((lost & (v > 0)).any(), "kernel R refilled no slot")
         check(not ((v < 0) & (v != klt.NOT_FOUND)).any(),
               "a slot left lost is not NOT_FOUND")
+
+
+@contextmanager
+def recording_partitions(parts: list):
+    """While open, each partition of the plain model appends (rows of the
+    range, rows it moved) to parts."""
+    real = select_sort.partition_plain
+
+    def spy(rows, lo, hi):
+        before = rows[lo:hi].clone()
+        j = real(rows, lo, hi)
+        parts.append((hi - lo, int((rows[lo:hi] != before).any(1).sum())))
+        return j
+
+    select_sort.partition_plain = spy
+    try:
+        yield
+    finally:
+        select_sort.partition_plain = real
+
+
+def phase_select_sort(card, frames, cfg, errs_list, errs_part,
+                      times) -> None:
+    """Kernel S's two entries with the tracker's K0, S_MIN and ROUNDS on
+    kernel D's maps of traffic frames (the sequential replacement's
+    response): the list and its started state, then the whole list and
+    the sort's state after the partitions, bit for bit against the plain
+    version run on the card; then device times on the last map."""
+    rows, cols = frames.shape[1:]
+    win = (cfg.window_width, cfg.window_height)
+    n = selection_ops.candidate_count(cfg, cols, rows)
+    consts = (select_sort.K0, select_sort.S_MIN, select_sort.ROUNDS)
+    out, p_out = (torch.empty((n, 3), dtype=torch.int32, device="cuda")
+                  for _ in range(2))
+    state, p_state = (torch.empty(3 + 2 * native.LAZY_PENDING,
+                                  dtype=torch.int64, device="cuda")
+                      for _ in range(2))
+    scratch = scratch_for(n, out.device)
+    made = []
+    for k in SELECT_SORT_FRAMES:
+        _, gx, gy = build_pyramid_stacks_cuda(
+            torch.from_numpy(frames[k]).cuda(), cfg)[0]
+        resp = corner_response_cuda(gx, gy, *win)
+        candidate_list_cuda(resp, cfg, out, state)
+        candidate_list_plain(resp, cfg, p_out, p_state)
+        used = 3 + 2 * int(p_state[1])
+        err_l = (out - p_out).abs().max().item()
+        same_l = torch.equal(out, p_out) and \
+            torch.equal(state[:used], p_state[:used])
+        head_partitions_cuda(out, state, scratch, *consts)
+        parts = []
+        with recording_partitions(parts):
+            head_partitions_plain(p_out, p_state, *consts)
+        used = 3 + 2 * int(p_state[1])
+        err_p = max((out - p_out).abs().max().item(),
+                    (state[:used] - p_state[:used]).abs().max().item())
+        same_p = torch.equal(out, p_out) and \
+            torch.equal(state[:used], p_state[:used])
+        pend = p_state[3:used].view(-1, 2).cpu()
+        held = pend[(pend[:, 0] < consts[0]) & (pend[:, 1] >= consts[0])]
+        reach = int(held[0, 1]) if len(held) else consts[0]
+        errs_list.append(err_l)
+        errs_part.append(err_p)
+        made.append(parts)
+        print(f"[43 kernel S] frame {k}, {cols}x{rows}, {n} rows: list and "
+              f"state equal to the plain version: {same_l}; "
+              f"{len(parts)} partitions ({sum(r for r, _ in parts)} rows "
+              f"visited, {sum(m for _, m in parts)} moved), list and state "
+              f"after them equal: {same_p}; the walk's head reaches row "
+              f"{reach} of the {select_sort.prefix_rows(n)} that come back")
+        check(same_l and err_l == 0,
+              "kernel S's list entry differs from its plain version")
+        check(same_p and err_p == 0,
+              "kernel S's partition entry differs from its plain version")
+        check(len(parts) == consts[2] or
+              reach <= select_sort.prefix_rows(n),
+              "a range the walk's head meets ends past the rows that come "
+              "back")
+
+    def both(list_fn, part_fn, o, st, *extra):
+        list_fn(resp, cfg, o, st)
+        part_fn(o, st, *extra, *consts)
+
+    l_ms, l_host = kernel_times(
+        lambda: candidate_list_cuda(resp, cfg, out, state), 200)
+    b_ms, b_host = kernel_times(
+        lambda: both(candidate_list_cuda, head_partitions_cuda, out, state,
+                     scratch), 100, launches=2)
+    l_plain = cuda_ms(lambda: candidate_list_plain(resp, cfg, p_out,
+                                                   p_state), 3)
+    b_plain = cuda_ms(lambda: both(candidate_list_plain,
+                                   head_partitions_plain, p_out, p_state), 2)
+    l_bound = bound(*select_list_work(n))
+    p_bound = bound(*select_partitions_work(made[-1]))
+    us = lambda ms: f"{ms * 1e3:.1f}"
+    print(f"[43 kernel S] {card} | frame {SELECT_SORT_FRAMES[-1]}, device us "
+          f"per call (bound; host enqueue; plain version on the card): list "
+          f"entry {us(l_ms)} ({us(l_bound[0])} by {l_bound[1]}; "
+          f"{us(l_host)}; {us(l_plain)}), partition entry {us(b_ms - l_ms)} "
+          f"for {len(made[-1])} partitions, one cooperative launch "
+          f"({us(p_bound[0])} by {p_bound[1]}; {us(b_host - l_host)}; "
+          f"{us(b_plain - l_plain)}); the partition entry's times are those "
+          f"of list and partitions less the list's", flush=True)
+    times["select_list"] = {"ms": l_ms, "plain_ms": l_plain,
+                            "bound_ms": l_bound[0], "bound_by": l_bound[1]}
+    times["select_partitions"] = {
+        "ms": b_ms - l_ms, "plain_ms": b_plain - l_plain,
+        "bound_ms": p_bound[0], "bound_by": p_bound[1]}
 
 
 def phase_replace_cases(errs) -> None:
@@ -3028,7 +3163,8 @@ def run_device_selection(frame, n_feats, tag, card, times) -> dict:
             os.environ["KLT_TPU_EXACT_SELECT"] = saved
     want = {k.symbol: 0 for k in cuda.KERNELS} | {
         cuda.PYRAMID.symbol: 2, cuda.CORNER_RESPONSE.symbol: 1,
-        cuda.CORNER_RESPONSE_GLOBAL.symbol: 1}
+        cuda.CORNER_RESPONSE_GLOBAL.symbol: 1,
+        cuda.SELECT_LIST.symbol: 2, cuda.SELECT_PARTITIONS.symbol: 2}
     print(f"[{tag}] launches {launches} (expected {want})")
     check(launches == want, "selection path launch counts differ from the "
           "expected")
@@ -5258,6 +5394,10 @@ def main() -> int:
         phase_replace_kernel((qvga, vga), (150, 500), cfg,
                              errs[cuda.REPLACE_LOST.symbol])
         phase_replace_cases(errs[cuda.REPLACE_LOST.symbol])
+    with phase("43 kernel S"):
+        phase_select_sort(card, traffic, cfg,
+                          errs[cuda.SELECT_LIST.symbol],
+                          errs[cuda.SELECT_PARTITIONS.symbol], times)
 
     with phase("15 kernel C"):
         phase_batched_lk(((flag_b, flag_feats), (real_b, real_feats)),
@@ -5336,7 +5476,8 @@ def main() -> int:
     replace_launches = {k.symbol: k.launches for k in cuda.KERNELS}
     # flagship: KLTracker + track_sequence_replace; traffic: kernels,
     # precomp, KLTracker; KLTracker computes the response (D) only on
-    # frames with a lost feature and replaces on the host
+    # frames with a lost feature, and kernel S's two entries make the list
+    # and its large partitions from it before the walk on the host
     steps_q, steps_t = len(qvga) - 1, n_traffic - 1
     want = {k.symbol: 0 for k in cuda.KERNELS} | {
         cuda.PYRAMID.symbol: 2 * len(qvga) + 2 * n_traffic + 1,
@@ -5344,6 +5485,8 @@ def main() -> int:
         cuda.CORNER_RESPONSE.symbol: steps_q + lost_q + 2 * steps_t + lost_t,
         cuda.PYRAMID_BATCHED.symbol: precomp_launches(steps_t),
         cuda.REPLACE_LOST.symbol: steps_q + 2 * steps_t,
+        cuda.SELECT_LIST.symbol: lost_q + lost_t,
+        cuda.SELECT_PARTITIONS.symbol: lost_q + lost_t,
     }
     print(f"[10-11 launches] {replace_launches} (expected {want})")
     check(replace_launches == want,
@@ -5512,12 +5655,14 @@ def main() -> int:
     # a 111x111 window), C's entries at 32 x 320x240 x 150, F at step 10 of
     # the affine run's 640x480 with 2000 requested; G, H2 and R's tie
     # entry at step 100 of the exact traffic run (640x480, 500), H2's
-    # global-memory entry on the wide-window run's 320x240 with 121x121.
+    # global-memory entry on the wide-window run's 320x240 with 121x121;
+    # S's entries on kernel D's map of a traffic frame (640x480).
     # No single PyTorch call computes any of these functions (a chain of
     # separable passes with decimation, a Newton loop that ends by the
     # data, a fused product, box sum and eigenvalue, a greedy loop, a
-    # Gauss-Newton loop with an elimination per step), and none keeps the
-    # C summation order of the exact tier, so library_ms is null
+    # Gauss-Newton loop with an elimination per step, the reference's
+    # quicksort partitions with its tie order), and none keeps the C
+    # summation order of the exact tier, so library_ms is null
     # throughout.
     report = {"kernels": []}
     names = {cuda.PYRAMID: "pyramid", cuda.LK_LEVEL: "lk_level",
@@ -5533,7 +5678,9 @@ def main() -> int:
              cuda.EXACT_TRACK: "exact_track",
              cuda.EXACT_RESPONSE: "exact_response",
              cuda.EXACT_RESPONSE_GLOBAL: "exact_response_global",
-             cuda.REPLACE_LOST_TIE: "replace_lost_tie"}
+             cuda.REPLACE_LOST_TIE: "replace_lost_tie",
+             cuda.SELECT_LIST: "select_list",
+             cuda.SELECT_PARTITIONS: "select_partitions"}
     for k in cuda.KERNELS:
         name = names[k]
         report["kernels"].append({

@@ -31,7 +31,8 @@ from .._build import BUILD_DIR, compile_shared, is_stale, repo_path
 
 SOURCES = [repo_path("klt_tpu_torch", "csrc", name)
            for name in ("pyramid.cu", "lk_level.cu", "corner_response.cu",
-                        "replace.cu", "affine.cu", "exact.cu")]
+                        "replace.cu", "affine.cu", "exact.cu",
+                        "select_sort.cu")]
 # headers the sources include: a change to one rebuilds the library
 HEADERS = [repo_path("klt_tpu_torch", "csrc", "lk_exact_lane.h")]
 LIB = os.path.join(BUILD_DIR, "libklt_kernels.so")
@@ -106,6 +107,8 @@ def load_library() -> ctypes.CDLL:
             getattr(lib, name).restype = ctypes.c_int
         lib.klt_affine_max_cells.argtypes = []
         lib.klt_affine_max_cells.restype = ctypes.c_int
+        lib.klt_select_scratch_ints.argtypes = [_LL]
+        lib.klt_select_scratch_ints.restype = _LL
         lib.klt_exact_max_levels.argtypes = []
         lib.klt_exact_max_levels.restype = ctypes.c_int
         if lib.klt_exact_max_levels() != EXACT_MAX_LEVELS:
@@ -321,11 +324,29 @@ EXACT_TRACK = Kernel(
     source="klt_tpu_torch/csrc/exact.cu",
     replaces="klt_tpu/ops/lk_exact.py:215")
 
+# S: the candidate list of a selection, and the lazy quicksort's large
+# partitions of it in one cooperative launch (csrc/select_sort.cu).  Not
+# TPU kernels: klt_tpu builds and sorts the list on the host.
+SELECT_LIST = Kernel(
+    "klt_select_list",
+    # resp, row stride, grid columns / rows, borderx, bordery, step, out,
+    # state, cap, stream
+    [_P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P],
+    source="klt_tpu_torch/csrc/select_sort.cu",
+    replaces="klt_tpu_torch/native/lazy_select.c::klt_candidate_list")
+
+SELECT_PARTITIONS = Kernel(
+    "klt_select_partitions",
+    # rows, n, state, k0, s_min, rounds, scratch, scratch ints, stream
+    [_P, _LL, _P, _I, _I, _I, _P, _LL, _P],
+    source="klt_tpu_torch/csrc/select_sort.cu",
+    replaces="klt_tpu_torch/native/lazy_select.c::klt_lazy_sort_begin")
+
 KERNELS = (PYRAMID, LK_LEVEL, CORNER_RESPONSE, PYRAMID_BATCHED, REPLACE_LOST,
            LK_LEVEL_BATCHED, LK_PYRAMID, LK_PYRAMID_BATCHED,
            CORNER_RESPONSE_GLOBAL, AFFINE_TRACK, AFFINE_STEP,
            REPLACE_LOST_TIE, EXACT_RESPONSE, EXACT_TRACK,
-           EXACT_RESPONSE_GLOBAL)
+           EXACT_RESPONSE_GLOBAL, SELECT_LIST, SELECT_PARTITIONS)
 
 # The side of kernel R's tiles and the most tiles its map may have (kTile
 # and kMaxTiles of csrc/replace.cu; the library returns both).

@@ -7,8 +7,9 @@ copy of the JAX package's native source, which the tests hold equal),
 with `cc -O2 -shared -fPIC` into the port's build directory on first use,
 and again whenever the source is newer than the library; `lazy_select.c`
 (`LazySort`, which includes `kltnative.c`'s helpers, and `candidate_list`,
-the pass that writes the list it sorts) builds the same way into a library
-of its own.  `lk_exact_ref.c`
+the pass that writes the list it sorts; `LazySort.resume` takes up a sort
+that kernel S began on the card) builds the same way into a library of
+its own.  `lk_exact_ref.c`
 (the scalar lane program of csrc/lk_exact_lane.h, whose per-cell helpers
 kernel G shares, one feature after another) builds the same way with `cc -O0 -ffp-contract=off`, so that
 every f32 operation rounds on its own, as the reference's goldens were
@@ -89,6 +90,31 @@ def sort_points_desc(pts: np.ndarray) -> np.ndarray:
     return pts
 
 
+def _i32(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+
+def _i64(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+
+def _f32(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+
+def _check_points(pts: np.ndarray) -> None:
+    if pts.dtype != np.int32 or not pts.flags.c_contiguous or \
+            pts.ndim != 2 or pts.shape[1] != 3:
+        raise ValueError("expected contiguous int32 [n, 3] points")
+
+
+def _check_map(walk_map: np.ndarray) -> None:
+    if walk_map.dtype != np.uint8 or walk_map.ndim != 2 or \
+            not walk_map.flags.c_contiguous or not walk_map.flags.writeable:
+        raise ValueError("walk_map must be a writeable contiguous uint8 "
+                         "[nrows, ncols] map")
+
+
 def _check_walk(pts: np.ndarray, fx: np.ndarray, fy: np.ndarray,
                 fval: np.ndarray, ncols: int, nrows: int) -> None:
     """The suppression's arguments as its C loop reads them."""
@@ -134,17 +160,34 @@ def _load_lazy() -> ctypes.CDLL:
         f32p = ctypes.POINTER(ctypes.c_float)
         lib.klt_lazy_sort_begin.argtypes = [i32p, ctypes.c_int64, i64p]
         lib.klt_lazy_sort_begin.restype = None
-        lib.klt_lazy_min_dist_suppress.argtypes = [
-            i32p, ctypes.c_int64, i64p, f32p, f32p, i32p, ctypes.c_int64,
-            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-            ctypes.c_int32]
-        lib.klt_lazy_min_dist_suppress.restype = None
         lib.klt_candidate_list.argtypes = [
             f32p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
             ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, i32p]
         lib.klt_candidate_list.restype = ctypes.c_int64
+        lib.klt_partition_desc.argtypes = [i32p, ctypes.c_int64]
+        lib.klt_partition_desc.restype = ctypes.c_int64
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        walk = [f32p, f32p, i32p, ctypes.c_int64, ctypes.c_int32,
+                ctypes.c_int32, ctypes.c_int32]
+        lib.klt_lazy_walk_begin.argtypes = [u8p, i64p] + walk + \
+            [ctypes.c_int32]
+        lib.klt_lazy_walk_begin.restype = None
+        lib.klt_lazy_walk.argtypes = [i32p, ctypes.c_int64, ctypes.c_int64,
+                                      i64p, u8p, i64p] + walk + \
+            [ctypes.c_int32, ctypes.c_int32]
+        lib.klt_lazy_walk.restype = ctypes.c_int32
         _lazy_lib = lib
         return lib
+
+
+def partition_desc(pts: np.ndarray) -> int:
+    """One partition of klt_sort_points_desc on the whole of `pts`
+    (contiguous int32 [n, 3]), in place: the middle row's value as the
+    pivot, Hoare's loop, the same swaps.  Returns the pivot's final row (0
+    when n < 2)."""
+    _check_points(pts)
+    return int(_load_lazy().klt_partition_desc(
+        _i32(pts), ctypes.c_int64(pts.shape[0])))
 
 
 def candidate_count(ncols: int, nrows: int, borderx: int, bordery: int,
@@ -193,43 +236,89 @@ class LazySort:
     pts: contiguous int32 [n, 3] (x, y, val) triples, partitioned in
     place.  Making the object partitions the list until row 0 holds the
     best candidate; `min_dist_suppress` sorts the rest of what it reads as
-    it walks."""
+    it walks.  `resume` takes up a sort whose first partitions were made
+    elsewhere (kernel S, on the card).  walk_map: a writeable contiguous
+    uint8 [nrows, ncols] map of the image, the walk's, which the caller
+    owns and may reuse from call to call."""
 
-    def __init__(self, pts: np.ndarray):
-        if pts.dtype != np.int32 or not pts.flags.c_contiguous or \
-                pts.ndim != 2 or pts.shape[1] != 3:
-            raise ValueError("expected contiguous int32 [n, 3] points")
+    def __init__(self, pts: np.ndarray, walk_map: np.ndarray):
+        _check_points(pts)
+        _check_map(walk_map)
         self.pts = pts
+        self._rows = pts.shape[0]
+        self._map = walk_map
         self._state = np.empty(3 + 2 * LAZY_PENDING, np.int64)
         self._state[0] = LAZY_PENDING
         _load_lazy().klt_lazy_sort_begin(
-            pts.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-            ctypes.c_int64(pts.shape[0]),
-            self._state.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+            _i32(pts), ctypes.c_int64(pts.shape[0]), _i64(self._state))
+
+    @classmethod
+    def resume(cls, pts: np.ndarray, state: np.ndarray, rows: int,
+               walk_map: np.ndarray) -> "LazySort":
+        """The lazy sort of the n triples of `pts` from `state`, an int64
+        [3 + 2 * cap] state in lazy_select.c's layout that partitions of
+        this list left, of which only rows [0, rows) have arrived in `pts`
+        so far."""
+        _check_points(pts)
+        _check_map(walk_map)
+        state = np.array(state, np.int64)
+        cap = int(state[0])
+        if state.shape != (3 + 2 * max(cap, 1),) or not \
+                0 <= state[1] <= cap or not 0 <= rows <= pts.shape[0]:
+            raise ValueError("state is not a lazy sort's state of this list")
+        self = cls.__new__(cls)
+        self.pts = pts
+        self._rows = rows
+        self._map = walk_map
+        self._state = state
+        return self
 
     @property
     def n_final(self) -> int:
         """The rows at the head of `pts` that hold their sorted values."""
         return int(self._state[2])
 
+    def _avail(self) -> int:
+        """The rows the walk may read: those that have arrived, up to the
+        first pending range that reaches past them."""
+        k = int(self._state[1])
+        ranges = self._state[3:3 + 2 * k].reshape(k, 2)
+        cut = ranges[(ranges[:, 0] < self._rows) &
+                     (ranges[:, 1] > self._rows)]
+        return int(cut[0, 0]) if len(cut) else self._rows
+
     def min_dist_suppress(self, fx: np.ndarray, fy: np.ndarray,
                           fval: np.ndarray, ncols: int, nrows: int,
                           mindist: int, min_eigenvalue: int,
-                          overwrite_all: bool) -> None:
-        """As the module's `min_dist_suppress` on the sorted list."""
+                          overwrite_all: bool, more=None) -> None:
+        """As the module's `min_dist_suppress` on the sorted list.  After
+        `resume`, `more()` is called whenever the walk needs a row that has
+        not arrived: it brings the rest of the list into `pts` and returns
+        the rows that `pts` now holds."""
         pts = self.pts
-        _check_walk(pts, fx, fy, fval, ncols, nrows)
-        _load_lazy().klt_lazy_min_dist_suppress(
-            pts.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-            ctypes.c_int64(pts.shape[0]),
-            self._state.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-            fx.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-            fy.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-            fval.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-            ctypes.c_int64(fx.shape[0]),
-            ctypes.c_int32(ncols), ctypes.c_int32(nrows),
-            ctypes.c_int32(max(mindist, 0)), ctypes.c_int32(min_eigenvalue),
-            ctypes.c_int32(1 if overwrite_all else 0))
+        lib = _load_lazy()
+        _check_walk(pts[:self._rows], fx, fy, fval, ncols, nrows)
+        if self._map.shape != (nrows, ncols):
+            raise ValueError(f"walk_map is {self._map.shape}, the image "
+                             f"{nrows} x {ncols}")
+        args = (_f32(fx), _f32(fy), _i32(fval), ctypes.c_int64(fx.shape[0]),
+                ctypes.c_int32(ncols), ctypes.c_int32(nrows),
+                ctypes.c_int32(max(mindist, 0)))
+        overwrite = ctypes.c_int32(1 if overwrite_all else 0)
+        at = np.zeros(2, np.int64)
+        walk_map = self._map.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+        lib.klt_lazy_walk_begin(walk_map, _i64(at), *args, overwrite)
+        while lib.klt_lazy_walk(_i32(pts), ctypes.c_int64(pts.shape[0]),
+                                ctypes.c_int64(self._avail()),
+                                _i64(self._state), walk_map, _i64(at),
+                                *args, ctypes.c_int32(min_eigenvalue),
+                                overwrite):
+            had = self._rows
+            self._rows = more() if more is not None else had
+            if not had < self._rows <= pts.shape[0]:
+                raise RuntimeError(f"the walk needs row {int(at[0])} of "
+                                   f"{pts.shape[0]}; {had} have arrived")
+            _check_walk(pts[had:self._rows], fx, fy, fval, ncols, nrows)
 
 
 def load_pgm_batch(paths, height: int, width: int,

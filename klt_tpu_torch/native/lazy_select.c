@@ -31,7 +31,12 @@
  * size does not grow with n; a few dozen ranges are pending in practice.
  *
  * The list the sort starts from is written by klt_candidate_list, into a
- * buffer the caller owns and reuses.
+ * buffer the caller owns and reuses.  Where the response lies on the card,
+ * kernel S (csrc/select_sort.cu) writes the list there and makes the
+ * partitions of the ranges that the walk's head meets, in this state's
+ * layout; only the head of the list comes back, and klt_lazy_walk_begin /
+ * klt_lazy_walk take the sort up from that state, asking for the rest of
+ * the list only if the walk reads past the head.
  *
  * Built as a shared library of its own, bound via ctypes (__init__.py).
  * It includes kltnative.c for the reference's swap_triple,
@@ -97,6 +102,13 @@ static int64_t partition_desc(int32_t *a, int64_t n)
   return j;
 }
 
+/* partition_desc for callers outside this file: the loop that the card's
+ * partitions (csrc/select_sort.cu) are held against. */
+int64_t klt_partition_desc(int32_t *a, int64_t n)
+{
+  return n < 2 ? 0 : partition_desc(a, n);
+}
+
 /* Partitions the leftmost pending range until row p (< n) is final. */
 static void finalize_through(int32_t *a, int64_t n, int64_t *state,
                              int64_t p)
@@ -141,32 +153,56 @@ void klt_lazy_sort_begin(int32_t *a, int64_t n, int64_t *state)
   finalize_through(a, n, state, 0);
 }
 
-/* klt_min_dist_suppress over the triples that klt_lazy_sort_begin
- * started, each row made final just before the walk reads it.  On return
- * state[2] is the number of rows the sort made final. */
-void klt_lazy_min_dist_suppress(int32_t *pts, int64_t npts, int64_t *state,
-                                float *fx, float *fy, int32_t *fval,
-                                int64_t nfeat, int32_t ncols, int32_t nrows,
-                                int32_t mindist, int32_t min_eigenvalue,
-                                int32_t overwrite_all)
+/* the walk works with mindist-1 */
+static inline int32_t stamp_radius(int32_t mindist)
 {
-  uint8_t *map = (uint8_t *)calloc((size_t)ncols * nrows, 1);
-  int64_t slot = 0, p;
-  int32_t rad = mindist - 1; /* the scan below works with mindist-1 */
+  return mindist - 1 < -1 ? -1 : mindist - 1;
+}
+
+/* klt_min_dist_suppress over the triples whose sort klt_lazy_sort_begin
+ * started (or kernel S, csrc/select_sort.cu, on the card), each row made
+ * final just before the walk reads it, in steps, for a list of which only
+ * the head may have arrived.  klt_lazy_walk_begin zeroes the caller's
+ * ncols x nrows map, stamps the live features (fval >= 0) into it unless
+ * every slot is overwritten, and starts at[] (int64 [2]: the row and the
+ * slot the walk stands at). */
+void klt_lazy_walk_begin(uint8_t *map, int64_t *at, const float *fx,
+                         const float *fy, const int32_t *fval, int64_t nfeat,
+                         int32_t ncols, int32_t nrows, int32_t mindist,
+                         int32_t overwrite_all)
+{
+  int32_t rad = stamp_radius(mindist);
+  int64_t p;
+
+  memset(map, 0, (size_t)ncols * nrows);
+  at[0] = 0;
+  at[1] = 0;
+  if (overwrite_all)
+    return;
+  for (p = 0; p < nfeat; p++)
+    if (fval[p] >= 0)
+      stamp_neighborhood(map, (int32_t)fx[p], (int32_t)fy[p], rad, ncols,
+                         nrows);
+}
+
+/* The walk from row at[0] and slot at[1], reading only rows [0, avail) of
+ * the npts in the list (no pending range may straddle row avail).
+ * Returns 1, with at[] where the walk stands, when it needs row avail;
+ * called again with more rows it goes on where it stopped.  Else returns
+ * 0, after the slots still writable became NOT_FOUND; state[2] is then
+ * the number of rows the sort made final. */
+int32_t klt_lazy_walk(int32_t *pts, int64_t npts, int64_t avail,
+                      int64_t *state, uint8_t *map, int64_t *at, float *fx,
+                      float *fy, int32_t *fval, int64_t nfeat, int32_t ncols,
+                      int32_t nrows, int32_t mindist, int32_t min_eigenvalue,
+                      int32_t overwrite_all)
+{
+  int32_t rad = stamp_radius(mindist);
+  int64_t slot = at[1], p;
 
   if (min_eigenvalue < 1)
     min_eigenvalue = 1;
-  if (rad < -1)
-    rad = -1;
-
-  if (!overwrite_all) {
-    for (p = 0; p < nfeat; p++)
-      if (fval[p] >= 0)
-        stamp_neighborhood(map, (int32_t)fx[p], (int32_t)fy[p], rad,
-                           ncols, nrows);
-  }
-
-  for (p = 0; p < npts; p++) {
+  for (p = at[0]; p < npts; p++) {
     int32_t x, y, v;
 
     while (!overwrite_all && slot < nfeat && fval[slot] >= 0)
@@ -174,6 +210,11 @@ void klt_lazy_min_dist_suppress(int32_t *pts, int64_t npts, int64_t *state,
     if (slot >= nfeat)
       break;
 
+    if (p >= avail) {
+      at[0] = p;
+      at[1] = slot;
+      return 1;
+    }
     if (p >= state[2])
       finalize_through(pts, npts, state, p);
     x = pts[3 * p];
@@ -196,6 +237,7 @@ void klt_lazy_min_dist_suppress(int32_t *pts, int64_t npts, int64_t *state,
       fval[slot] = KLT_NOT_FOUND;
     }
   }
-
-  free(map);
+  at[0] = p;
+  at[1] = slot;
+  return 0;
 }

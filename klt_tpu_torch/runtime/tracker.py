@@ -19,11 +19,13 @@ KLTReplaceLostFeatures, src/V1/klt.h:150-169), bound to one torch device:
   (ops/selection.py::candidate_points_topk), so that a response on the
   card comes back as O(k * nCells) values instead of the whole map; the
   full list is taken whenever the exactness audit cannot certify the cut.
-  The full list is built in host memory the tracker keeps for the
-  selection's geometry (`_Lists`): a response on the card comes back by
-  one copy into a pinned map, and one C pass writes the list into an
-  int32 [n, 3] buffer, so that a call allocates nothing.  On the full
-  list the sort is lazy (native.LazySort): the suppression
+  The full list is built in buffers the tracker keeps for the
+  selection's geometry (`_Lists`), so that a call allocates nothing: from
+  a numpy or CPU response one C pass writes it into an int32 [n, 3] host
+  buffer; from a response on the card kernel S (cuda/select_sort.py)
+  writes it there and makes the sort's partitions of the ranges that the
+  walk's head meets, and only that head and the sort's state come back.
+  On the full list the sort is lazy (native.LazySort): the suppression
   stops once the free slots are filled, so only the head of the list it
   reads is sorted, with the full sort's rows and tie order;
 * tracking builds pyramids and runs the coarse-to-fine LK on the device;
@@ -68,9 +70,12 @@ from ..ops.selection import (_candidate_borders, candidate_count,
                              candidate_points, candidate_points_topk,
                              corner_response, selection_prefilter_audit)
 from ..ops.pyramid import build_pyramid_stacks
+from ..ops import select_sort
 from ..ops.lk import track_features_pyramid_stacks
 from ..ops.affine import AffineState, affine_consistency_step
 from ..cuda import graph
+from ..cuda.select_sort import (candidate_list_cuda, head_partitions_cuda,
+                                scratch_for)
 from ..utils import checks
 from ..utils.profiling import count, span
 from .. import native
@@ -171,28 +176,72 @@ class KLTracker:
         if not self._suppress_prefiltered(response, fl, ncols, nrows,
                                           overwrite_all):
             bufs = self._list_buffers(img.shape)
-            if isinstance(response, torch.Tensor):
-                with span("select.readback"):
-                    if response.device.type != "cpu":
-                        bufs.stage.copy_(response)
-                        response = bufs.stage
-                    response = response.numpy()
-            with span("select.candidates"):
-                pts = candidate_points(response, cfg, ncols, nrows,
-                                       out=bufs.pts)
-            count("select.candidates", len(pts))
-            # the walk reads a few % of the list: sort only that head
-            with span("select.sort"):
-                lazy = native.LazySort(pts)
-            with span("select.suppress"):
-                lazy.min_dist_suppress(fl.x, fl.y, fl.val, ncols, nrows,
-                                       cfg.mindist, cfg.min_eigenvalue,
-                                       overwrite_all)
+            if isinstance(response, torch.Tensor) and \
+                    response.device.type == "cuda":
+                lazy = self._sort_on_card(response, bufs, fl, ncols, nrows,
+                                          overwrite_all)
+            else:
+                if isinstance(response, torch.Tensor):
+                    with span("select.readback"):
+                        response = response.numpy()
+                with span("select.candidates"):
+                    pts = candidate_points(response, cfg, ncols, nrows,
+                                           out=bufs.pts)
+                count("select.candidates", len(pts))
+                # the walk reads a few % of the list: sort only that head
+                with span("select.sort"):
+                    lazy = native.LazySort(pts, bufs.walk_map)
+                with span("select.suppress"):
+                    lazy.min_dist_suppress(fl.x, fl.y, fl.val, ncols, nrows,
+                                           cfg.mindist, cfg.min_eigenvalue,
+                                           overwrite_all)
             count("select.sorted", lazy.n_final)
         # reset the affine reference patches of (re)selected slots
         if cfg.affine_consistency_check >= 0 and self._affine is not None:
             reset = np.ones(fl.n_features, bool) if overwrite_all else newly
             self._affine.invalidate(np.nonzero(reset)[0])
+
+    def _sort_on_card(self, response: torch.Tensor, bufs: "_Lists",
+                      fl: FeatureList, ncols: int,
+                      nrows: int, overwrite_all: bool) -> native.LazySort:
+        """The full-list selection from a response on the card: kernel S
+        makes the list there and the lazy sort's partitions of the ranges
+        that the walk's head meets, and only the list's first
+        `select_sort.prefix_rows` rows come back with the sort's state; the
+        walk finishes the sort on the host and brings the rest of the list
+        back only if it reads past them.  The same features, the same rows
+        made final, as the host chain.  Returns the lazy sort."""
+        cfg = self.cfg
+        if bufs.card is None:
+            bufs.card = _CardList.create(bufs.pts.shape[0], self.device)
+        card = bufs.card
+        n = bufs.pts.shape[0]
+        rows = select_sort.prefix_rows(n)
+        with span("select.candidates"):
+            candidate_list_cuda(response, cfg, card.pts, card.state)
+        count("select.candidates", n)
+        count("select.card_lists")
+        with span("select.sort"):
+            head_partitions_cuda(card.pts, card.state, card.scratch,
+                                 select_sort.K0, select_sort.S_MIN,
+                                 select_sort.ROUNDS)
+        with span("select.readback"):
+            card.stage_state.copy_(card.state, non_blocking=True)
+            card.stage_pts[:rows].copy_(card.pts[:rows])
+        with span("select.suppress"):
+            lazy = native.LazySort.resume(card.stage_pts.numpy(),
+                                          card.stage_state.numpy(), rows,
+                                          bufs.walk_map)
+
+            def rest() -> int:
+                count("select.card_spills")
+                card.stage_pts[rows:].copy_(card.pts[rows:])
+                return n
+
+            lazy.min_dist_suppress(fl.x, fl.y, fl.val, ncols, nrows,
+                                   cfg.mindist, cfg.min_eigenvalue,
+                                   overwrite_all, more=rest)
+        return lazy
 
     def _suppress_prefiltered(self, response, fl: FeatureList, ncols: int,
                               nrows: int, overwrite_all: bool) -> bool:
@@ -237,7 +286,7 @@ class KLTracker:
         bufs = self._lists.pop(key, None)
         if bufs is None:
             count("select.lists_made")
-            bufs = _Lists.create(shape, self.cfg, self.device)
+            bufs = _Lists.create(shape, self.cfg)
         else:
             count("select.lists_reused")
         self._lists[key] = bufs
@@ -403,21 +452,42 @@ class _Step:
 
 
 @dataclasses.dataclass
+class _CardList:
+    """A selection's list on the card (kernel S) and what of it comes
+    back to the host, for one geometry."""
+
+    pts: torch.Tensor          # device i32 [n, 3]: the candidate list
+    state: torch.Tensor        # device i64 [3 + 2 * LAZY_PENDING]: its sort
+    scratch: torch.Tensor      # device i32: kernel S's partition entry's
+    stage_pts: torch.Tensor    # pinned i32 [n, 3]: the list's head, back
+    stage_state: torch.Tensor  # pinned i64: the sort's state, back
+
+    @classmethod
+    def create(cls, n: int, device: torch.device) -> "_CardList":
+        state = torch.empty(3 + 2 * native.LAZY_PENDING, dtype=torch.int64)
+        return cls(pts=torch.empty((n, 3), dtype=torch.int32, device=device),
+                   state=state.to(device), scratch=scratch_for(n, device),
+                   stage_pts=torch.empty((n, 3), dtype=torch.int32,
+                                         pin_memory=True),
+                   stage_state=state.pin_memory())
+
+
+@dataclasses.dataclass
 class _Lists:
-    """The host buffers of a full-list selection for one geometry (frame
+    """The buffers of a full-list selection for one geometry (frame
     shape, borders and step), kept from call to call: nothing is
     allocated per call."""
 
-    stage: torch.Tensor | None  # pinned f32 [H, W]: the card's response
-    pts: np.ndarray             # i32 [n, 3]: the candidate list
+    pts: np.ndarray           # i32 [n, 3]: the candidate list on the host
+    walk_map: np.ndarray      # u8 [H, W]: the walk's map of stamps
+    card: _CardList | None    # the list on the card, made at the first
+    #                           selection from a response there
 
     @classmethod
-    def create(cls, shape, cfg: TrackingConfig,
-               device: torch.device) -> "_Lists":
-        stage = None if device.type == "cpu" else \
-            torch.empty(shape, dtype=torch.float32, pin_memory=True)
-        return cls(stage=stage, pts=np.empty(
-            (candidate_count(cfg, shape[1], shape[0]), 3), np.int32))
+    def create(cls, shape, cfg: TrackingConfig) -> "_Lists":
+        n = candidate_count(cfg, shape[1], shape[0])
+        return cls(pts=np.empty((n, 3), np.int32),
+                   walk_map=np.empty(shape, np.uint8), card=None)
 
 
 def _carry_slot(src: int | None) -> int:

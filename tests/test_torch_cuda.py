@@ -1904,3 +1904,183 @@ def test_track_pair_carry_graph_equals_eager(dev):
     assert counts["graphed"] == counts["eager"]
     (prog,) = [p for k, p in graph.programs() if k[0] == "pair_carry"]
     assert prog.replays == len(f) - 2
+
+
+# ------------------------------------------------ kernel S (select_sort.cu)
+
+def live_pool(dev, seed=20261018):
+    """The live cell's frames (benchmark/traffic/live.json takes the farm
+    mix's): u8 [65, 480, 640] numpy, and its TrackingConfig."""
+    import json
+    from benchmark import frames as frame_gen
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "benchmark", "traffic", "farm.json")) as f:
+        mix = json.load(f)
+    with open(os.path.join(root, "benchmark", "configs",
+                           "traffic_vga_500.json")) as f:
+        config = json.load(f)
+    pool = frame_gen.streams(config["width"], config["height"], mix, seed,
+                             dev)[0]
+    return pool.cpu().numpy(), kt.TrackingConfig(**config["tracking"])
+
+
+def live_response(frame, cfg, dev):
+    """Kernel D's map of a frame's level-0 gradients, as a sequential
+    replacement computes it."""
+    lvl0 = build_pyramid_stacks(torch.from_numpy(frame).to(dev), cfg)[0]
+    return corner_response(lvl0[1], lvl0[2], cfg.window_width,
+                           cfg.window_height)
+
+
+def card_and_plain_lists(resp, cfg, k0, s_min, rounds):
+    """Kernel S's list and partitions of resp, and the plain model's on a
+    copy on the CPU: ((rows, state) on the card, the same from the
+    model), all on the CPU."""
+    from klt_tpu_torch import native
+    from klt_tpu_torch.cuda.select_sort import (candidate_list_cuda,
+                                                head_partitions_cuda,
+                                                scratch_for)
+    from klt_tpu_torch.ops.select_sort import (candidate_list_plain,
+                                               head_partitions_plain)
+    from klt_tpu_torch.ops.selection import candidate_count
+    n = candidate_count(cfg, resp.shape[1], resp.shape[0])
+    size = 3 + 2 * native.LAZY_PENDING
+    rows = torch.full((n, 3), -7, dtype=torch.int32, device=resp.device)
+    state = torch.full((size,), -5, dtype=torch.int64, device=resp.device)
+    candidate_list_cuda(resp, cfg, rows, state)
+    head_partitions_cuda(rows, state, scratch_for(n, resp.device), k0,
+                         s_min, rounds)
+    p_rows = torch.empty((n, 3), dtype=torch.int32)
+    p_state = torch.empty(size, dtype=torch.int64)
+    candidate_list_plain(resp.cpu(), cfg, p_rows, p_state)
+    head_partitions_plain(p_rows, p_state, k0, s_min, rounds)
+    return (rows.cpu(), state.cpu()), (p_rows, p_state)
+
+
+def assert_same_sort(card, plain):
+    (rows, state), (p_rows, p_state) = card, plain
+    used = 3 + 2 * int(p_state[1])
+    assert torch.equal(state[:used], p_state[:used])
+    assert torch.equal(rows, p_rows)
+
+
+@pytest.mark.parametrize("k0,s_min,rounds", [
+    (8192, 4096, 64), (8192, 16384, 64), (2048, 2048, 64),
+    (60_000, 4096, 64),
+    (8192, 1024, 3), (8192, 100, 64)])
+def test_select_sort_kernel_equals_plain_on_live_maps(k0, s_min, rounds,
+                                                      dev):
+    """S's list and partitions of kernel D's maps of the live pool, the
+    whole list and the sort's state, bit-equal to the plain model; with
+    the module's K0 and S_MIN the range that holds row K0 - 1 ends inside
+    the head that comes back."""
+    from klt_tpu_torch.ops import select_sort
+    pool, cfg = live_pool(dev)
+    for k in (0, 17, 40):
+        resp = live_response(pool[k], cfg, dev)
+        card, plain = card_and_plain_lists(resp, cfg, k0, s_min, rounds)
+        assert_same_sort(card, plain)
+        state = plain[1]
+        if (k0, s_min) == (select_sort.K0, select_sort.S_MIN):
+            n = card[0].shape[0]
+            pend = state[3:3 + 2 * int(state[1])].view(-1, 2)
+            held = pend[(pend[:, 0] < k0) & (pend[:, 1] > k0 - 1)]
+            assert not len(held) or \
+                int(held[0, 1]) <= select_sort.prefix_rows(n)
+
+
+@pytest.mark.parametrize("kind", ["ties", "specials", "equal", "sorted"])
+def test_select_sort_kernel_equals_plain_on_made_maps(kind, dev):
+    """S on maps made to be hard: a few values and many ties, NaN, +-inf
+    and values at and beyond +-2^31, all one value, a map in descending
+    order; down to ranges of 64 rows."""
+    rng = np.random.default_rng(len(kind))
+    h, w = 480, 640
+    if kind == "ties":
+        m = rng.integers(0, 6, (h, w)).astype(np.float32) + 0.5
+    elif kind == "specials":
+        m = rng.normal(0.0, 1e4, (h, w)).astype(np.float32)
+        pick = rng.random((h, w)) < 0.2
+        m[pick] = rng.choice(np.float32(
+            [np.nan, np.inf, -np.inf, 2147483648.0, -2147483648.0,
+             2147483520.0, 4294967296.0, -0.5, 0.5]), int(pick.sum()))
+    elif kind == "equal":
+        m = np.full((h, w), 7.25, np.float32)
+    else:
+        m = np.arange(h * w, 0, -1, dtype=np.float32).reshape(h, w)
+    cfg = kt.TrackingConfig()
+    card, plain = card_and_plain_lists(torch.from_numpy(m).to(dev), cfg,
+                                       4096, 64, 64)
+    assert_same_sort(card, plain)
+
+
+def test_replace_on_card_route_equals_host_chain_over_the_live_pool(
+        dev, monkeypatch):
+    """`replace_lost_features` on the card route gives the host chain's
+    FeatureList, bit for bit, over 2,000 consecutive frames of the live
+    pool from features all lost (the first replacement selects all 500 and
+    reads past the head: a spill).  The host chain's tracker runs on the
+    card too; its kernel D maps are handed over on the CPU."""
+    from klt_tpu_torch.runtime import tracker as tracker_mod
+    from klt_tpu_torch.utils import profiling
+    pool, cfg = live_pool(dev)
+    period = pool.shape[0] - 1
+    on_host = [False]
+    real = tracker_mod.corner_response
+    monkeypatch.setattr(tracker_mod, "corner_response", lambda *a: (
+        real(*a).cpu() if on_host[0] else real(*a)))
+    card, host = (kt.KLTracker(cfg, device=dev) for _ in range(2))
+    fl_card, fl_host = (kt.FeatureList.create(500) for _ in range(2))
+    before = dict(profiling.counters())
+    for i in range(2000):
+        k = i % period
+        for tr, fl in ((card, fl_card), (host, fl_host)):
+            tr.track_features(pool[k], pool[k + 1], fl)
+        np.testing.assert_array_equal(fl_card.val, fl_host.val)
+        card.replace_lost_features(pool[k + 1], fl_card)
+        on_host[0] = True
+        host.replace_lost_features(pool[k + 1], fl_host)
+        on_host[0] = False
+        for a, b in ((fl_card.x, fl_host.x), (fl_card.y, fl_host.y),
+                     (fl_card.val, fl_host.val)):
+            np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+    after = profiling.counters()
+    lists = after["select.card_lists"] - before.get("select.card_lists", 0)
+    spills = after.get("select.card_spills", 0) - \
+        before.get("select.card_spills", 0)
+    assert lists >= 1000 and 1 <= spills <= lists // 100
+    # the card's buffers are made by the first selection from a map there
+    assert [b.card is not None for b in card._lists.values()] == [True]
+    assert [b.card is not None for b in host._lists.values()] == [False]
+
+
+def test_card_route_spill_forced_equals_no_spill(dev, monkeypatch):
+    """The card route's internal entry with a head of 64 rows: the walk
+    brings the rest back and selects what it selects from the whole head,
+    and counts one spill."""
+    from klt_tpu_torch.ops import select_sort
+    from klt_tpu_torch.utils import profiling
+    pool, cfg = live_pool(dev)
+    tr = kt.KLTracker(cfg, device=dev)
+    fl = kt.FeatureList.create(500)
+    for k in range(6):
+        tr.track_features(pool[k], pool[k + 1], fl)
+        tr.replace_lost_features(pool[k + 1], fl)
+    tr.track_features(pool[6], pool[7], fl)
+    fl.val[::7] = -1
+    resp = live_response(pool[7], cfg, dev)
+    bufs = tr._list_buffers(pool[7].shape)
+    out = []
+    for rows in (None, 64):
+        if rows is not None:
+            monkeypatch.setattr(select_sort, "prefix_rows", lambda n: rows)
+        got = fl.copy()
+        spills = profiling.counters().get("select.card_spills", 0)
+        lazy = tr._sort_on_card(resp, bufs, got, 640, 480, False)
+        out.append((got, lazy.n_final,
+                    profiling.counters().get("select.card_spills", 0) -
+                    spills))
+    (a, na, sa), (b, nb, sb) = out
+    for u, v in ((a.x, b.x), (a.y, b.y), (a.val, b.val)):
+        np.testing.assert_array_equal(u.view(np.int32), v.view(np.int32))
+    assert na == nb and (sa, sb) == (0, 1)

@@ -122,11 +122,11 @@ def test_native_sort_and_suppress_equal_klt_tpu():
         np.testing.assert_array_equal(a, b)
 
 
-def _lazy_case(name, rng):
+def _lazy_case(name, rng, n=4000):
     """(pts int32 [n, 3] in a 200x150 image, slots, min_eigenvalue); a
     "<case>.pending<k>" case keeps at most k ranges pending."""
     name = name.split(".")[0]
-    n, hi, slots, floor = 4000, 8, 60, 1
+    hi, slots, floor = 8, 60, 1
     if name in ("n0", "n1", "n2"):
         n = int(name[1])
     elif name == "spread":
@@ -169,7 +169,7 @@ def test_lazy_sort_equals_the_full_sort(case, overwrite_all, mindist,
     want = tuple(a.copy() for a in start)
     native.min_dist_suppress(full, *want, 200, 150, mindist, floor,
                              overwrite_all)
-    lazy = native.LazySort(pts.copy())
+    lazy = native.LazySort(pts.copy(), np.empty((150, 200), np.uint8))
     got = tuple(a.copy() for a in start)
     lazy.min_dist_suppress(*got, 200, 150, mindist, floor, overwrite_all)
     for a, b in zip(got, want):
@@ -266,13 +266,181 @@ def test_candidate_pass_equals_klt_tpu(rows, cols, kw):
     assert candidate_points(first, ours_cfg, cols, rows, out=out) is out
     np.testing.assert_array_equal(out, want)
     if len(out) > 1:
-        native.LazySort(out)               # rows permuted in place
+        native.LazySort(out, np.empty((rows, cols), np.uint8))  # in place
         assert not np.array_equal(out, want)
     np.testing.assert_array_equal(
         candidate_points(second, ours_cfg, cols, rows, out=out),
         jcand(second, ref_cfg, cols, rows))
     with pytest.raises(ValueError):
         candidate_points(first, ours_cfg, cols, rows, out=out[:, :2])
+
+
+# kernel S's plain model (ops/select_sort.py) held against lazy_select.c:
+# the list, one partition in the pairing form, and a lazy sort resumed from
+# the partitions it made
+
+SPECIALS = np.float32([np.nan, -np.nan, np.inf, -np.inf, 2147483648.0,
+                       -2147483648.0, 2147483520.0, -2147483520.0,
+                       4294967296.0, -2147483904.0, 0.9999999, -0.9999999])
+
+
+@pytest.mark.parametrize("rows,cols,kw", CANDIDATE_GRIDS,
+                         ids=[f"{r}x{c}-{sorted(k)}"
+                              for r, c, k in CANDIDATE_GRIDS])
+def test_card_list_model_equals_the_c_pass(rows, cols, kw):
+    """S's list in plain torch is klt_candidate_list's, bit for bit, NaN,
+    +-inf and values at and beyond +-2^31 included; its state holds the
+    one range [0, n) pending, as klt_lazy_sort_begin starts."""
+    import torch
+    from klt_tpu_torch import native
+    from klt_tpu_torch.ops.select_sort import candidate_list_plain
+    from klt_tpu_torch.ops.selection import candidate_count, candidate_points
+    rng = np.random.default_rng(rows * 7 + cols)
+    cfg = kt.TrackingConfig(**kw)
+    m = candidate_map(rng, rows, cols)
+    pick = rng.random((rows, cols)) < 0.3
+    m[pick] = rng.choice(SPECIALS, int(pick.sum()))
+    n = candidate_count(cfg, cols, rows)
+    out = torch.full((n, 3), -7, dtype=torch.int32)
+    state = torch.full((3 + 2 * native.LAZY_PENDING,), -5, dtype=torch.int64)
+    candidate_list_plain(torch.from_numpy(m), cfg, out, state)
+    np.testing.assert_array_equal(out.numpy(),
+                                  candidate_points(m, cfg, cols, rows))
+    want = [native.LAZY_PENDING, 1, 0, 0, n] if n >= 2 else \
+        [native.LAZY_PENDING, 0, n]
+    assert state[:len(want)].tolist() == want
+
+
+def _values(kind, rng, n):
+    """int32 [n, 3] rows of a `_lazy_case` kind at n rows."""
+    return _lazy_case(kind, rng, n)[0]
+
+
+@pytest.mark.parametrize("n", [2, 3, 17, 4000, 300_000])
+@pytest.mark.parametrize("kind", ["ties", "spread", "all_equal", "sorted"])
+def test_pairing_partition_equals_the_c_loop(kind, n):
+    """One partition in the pairing form moves every row where
+    klt_sort_points_desc's Hoare loop moves it, ties included, and stops
+    at the same pivot row; also on a range inside a longer list."""
+    import torch
+    from klt_tpu_torch import native
+    from klt_tpu_torch.ops.select_sort import partition_plain
+    rng = np.random.RandomState(n + len(kind))
+    pts = _values(kind, rng, n)
+    want = pts.copy()
+    j = native.partition_desc(want)
+    got = torch.from_numpy(pts.copy())
+    assert partition_plain(got, 0, n) == j
+    np.testing.assert_array_equal(got.numpy(), want)
+    if n >= 4:
+        lo, hi = n // 4, n - n // 8
+        want = pts.copy()
+        j = native.partition_desc(want[lo:hi])
+        got = torch.from_numpy(pts.copy())
+        assert partition_plain(got, lo, hi) == j
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+# (kind, rows, k0, s_min, rounds, cap): the model's partitions, then the
+# host's; "spill" prefixes are shorter than the walk's reach
+RESUMED = [
+    ("ties", 300_000, 8192, 16384, 64, None),
+    ("spread", 300_000, 8192, 16384, 64, None),
+    ("spread", 300_000, 500, 1000, 64, None),
+    ("all_equal", 300_000, 8192, 16384, 64, None),
+    ("sorted", 300_000, 4000, 3000, 64, None),
+    ("floor_above_all", 40_000, 2000, 1000, 64, None),
+    ("spread", 300_000, 500, 1000, 2, None),       # stopped by rounds
+    ("spread", 300_000, 50_000, 1000, 64, 3),      # stopped by the cap
+    ("ties", 25, 4, 2, 64, None),
+    ("n2", 2, 1, 1, 64, None),
+]
+
+
+@pytest.mark.parametrize("prefix", ["k0+s_min", "spill", "all"])
+@pytest.mark.parametrize("overwrite_all", [True, False])
+@pytest.mark.parametrize("case", RESUMED, ids=[
+    "-".join(map(str, c)) for c in RESUMED])
+def test_lazy_sort_resumed_from_the_model_equals_the_lazy_sort(
+        case, overwrite_all, prefix, monkeypatch):
+    """A LazySort resumed from the state and the list head that S's plain
+    partitions leave selects what a LazySort started on the host selects,
+    makes the same rows final, in the same tie order, whether its walk
+    stays inside the head or brings in the rest; rows the model left to
+    the host (cap, rounds) are sorted there."""
+    import torch
+    from klt_tpu_torch import native
+    from klt_tpu_torch.ops.select_sort import (head_partitions_plain,
+                                               start_state)
+    kind, n, k0, s_min, rounds, cap = case
+    if cap is not None:
+        monkeypatch.setattr(native, "LAZY_PENDING", cap)
+    rng = np.random.RandomState(n % 1000 + k0 + rounds)
+    pts, slots, floor = _lazy_case(kind, rng, n)
+    if kind == "ties" and n == 25:
+        slots = 40                          # more slots than rows
+    live = rng.rand(slots) < (0.0 if overwrite_all else 0.5)
+    start = (np.where(live, rng.randint(0, 200, slots), -1).astype(np.float32),
+             np.where(live, rng.randint(0, 150, slots), -1).astype(np.float32),
+             np.where(live, rng.randint(1, 50, slots), -1).astype(np.int32))
+    walk = (200, 150, 10, floor, overwrite_all)
+
+    host = native.LazySort(pts.copy(), np.empty((150, 200), np.uint8))
+    want = tuple(a.copy() for a in start)
+    host.min_dist_suppress(*want, *walk)
+
+    card = torch.from_numpy(pts.copy())
+    state = torch.empty(3 + 2 * native.LAZY_PENDING, dtype=torch.int64)
+    state[0] = native.LAZY_PENDING
+    start_state(state, n)
+    made = head_partitions_plain(card, state, k0, s_min, rounds)
+    assert made <= rounds
+    rows = {"k0+s_min": min(n, k0 + s_min), "spill": min(n, 3),
+            "all": n}[prefix]
+    head = np.full_like(pts, -1)
+    head[:rows] = card.numpy()[:rows]
+    brought = []
+
+    def rest():
+        brought.append(1)
+        head[rows:] = card.numpy()[rows:]
+        return n
+
+    lazy = native.LazySort.resume(head, state.numpy(), rows,
+                                  np.empty((150, 200), np.uint8))
+    got = tuple(a.copy() for a in start)
+    lazy.min_dist_suppress(*got, *walk, more=rest)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+    assert lazy.n_final == host.n_final
+    k = lazy.n_final
+    np.testing.assert_array_equal(head[:k], host.pts[:k])  # tie order too
+    if prefix == "all":
+        assert not brought
+    if prefix == "spill" and n > 3:
+        assert brought == [1]
+
+
+def test_resume_rejects_what_is_no_lazy_sort_state():
+    from klt_tpu_torch import native
+    pts = np.zeros((10, 3), np.int32)
+    state = np.zeros(3 + 2 * native.LAZY_PENDING, np.int64)
+    state[0] = native.LAZY_PENDING
+    walk_map = np.zeros((5, 5), np.uint8)
+    native.LazySort.resume(pts, state, 10, walk_map)
+    with pytest.raises(ValueError, match="state"):
+        native.LazySort.resume(pts, state[:-1], 10, walk_map)
+    with pytest.raises(ValueError, match="state"):
+        native.LazySort.resume(pts, state, 11, walk_map)
+    with pytest.raises(ValueError, match="walk_map"):
+        native.LazySort.resume(pts, state, 10, walk_map.astype(np.int32))
+    with pytest.raises(ValueError, match="walk_map"):
+        native.LazySort(pts.copy(), walk_map[:, ::2])
+    lazy = native.LazySort.resume(pts, state, 0, walk_map)
+    f = np.zeros(1, np.float32)
+    with pytest.raises(RuntimeError, match="needs row 0"):
+        lazy.min_dist_suppress(f, f.copy(), np.full(1, -1, np.int32), 5, 5,
+                               1, 1, False)
 
 
 @pytest.mark.parametrize("n_feat,kw", [(150, {}), (1000, {"mindist": 5}),

@@ -216,9 +216,9 @@ def test_sorted_counted_as_the_rows_made_final(overwrite_all, monkeypatch):
     made, counted = [], []
 
     class Spy(native.LazySort):
-        def __init__(self, pts):
+        def __init__(self, pts, walk_map):
             made.append((self, pts.copy()))
-            super().__init__(pts)
+            super().__init__(pts, walk_map)
 
     real_count = tracker_mod.count
 
@@ -294,10 +294,10 @@ def lists_counted(before):
                                     pytest.param("cuda",
                                                  marks=pytest.mark.cuda)])
 def test_selection_reuses_the_trackers_lists(device, monkeypatch):
-    """A tracker makes its map and list buffers once for a geometry and
-    reuses them at every later selection (on the card the map comes back
-    into the pinned one); the spans stay, and the features are those of
-    the numpy list, bit for bit."""
+    """A tracker makes its list buffers once for a geometry and reuses
+    them at every later selection (on the card kernel S's list there, and
+    the pinned list its head comes back into); the spans stay, and the
+    features are those of the numpy list on the host, bit for bit."""
     from klt_tpu_torch.runtime import tracker as tracker_mod
     if device == "cuda" and not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: run `python -m pytest "
@@ -305,7 +305,7 @@ def test_selection_reuses_the_trackers_lists(device, monkeypatch):
                     "GPU")
     frames = scene()
 
-    def run():
+    def run(device):
         tr = kt.KLTracker(CFG, device=device)
         fl = kt.FeatureList.create(N_FEAT)
         tr.select_good_features(frames[0], fl)
@@ -317,19 +317,24 @@ def test_selection_reuses_the_trackers_lists(device, monkeypatch):
 
     before = profiling.counters()
     with profile(activities=[ProfilerActivity.CPU]):
-        tr, got = run()
+        tr, got = run(device)
     assert lists_counted(before) == (T, 1, T - 1)
+    card_lists = profiling.counters().get("select.card_lists", 0) - \
+        before.get("select.card_lists", 0)
     names = [s.name for s in profiling.spans()]
     assert names.count("select.readback") == T - 1   # the replacements
     assert names.count("select.candidates") == T
     [bufs] = tr._lists.values()
+    assert bufs.walk_map.shape == frames[0].shape
     if device == "cuda":
-        assert bufs.stage.is_pinned() and bufs.stage.shape == (H, W)
+        assert bufs.card.stage_pts.is_pinned()
+        assert bufs.card.stage_pts.shape == bufs.pts.shape
+        assert bufs.card.pts.shape == bufs.pts.shape and card_lists == T - 1
     else:
-        assert bufs.stage is None
+        assert bufs.card is None and card_lists == 0
     monkeypatch.setattr(tracker_mod, "candidate_points",
                         frozen_candidate_points)
-    _, want = run()
+    _, want = run("cpu")
     for a, b in zip(got, want):
         for u, v in ((a.x, b.x), (a.y, b.y), (a.val, b.val)):
             np.testing.assert_array_equal(u.view(np.int32),
@@ -483,6 +488,9 @@ READERS = [
      None, 35.0),
     ("affine.lanes_per_step", [],
      {"affine.steps": 200, "affine.lanes": 200 * 16000}, 16000.0),
+    ("live.card_select_share", [],
+     {"select.calls": 400, "select.card_lists": 399,
+      "select.card_spills": 1}, 99.5),
 ]
 
 
